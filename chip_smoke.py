@@ -1,0 +1,376 @@
+"""End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``mmlspark_tpu_torch/ops/csrc/``, holds
+every kernel against its plain PyTorch version (and an f64 CPU result) at
+the shapes the main path gives it, times each, then drives the main path
+(``LightGBMClassifier.fit`` -> ``transform`` on a DataFrame, 200,000 x 64,
+63 leaves, 20 rounds) for both growth policies and for ``max_bin=63``, and
+checks that every kernel of the path was launched and that the models are
+right (held-out AUC >= 0.90; card and CPU fits of the same data agree).
+
+Each phase prints its own line. The line before the last is the card's
+name and power limit, the one before it the kernels' JSON record, and the
+last line is ``{"ok": true, "device": {...}}``. Any failure is a nonzero
+exit with the traceback: no phase is caught, and nothing falls back to the
+CPU. Without a CUDA device the script exits nonzero before any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: no CUDA device is available; this check runs on the card only")
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from mmlspark_tpu_torch import DataFrame  # noqa: E402
+from mmlspark_tpu_torch.core.metrics import binary_auc  # noqa: E402
+from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier, TrainConfig, train  # noqa: E402
+from mmlspark_tpu_torch.ops import cuda_build  # noqa: E402
+from mmlspark_tpu_torch.ops import histogram as H  # noqa: E402
+
+DEV = torch.device("cuda")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+N, D, N_TEST, N_CPU, SEED = 200_000, 64, 50_000, 20_000, 3
+TOL = 1e-5                     # g, h within TOL * sum |stats[:, j]|; counts exact
+SOURCE = "mmlspark_tpu_torch/ops/csrc/histogram.cu"
+TPU = "mmlspark_tpu/ops/histogram.py"
+
+
+def phase(name: str, **kv) -> None:
+    print(json.dumps({"phase": name, **kv}), flush=True)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    phase("card", nvidia_smi=out, torch=torch.__version__, cuda=torch.version.cuda,
+          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    return out
+
+
+def build() -> None:
+    t0 = time.perf_counter()
+    paths = cuda_build.build_all()
+    secs = time.perf_counter() - t0
+    ptxas = [
+        ln.strip() for log in cuda_build.build_logs.values()
+        for ln in log.splitlines() if "registers" in ln or "Compiling entry" in ln
+    ]
+    phase("build", seconds=secs, libraries=[str(p) for p in paths.values()], ptxas=ptxas)
+
+
+# -- kernels against their plain versions -------------------------------------
+
+
+def _data(n, d, B, seed, oob=True):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lo, hi = (-3, B + 3) if oob else (0, B)
+    bins = torch.randint(lo, hi, (n, d), generator=g, dtype=torch.int32)
+    stats = torch.stack(
+        [torch.randn(n, generator=g), torch.rand(n, generator=g) * 0.25 + 0.01,
+         torch.ones(n)], 1,
+    ).float()
+    return bins, stats
+
+
+def _f64_plane(bins, stats, B, base=None, S=1):
+    """(S, d*B, 3) f64 reference by numpy bincount; base = slot per row."""
+    b = bins.numpy().astype(np.int64)
+    s = stats.numpy().astype(np.float64)
+    n, d = b.shape
+    sl = np.zeros(n, np.int64) if base is None else base.numpy().astype(np.int64)
+    out = np.zeros((S, d, B, 3))
+    ok_row = (sl >= 0) & (sl < S)
+    for f in range(d):
+        ok = ok_row & (b[:, f] >= 0) & (b[:, f] < B)
+        idx = sl[ok] * B + b[ok, f]
+        for j in range(3):
+            out[:, f, :, j] = np.bincount(idx, s[ok, j], minlength=S * B).reshape(S, B)
+    return out.reshape(S, d * B, 3)
+
+
+def _compare(name, got, plain, ref64, stats):
+    """Counts exact; g, h within TOL * sum |stats_j|, against the plain
+    version on the card and the f64 CPU result. Returns max |got - plain|."""
+    got_c, plain_c = got.double().cpu().numpy(), plain.double().cpu().numpy()
+    for want, what in ((plain_c, "plain"), (ref64, "f64")):
+        want = want.reshape(got_c.shape)
+        if not np.array_equal(got_c[..., 2], want[..., 2]):
+            raise AssertionError(f"{name}: counts differ from the {what} result")
+        for j in (0, 1):
+            atol = TOL * float(stats[:, j].abs().sum())
+            err = float(np.abs(got_c[..., j] - want[..., j]).max())
+            if err > atol:
+                raise AssertionError(f"{name}: stat {j} off the {what} result by {err} > {atol}")
+    return float(np.abs(got_c - plain_c).max())
+
+
+def check_plane(B: int, masked: bool) -> float:
+    """Unmasked: int32 bins with codes below 0 and at or above B. Masked:
+    uint8 bins (the training layout) with codes at or above B."""
+    bins, stats = _data(N, D, B, seed=B + masked)
+    mask = (torch.rand(N, generator=torch.Generator().manual_seed(B)) < 0.5).float() if masked else None
+    if masked:
+        bins = bins.clamp(0, 255).to(torch.uint8)
+    bd, sd = bins.to(DEV), stats.to(DEV)
+    md = mask.to(DEV) if masked else None
+    a = H.plane_hist(bd, sd, md, B)
+    a2 = H.plane_hist(bd, sd, md, B)
+    torch.cuda.synchronize()
+    if not torch.equal(a, a2):
+        raise AssertionError(f"plane_hist B={B}: two runs differ bitwise")
+    pre = stats if mask is None else stats * mask[:, None]
+    err = _compare(f"plane_hist B={B}", a, H.plane_histogram_plain(bd, sd, md, B),
+                   _f64_plane(bins, pre, B), pre)
+    torch.cuda.synchronize()
+    phase("check", kernel="plane_hist", B=B, masked=masked, bins=str(bins.dtype),
+          n=N, d=D, max_abs_err=err, bitwise_repeat=True)
+    return err
+
+
+def check_leaf_sums(L: int = 63) -> float:
+    """leaf_stat_sums on the card: plane_hist with d = 1 and B = L."""
+    leaf = torch.randint(0, L, (N,), generator=torch.Generator().manual_seed(L),
+                         dtype=torch.int32)
+    _, stats = _data(N, 1, L, seed=L)
+    ld, sd = leaf.to(DEV), stats.to(DEV)
+    a = H.leaf_stat_sums(ld, sd, L)
+    a2 = H.leaf_stat_sums(ld, sd, L)
+    torch.cuda.synchronize()
+    if not torch.equal(a, a2):
+        raise AssertionError("leaf_stat_sums: two runs differ bitwise")
+    err = _compare("leaf_stat_sums", a, H.plane_histogram_plain(ld[:, None], sd, None, L),
+                   _f64_plane(leaf[:, None], stats, L), stats)
+    torch.cuda.synchronize()
+    phase("check", kernel="plane_hist", use="leaf_stat_sums", B=L, n=N, d=1,
+          max_abs_err=err, bitwise_repeat=True)
+    return err
+
+
+def check_multi(S: int) -> float:
+    B = 256
+    bins, stats = _data(N, D, B, seed=1000 + S)
+    slot = torch.randint(-1, S + 2, (N,), generator=torch.Generator().manual_seed(S),
+                         dtype=torch.int32)
+    bd, sd, sl = bins.to(DEV), stats.to(DEV), slot.to(DEV)
+    a = H.multi_plane_hist(bd, sd, sl, S, B)
+    a2 = H.multi_plane_hist(bd, sd, sl, S, B)
+    torch.cuda.synchronize()
+    if not torch.equal(a, a2):
+        raise AssertionError(f"multi_plane_hist S={S}: two runs differ bitwise")
+    err = _compare(f"multi_plane_hist S={S}", a,
+                   H.multi_plane_histogram_plain(bd, sd, sl, S, B),
+                   _f64_plane(bins, stats, B, slot, S), stats)
+    torch.cuda.synchronize()
+    phase("check", kernel="multi_plane_hist", B=B, S=S, n=N, d=D, max_abs_err=err,
+          bitwise_repeat=True)
+    return err
+
+
+# -- times at the main-path shapes --------------------------------------------
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flat(bins, B, base=None):
+    n, d = bins.shape
+    b = bins.long()
+    cell = torch.arange(d, device=bins.device) * B + b
+    if base is not None:
+        cell = cell + base[:, None] * (d * B)
+    return (cell[:, :, None] * 3 + torch.arange(3, device=bins.device)).reshape(-1)
+
+
+def time_plane(B: int) -> dict:
+    """Unmasked (the root build: every row) plane at n x d with uint8 bins."""
+    bins, stats = _data(N, D, B, seed=7, oob=False)
+    bd, sd = bins.to(torch.uint8).to(DEV), stats.to(DEV)
+    idx = _flat(bd, B)
+    src = sd[:, None, :].expand(N, D, 3).reshape(-1).contiguous()
+    out = torch.zeros(D * B * 3, device=DEV)
+    nbytes = N * D * 1 + N * 3 * 4 + D * B * 3 * 4
+    ops = N * D * 3
+    rec = {
+        "ms": time_ms(lambda: H.plane_hist(bd, sd, None, B)),
+        "plain_ms": time_ms(lambda: H.plane_histogram_plain(bd, sd, None, B)),
+        "library_ms": time_ms(lambda: out.zero_().index_add_(0, idx, src)),
+        "bytes": nbytes, "ops": ops,
+    }
+    rec.update(_bound(nbytes, ops))
+    mask = (torch.rand(N, device=DEV) < 0.5).float()
+    rec["ms_mask_half_rows"] = time_ms(lambda: H.plane_hist(bd, sd, mask, B))
+    return rec
+
+
+def time_multi(S: int) -> dict:
+    """Depthwise level build: every row's slot in [0, S), 256 bins."""
+    B = 256
+    bins, stats = _data(N, D, B, seed=11, oob=False)
+    bd, sd = bins.to(torch.uint8).to(DEV), stats.to(DEV)
+    sl = torch.randint(0, S, (N,), device=DEV, dtype=torch.int32)
+    idx = _flat(bd, B, sl.long())
+    src = sd[:, None, :].expand(N, D, 3).reshape(-1).contiguous()
+    out = torch.zeros(S * D * B * 3, device=DEV)
+    nbytes = N * D * 1 + N * 3 * 4 + N * 4 + S * D * B * 3 * 4
+    ops = N * D * 3
+    rec = {
+        "ms": time_ms(lambda: H.multi_plane_hist(bd, sd, sl, S, B)),
+        "plain_ms": time_ms(lambda: H.multi_plane_histogram_plain(bd, sd, sl, S, B)),
+        "library_ms": time_ms(lambda: out.zero_().index_add_(0, idx, src)),
+        "bytes": nbytes, "ops": ops,
+    }
+    rec.update(_bound(nbytes, ops))
+    return rec
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+# -- the slice at full width ---------------------------------------------------
+
+
+def dataset(n: int, seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float64)
+    return x, y
+
+
+def fit_main_path(x, y, x_test, y_test, **params) -> dict:
+    est = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20,
+                             seed=0, device=DEV.type, **params)
+    train_df = DataFrame.from_dict({"features": x, "label": y})
+    test_df = DataFrame.from_dict({"features": x_test, "label": y_test})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = est.fit(train_df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = model.transform(test_df)
+    torch.cuda.synchronize()
+    launches = dict(H.launches)
+    proba = out["probability"]
+    if proba.shape != (len(y_test), 2) or not np.all(np.isfinite(proba)):
+        raise AssertionError("transform returned malformed probabilities")
+    auc = binary_auc(y_test, proba[:, 1])
+    trees = len(model.booster.trees)
+    rec = dict(params, trees=trees, fit_s=fit_s, trees_per_s=trees / fit_s,
+               auc=auc, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    phase("main_path", **rec)
+    if auc < 0.90:
+        raise AssertionError(f"held-out AUC {auc} < 0.90 for {params}")
+    return rec
+
+
+def card_vs_cpu(x_test, y_test) -> dict:
+    x, y = dataset(N_CPU, seed=SEED + 1)
+    cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0)
+    p = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
+    base = float(np.log(p / (1 - p)))
+    t0 = time.perf_counter()
+    gpu = train(x, y, cfg, base_score=base, device=DEV)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = train(x, y, cfg, base_score=base, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = total = 0
+    for a, b in zip(gpu.trees, cpu.trees):
+        eq = ((a.leaf == b.leaf) & (a.feature == b.feature)
+              & (a.threshold == b.threshold) & (a.active == b.active))
+        same += int(eq.sum())
+        total += len(eq)
+    auc_gpu = binary_auc(y_test, gpu.predict_raw(x_test, device=DEV))
+    auc_cpu = binary_auc(y_test, cpu.predict_raw(x_test, device="cpu"))
+    rec = {"rows": len(y), "identical_split_share": same / total,
+           "auc_card": auc_gpu, "auc_cpu": auc_cpu, "fit_s_card": gpu_s, "fit_s_cpu": cpu_s}
+    phase("card_vs_cpu", **rec)
+    if abs(auc_gpu - auc_cpu) > 0.002:
+        raise AssertionError(f"card AUC {auc_gpu} and CPU AUC {auc_cpu} differ by more than 0.002")
+    return rec
+
+
+def main() -> None:
+    smi = card()
+    build()
+
+    errs = {
+        "plane64": max(check_plane(64, False), check_plane(64, True)),
+        "plane256": max(check_plane(256, False), check_plane(256, True), check_leaf_sums()),
+        "multi": max(check_multi(S) for S in (1, 16, 32, 100)),
+    }
+
+    t_plane256, t_plane64 = time_plane(256), time_plane(64)
+    t_multi16, t_multi32 = time_multi(16), time_multi(32)
+    phase("times", plane_hist_b256=t_plane256, plane_hist_b64=t_plane64,
+          multi_plane_hist_s16=t_multi16, multi_plane_hist_s32=t_multi32)
+
+    x_all, y_all = dataset(N + N_TEST)
+    x, y, x_test, y_test = x_all[:N], y_all[:N], x_all[N:], y_all[N:]
+    runs = {
+        "lossguide": fit_main_path(x, y, x_test, y_test, growth_policy="lossguide", max_bin=255),
+        "depthwise": fit_main_path(x, y, x_test, y_test, growth_policy="depthwise", max_bin=255),
+        "lossguide_b64": fit_main_path(x, y, x_test, y_test, growth_policy="lossguide", max_bin=63),
+    }
+    need = {"lossguide": "plane_hist", "depthwise": "multi_plane_hist",
+            "lossguide_b64": "plane_hist"}
+    for run, kernel in need.items():
+        if runs[run]["launches"][kernel] == 0:
+            raise AssertionError(f"the {run} fit never launched {kernel}")
+
+    card_vs_cpu(x_test, y_test)
+
+    def entry(name, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    kernels = [
+        entry("plane_hist (B=256)", f"{TPU}:424 _hist_split_kernel (B2, pallas_call :517)",
+              runs["lossguide"]["launches"]["plane_hist"], errs["plane256"], t_plane256),
+        entry("plane_hist (B=64)", f"{TPU}:389 _hist_kernel (B1, pallas_call :533)",
+              runs["lossguide_b64"]["launches"]["plane_hist"], errs["plane64"], t_plane64),
+        entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
+              runs["depthwise"]["launches"]["multi_plane_hist"], errs["multi"], t_multi16),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,428 @@
+"""Tree growth and prediction on the device.
+
+The port of ``mmlspark_tpu.models.gbdt.treegrow``: leaf-wise (lossguide)
+growth, level-wise (depthwise) growth with sibling subtraction and the
+vectorized level application, the shared split search, and the batched
+split-log replay used for prediction. Numerical splits only; categorical
+splits are not ported yet (ROADMAP.md, Queue A item 3).
+
+Convention (the JAX package's): a split sends ``bin <= threshold_bin`` (and
+missing/NaN) LEFT; the left child keeps the parent's leaf id, the right
+child gets a fresh id, so a tree is its ordered split records plus leaf
+values.
+
+The growers are sync-free: the reference's ``lax.fori_loop`` over the L-1
+split steps becomes a Python loop over device tensors whose every index is
+a tensor (``index_select`` / ``index_copy_``), never ``.item()``, so the
+host never waits on the device inside a tree and a later change can
+capture a whole round as a CUDA graph. The records come to the host once,
+after training (``train.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from mmlspark_tpu_torch.ops.histogram import (
+    NUM_BINS,
+    leaf_stat_sums,
+    multi_plane_histogram,
+    plane_histogram,
+)
+
+
+class GrownTree(NamedTuple):
+    """Device outputs of one grown tree (fixed shapes; L = num_leaves)."""
+
+    rec_leaf: torch.Tensor      # (L-1,) int64 parent leaf id per split (-1 none)
+    rec_feature: torch.Tensor   # (L-1,) int64
+    rec_bin: torch.Tensor       # (L-1,) int64 threshold bin (<= goes left)
+    rec_active: torch.Tensor    # (L-1,) bool: split actually made
+    rec_gain: torch.Tensor      # (L-1,) float32
+    leaf_values: torch.Tensor   # (L,) float32 (shrinkage applied)
+    leaf_counts: torch.Tensor   # (L,) int32
+    row_leaf: torch.Tensor      # (n,) int32 final leaf of every row
+
+
+class SplitParams(NamedTuple):
+    """The regularization scalars as f32 0-d tensors on the device, made
+    once per training run: every comparison and product then happens in
+    f32, as in the JAX package, and no scalar crosses to the device inside
+    a tree."""
+
+    lambda_l2: torch.Tensor
+    lambda_l1: torch.Tensor
+    min_sum_hessian: torch.Tensor
+    min_gain: torch.Tensor
+    learning_rate: torch.Tensor
+
+    @staticmethod
+    def make(device: torch.device, *, lambda_l2: float, lambda_l1: float,
+             min_sum_hessian: float, min_gain: float,
+             learning_rate: float) -> "SplitParams":
+        vals = torch.tensor(
+            [lambda_l2, lambda_l1, min_sum_hessian, min_gain, learning_rate],
+            dtype=torch.float32,
+        ).to(device)
+        return SplitParams(*vals.unbind())
+
+
+def threshold_l1(G: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
+    """LightGBM ThresholdL1: sign(G) * max(|G| - l1, 0)."""
+    return torch.sign(G) * torch.clamp_min(G.abs() - l1, 0.0)
+
+
+def split_gain_term(G: torch.Tensor, H: torch.Tensor, lam: torch.Tensor,
+                    l1: torch.Tensor) -> torch.Tensor:
+    """One side's contribution to split gain: ThresholdL1(G)^2 / (H + lam)."""
+    t = threshold_l1(G, l1)
+    return t * t / (H + lam)
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 prefix sum over the last axis, in the order XLA's CPU backend
+    sums ``jnp.cumsum`` (blocks of 16 summed left to right, then each
+    block offset by the running total of the blocks before it), so the
+    split gains on the CPU equal the JAX package's bit for bit. The order
+    is kept on CUDA too: one code path, and the card is held by quality."""
+    B = x.shape[-1]
+    if B % 16:
+        raise ValueError(f"prefix_sum takes a multiple of 16 bins, got {B}")
+    blk = x.reshape(*x.shape[:-1], B // 16, 16)
+    acc = blk[..., 0]
+    cols = [acc]
+    for i in range(1, 16):
+        acc = acc + blk[..., i]
+        cols.append(acc)
+    within = torch.stack(cols, -1)
+    total = within[..., -1]
+    run = torch.zeros_like(total[..., 0])
+    before = []
+    for b in range(B // 16):
+        before.append(run)
+        run = run + total[..., b]
+    return (within + torch.stack(before, -1)[..., None]).reshape(x.shape)
+
+
+def make_leaf_best(
+    d: int,
+    feature_mask: torch.Tensor,
+    min_data_in_leaf: int,
+    sp: SplitParams,
+    num_bins: int = NUM_BINS,
+):
+    """Best-split search over a batch of (d*B, 3) histogram planes — the
+    single source of split semantics both growers share. The reference's
+    ``jax.vmap(leaf_best)`` over planes is the leading batch dimension
+    here. Returns (gain (P,), feature (P,), bin (P,))."""
+    B = num_bins
+    feat_ok = (feature_mask > 0)[None, :, None]
+    mdl = float(min_data_in_leaf)
+
+    def gscore(Gv: torch.Tensor, Hv: torch.Tensor) -> torch.Tensor:
+        return split_gain_term(Gv, Hv, sp.lambda_l2, sp.lambda_l1)
+
+    def leaf_best(planes: torch.Tensor) -> tuple:
+        P = planes.shape[0]
+        cube = planes.reshape(P, d, B, 3).permute(0, 3, 1, 2)  # (P, 3, d, B)
+        cs = prefix_sum(cube.contiguous())
+        GL, HL, CL = cs[:, 0], cs[:, 1], cs[:, 2]
+        G, H, C = GL[..., -1:], HL[..., -1:], CL[..., -1:]
+        GR, HR, CR = G - GL, H - HL, C - CL
+        gain_num = gscore(GL, HL) + gscore(GR, HR) - gscore(G, H)
+        msh = sp.min_sum_hessian
+        valid = (
+            feat_ok
+            & (CL >= mdl) & (CR >= mdl)
+            & (HL >= msh) & (HR >= msh)
+        )
+        flat = torch.where(valid, gain_num, -math.inf).reshape(P, d * B)
+        best = torch.argmax(flat, dim=1)  # first maximum, as jnp.argmax
+        return (
+            flat.gather(1, best[:, None])[:, 0],
+            torch.div(best, B, rounding_mode="floor"),
+            best % B,
+        )
+
+    return leaf_best
+
+
+def _row_stats(grad: torch.Tensor, hess: torch.Tensor,
+               row_weight: torch.Tensor) -> torch.Tensor:
+    return torch.stack([grad * row_weight, hess * row_weight, row_weight], -1)
+
+
+def _leaf_values(row_leaf: torch.Tensor, row_stats: torch.Tensor, L: int,
+                 sp: SplitParams) -> tuple:
+    """-ThresholdL1(G)/(H+lambda) * lr per final leaf (0 for empty leaves)."""
+    sums = leaf_stat_sums(row_leaf, row_stats, L)
+    Gl, Hl, Cl = sums[:, 0], sums[:, 1], sums[:, 2]
+    values = -threshold_l1(Gl, sp.lambda_l1) / (Hl + sp.lambda_l2) * sp.learning_rate
+    return torch.where(Cl > 0, values, 0.0), Cl.to(torch.int32)
+
+
+def grow_tree(
+    bins: torch.Tensor,            # (n, d) uint8
+    grad: torch.Tensor,            # (n,) f32
+    hess: torch.Tensor,            # (n,) f32
+    row_weight: torch.Tensor,      # (n,) f32 (0 = ignore)
+    *,
+    num_leaves: int,
+    sp: SplitParams,
+    feature_mask: torch.Tensor,    # (d,) f32 1/0 (feature_fraction)
+    max_depth: int = -1,
+    min_data_in_leaf: int = 20,
+    num_bins: int = NUM_BINS,
+) -> GrownTree:
+    """Leaf-wise (best-first) growth of one tree: the port of the JAX
+    package's ``_grow_tree``.
+
+    The (L, d*B, 3) histogram cube is carried incrementally and updated in
+    place: each split histograms only the rows that moved to the new right
+    child (one masked ``plane_hist`` over the rows) and the parent keeps
+    parent - right (LightGBM's subtraction trick). The split-search cache
+    is refreshed for those two leaves only."""
+    n, d = bins.shape
+    L, B = num_leaves, num_bins
+    dev = bins.device
+    row_stats = _row_stats(grad, hess, row_weight)
+    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B)
+
+    hist = torch.zeros((L, d * B, 3), dtype=torch.float32, device=dev)
+    hist[0] = plane_histogram(bins, row_stats, None, B)
+    leaf_ids = torch.arange(L, device=dev)
+    row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaf_depth = torch.zeros(L, dtype=torch.int32, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    cache_gain = torch.full((L,), -math.inf, dtype=torch.float32, device=dev)
+    cache_feat = torch.zeros(L, dtype=torch.int64, device=dev)
+    cache_bin = torch.zeros(L, dtype=torch.int64, device=dev)
+    prev_pair = torch.zeros(2, dtype=torch.int64, device=dev)  # root twice
+    rec_leaf = torch.full((L - 1,), -1, dtype=torch.int64, device=dev)
+    rec_feature = torch.full((L - 1,), -1, dtype=torch.int64, device=dev)
+    rec_bin = torch.full((L - 1,), -1, dtype=torch.int64, device=dev)
+    rec_active = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+    rec_gain = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+
+    for k in range(L - 1):
+        # refresh the two planes the previous split changed
+        pg, pf, pb = leaf_best(hist.index_select(0, prev_pair))
+        cache_gain.index_copy_(0, prev_pair, pg)
+        cache_feat.index_copy_(0, prev_pair, pf)
+        cache_bin.index_copy_(0, prev_pair, pb)
+
+        leaf_ok = leaf_ids <= k
+        if max_depth > 0:
+            leaf_ok = leaf_ok & (leaf_depth < max_depth)
+        sel = torch.where(leaf_ok, cache_gain, -math.inf)
+        bl = torch.argmax(sel).view(1)
+        best_gain = sel.index_select(0, bl)
+        bf = cache_feat.index_select(0, bl)
+        bb = cache_bin.index_select(0, bl)
+        do_split = ~done & (best_gain > sp.min_gain) & torch.isfinite(best_gain)
+
+        row_bins = bins.index_select(1, bf)[:, 0]
+        moved = do_split & (row_leaf == bl) & (row_bins > bb)
+        row_leaf = torch.where(moved, k + 1, row_leaf)
+        right = plane_histogram(bins, row_stats, moved.to(torch.float32), B)
+        hist[k + 1] = right
+        parent = hist.index_select(0, bl)
+        hist.index_copy_(0, bl, parent + torch.where(do_split, -right, 0.0))
+
+        child_depth = leaf_depth.index_select(0, bl) + 1
+        deeper = leaf_depth.index_copy(0, bl, child_depth)
+        deeper[k + 1: k + 2] = child_depth
+        leaf_depth = torch.where(do_split, deeper, leaf_depth)
+        rec_leaf[k: k + 1] = torch.where(do_split, bl, -1)
+        rec_feature[k: k + 1] = torch.where(do_split, bf, -1)
+        rec_bin[k: k + 1] = torch.where(do_split, bb, -1)
+        rec_active[k: k + 1] = do_split
+        rec_gain[k: k + 1] = torch.where(do_split, best_gain, 0.0)
+        done = done | ~do_split
+        prev_pair = torch.cat([bl, leaf_ids[k + 1: k + 2]])
+
+    values, counts = _leaf_values(row_leaf, row_stats, L, sp)
+    return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
+                     values, counts, row_leaf)
+
+
+def _put_drop(a: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``a.at[idx].set(vals, mode="drop")``: indices outside [0, len(a))
+    land in a trash slot that is cut off."""
+    n = a.shape[0]
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    return torch.cat([a, a[:1]]).index_put((idx,), vals.to(a.dtype))[:n]
+
+
+def _set_drop(size: int, fill: int, idx: torch.Tensor, vals: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``full(size, fill).at[idx].set(vals, mode="drop")``."""
+    return _put_drop(torch.full((size,), fill, dtype=dtype, device=idx.device), idx, vals)
+
+
+def grow_tree_depthwise(
+    bins: torch.Tensor,
+    grad: torch.Tensor,
+    hess: torch.Tensor,
+    row_weight: torch.Tensor,
+    *,
+    num_leaves: int,
+    sp: SplitParams,
+    feature_mask: torch.Tensor,
+    max_depth: int = -1,
+    min_data_in_leaf: int = 20,
+    num_bins: int = NUM_BINS,
+) -> GrownTree:
+    """Level-wise growth: the port of the JAX package's
+    ``_grow_tree_depthwise`` with sibling subtraction and the vectorized
+    level application (its ``vector_split`` path).
+
+    Every level's leaf histograms come from ONE ``multi_plane_hist`` pass
+    over the rows. From level 1 on only the right child of every sibling
+    pair is histogrammed; the left plane is parent - right from the
+    previous level's cube. Within a level, the splits are applied all at
+    once: the budget and record order come from a cumsum over the
+    gain-sorted valid mask (``argsort`` is stable, as ``jnp.argsort``).
+
+    With ``max_depth`` unset, depth caps at ceil(log2(num_leaves))."""
+    n, d = bins.shape
+    L, B = int(num_leaves), num_bins
+    dev = bins.device
+    n_levels = (
+        min(int(max_depth), L - 1) if max_depth > 0
+        else max(1, math.ceil(math.log2(L)))
+    )
+    row_stats = _row_stats(grad, hess, row_weight)
+    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B)
+
+    i32, i64 = torch.int32, torch.int64
+    row_slot = torch.zeros(n, dtype=i64, device=dev)
+    k = torch.zeros((), dtype=i64, device=dev)  # splits made so far
+    rec_leaf = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_feature = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_bin = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_active = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+    rec_gain = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+    # frontier of the current level: lut maps leaf id -> local plane index
+    # (L = not in the frontier); inv maps plane index -> leaf id
+    lut = torch.where(torch.arange(L, device=dev) == 0, 0, L).to(i64)
+    inv = torch.zeros(1, dtype=i64, device=dev)
+    cube_prev = parent_local = None
+
+    for level in range(n_levels):
+        S = int(inv.shape[0])
+        local = torch.where(row_slot < L, lut[row_slot.clamp(0, L - 1)], S)
+        if level > 0:
+            P = S // 2
+            is_right = (local < 2 * P) & (local % 2 == 1)
+            slot_pair = torch.where(is_right, local // 2, P).to(i32)
+            half = multi_plane_histogram(bins, row_stats, slot_pair, P, B)
+            ok = (parent_local >= 0)[:, None, None]
+            parents = cube_prev[parent_local.clamp(0, cube_prev.shape[0] - 1)]
+            left = torch.where(ok, parents - half, 0.0)
+            right = torch.where(ok, half, 0.0)
+            cube = torch.stack([left, right], 1).reshape(2 * P, d * B, 3)
+            if S != 2 * P:
+                cube = torch.cat(
+                    [cube, torch.zeros((S - 2 * P, d * B, 3), device=dev)]
+                )
+        else:
+            cube = multi_plane_histogram(bins, row_stats, local.to(i32), S, B)
+        cube_prev = cube
+        gains, feats, bbs = leaf_best(cube)
+        order = torch.argsort(-gains, stable=True)
+        S_next = min(2 * S, L)
+
+        slot_s = inv[order]
+        gain_s = gains[order]
+        ok = (slot_s >= 0) & torch.isfinite(gain_s) & (gain_s > sp.min_gain)
+        ok_i = ok.to(i64)
+        rank = torch.cumsum(ok_i, 0) - ok_i
+        ok = ok & (k + rank < L - 1)
+        ks = k + rank                       # record index per sorted position
+        new_id = ks + 1
+        bf_s, bb_s = feats[order], bbs[order]
+        idx = torch.where(ok, ks, L - 1)   # L - 1: out of range, dropped
+        rec_leaf = _put_drop(rec_leaf, idx, slot_s)
+        rec_feature = _put_drop(rec_feature, idx, bf_s)
+        rec_bin = _put_drop(rec_bin, idx, bb_s)
+        rec_active = _put_drop(rec_active, idx, torch.ones_like(ok))
+        rec_gain = _put_drop(rec_gain, idx, gain_s)
+        # next frontier: pair p (= rank) at locals (2p, 2p+1)
+        lut_idx = torch.cat([torch.where(ok, slot_s, L), torch.where(ok, new_id, L)])
+        lut = _set_drop(L, L, lut_idx, torch.cat([2 * rank, 2 * rank + 1]), i64)
+        inv_idx = torch.cat(
+            [torch.where(ok, 2 * rank, S_next), torch.where(ok, 2 * rank + 1, S_next)]
+        )
+        inv = _set_drop(S_next, -1, inv_idx, torch.cat([slot_s, new_id]), i64)
+        pl_n = S_next // 2
+        parent_local = _set_drop(pl_n, -1, torch.where(ok, rank, pl_n), order, i64)
+        # row routing: per original local j, this level's chosen split; the
+        # lookups have S + 1 entries, entry S all-false for rows whose leaf
+        # left the frontier (local == L clamps there, as a JAX gather clamps)
+        sj = torch.where(ok, order, S + 1)
+        split_ok = _set_drop(S + 1, 0, sj, torch.ones_like(ok), torch.bool)
+        split_bf = _set_drop(S + 1, 0, sj, bf_s, i64)
+        split_bb = _set_drop(S + 1, 0, sj, bb_s, i64)
+        split_new = _set_drop(S + 1, 0, sj, new_id, i64)
+        j_r = local.clamp(max=S)
+        row_bins = torch.gather(bins, 1, split_bf[j_r][:, None])[:, 0]
+        goes_right = split_ok[j_r] & (row_bins > split_bb[j_r])
+        row_slot = torch.where(goes_right, split_new[j_r], row_slot)
+        k = k + ok.sum()
+
+    values, counts = _leaf_values(row_slot.to(i32), row_stats, L, sp)
+    return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
+                     values, counts, row_slot.to(i32))
+
+
+# -- prediction -------------------------------------------------------------
+
+
+def predict_leaves(
+    x: torch.Tensor,               # (n, d) float32 raw features
+    rec_leaf: torch.Tensor,        # (T, S) int64
+    rec_feature: torch.Tensor,     # (T, S) int64
+    rec_threshold: torch.Tensor,   # (T, S) float32 (<= goes left)
+    rec_active: torch.Tensor,      # (T, S) bool
+    rec_default_left: Optional[torch.Tensor] = None,  # (T, S) bool
+) -> torch.Tensor:
+    """Replay the split logs of all trees at once -> (n, T) leaf indices.
+
+    NaN goes LEFT unless ``rec_default_left`` says otherwise per split
+    (LightGBM's decision_type default-left bit)."""
+    n = x.shape[0]
+    T, S = rec_leaf.shape
+    row_leaf = torch.zeros((n, T), dtype=torch.int64, device=x.device)
+    feat = rec_feature.clamp(0, max(x.shape[1] - 1, 0))
+    for k in range(S):  # the right child of step k is leaf k + 1
+        vals = x[:, feat[:, k]]                         # (n, T)
+        if rec_default_left is None:
+            right = (vals > rec_threshold[:, k]) & ~torch.isnan(vals)
+        else:
+            right = torch.where(
+                torch.isnan(vals), ~rec_default_left[:, k], vals > rec_threshold[:, k]
+            )
+        goes_right = (row_leaf == rec_leaf[:, k]) & rec_active[:, k] & right
+        row_leaf = torch.where(goes_right, k + 1, row_leaf)
+    return row_leaf
+
+
+def predict_scores(
+    x: torch.Tensor,
+    rec_leaf: torch.Tensor,
+    rec_feature: torch.Tensor,
+    rec_threshold: torch.Tensor,
+    rec_active: torch.Tensor,
+    leaf_values: torch.Tensor,     # (T, L) float32
+    rec_default_left: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-tree outputs (n, T): the leaf value each row lands in."""
+    leaves = predict_leaves(
+        x, rec_leaf, rec_feature, rec_threshold, rec_active, rec_default_left
+    )
+    T = leaf_values.shape[0]
+    return leaf_values[torch.arange(T, device=x.device)[None, :], leaves]

@@ -1,0 +1,273 @@
+"""Gradient-histogram builders — the GBDT hot op, on the GPU.
+
+The port of ``mmlspark_tpu.ops.histogram``. ``plane_histogram(bins, stats,
+mask)`` scatters the (g, h, count) stats of the masked rows into a
+``(d * B, 3)`` plane; ``multi_plane_histogram`` does the same for many leaves
+(slots) in one pass; ``leaf_stat_sums`` totals the stats per final leaf.
+
+Each builder is a wrapper with two bodies:
+
+- on a CUDA tensor it launches a kernel written by hand for Hopper
+  (``ops/csrc/histogram.cu``: ``plane_hist`` for the single plane — the
+  port of the TPU kernels ``_hist_kernel`` and ``_hist_split_kernel`` —
+  and ``multi_plane_hist`` for the slot cube, the port of ``_multi_kernel``),
+  or raises;
+- on a CPU tensor it runs the plain PyTorch version beside it
+  (``*_plain``: ``index_add_`` over flattened indices, in row order, f32).
+
+There is no fallback between the two: the tensor's device decides.
+
+The kernels are deterministic (no float atomics): the same inputs give a
+bitwise-equal output on every run. Their sums are f32 in another order than
+the plain version's, so the two agree to f32 rounding, and counts exactly.
+
+Every launch adds one to ``launches[<kernel>]``; ``chip_smoke.py`` resets
+the counts before it drives the main path and reads them after.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NUM_BINS = 256
+
+launches = {"plane_hist": 0, "multi_plane_hist": 0}
+
+# launch geometry, mirrored from csrc/histogram.cu
+_THREADS = 256      # threads per block: one (feature, bin) cell each
+_MAX_FB = 16        # most features per block
+_SLOT_GROUP = 16    # slots per multi-plane block
+_MIN_CHUNK_ROWS = 1024
+_TARGET_BLOCKS = 2048  # ~16 blocks per SM on 132 SMs
+_MAX_CHUNKS = 65535    # grid.y limit
+
+_BIN_KIND = {torch.uint8: 0, torch.int32: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def hist_lowering(device: "str | torch.device") -> str:
+    """Which body the builders run for tensors on ``device``: ``cuda``
+    (the hand-written kernels) or ``torch`` (the plain versions)."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+# -- plain PyTorch versions (CPU tensors; the kernels' yardstick) -----------
+
+
+def _flat_index(bins: torch.Tensor, num_bins: int, base: "torch.Tensor | None",
+                trash: int) -> torch.Tensor:
+    """(n, d) bins -> (n * d * 3,) indices into a flat (..., d*B, 3) output;
+    out-of-range bins (and rows with base < 0) point at ``trash``."""
+    n, d = bins.shape
+    b = bins.long()
+    ok = (b >= 0) & (b < num_bins)
+    cell = torch.arange(d, device=bins.device) * num_bins + b
+    if base is not None:
+        ok = ok & (base >= 0)[:, None]
+        cell = cell + base[:, None]
+    cell = torch.where(ok, cell, trash)
+    return (cell[:, :, None] * 3 + torch.arange(3, device=bins.device)).reshape(-1)
+
+
+def plane_histogram_plain(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None" = None,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """(n, d) int bins + (n, 3) f32 stats [+ (n,) f32 mask] -> (d*B, 3)."""
+    n, d = bins.shape
+    if mask is not None:
+        stats = stats * mask[:, None]
+    size = d * num_bins
+    out = torch.zeros((size + 1) * 3, dtype=torch.float32, device=bins.device)
+    src = stats[:, None, :].expand(n, d, 3).reshape(-1)
+    out.index_add_(0, _flat_index(bins, num_bins, None, size), src)
+    return out[: size * 3].view(size, 3)
+
+
+def multi_plane_histogram_plain(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """(n, d) bins + (n, 3) stats + (n,) slot -> (S, d*B, 3); rows whose
+    slot lies outside [0, S) drop."""
+    n, d = bins.shape
+    size = num_slots * d * num_bins
+    sl = slot.long()
+    base = torch.where((sl >= 0) & (sl < num_slots), sl * (d * num_bins), -1)
+    out = torch.zeros((size + 1) * 3, dtype=torch.float32, device=bins.device)
+    src = stats[:, None, :].expand(n, d, 3).reshape(-1)
+    out.index_add_(0, _flat_index(bins, num_bins, base, size), src)
+    return out[: size * 3].view(num_slots, d * num_bins, 3)
+
+
+# -- the CUDA kernels -------------------------------------------------------
+
+
+def _features_per_block(d: int, num_bins: int) -> int:
+    return max(1, min(d, _MAX_FB, _THREADS // num_bins))
+
+
+def _num_chunks(n: int, blocks_per_chunk: int) -> int:
+    by_rows = -(-n // _MIN_CHUNK_ROWS)
+    by_grid = -(-_TARGET_BLOCKS // blocks_per_chunk)
+    return max(1, min(by_rows, by_grid, _MAX_CHUNKS))
+
+
+def _lib() -> ctypes.CDLL:
+    from mmlspark_tpu_torch.ops.cuda_build import library
+
+    lib = library("histogram.cu")
+    if not getattr(lib, "_mmlspark_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mmlspark_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mmlspark_plane_hist.restype = i
+        lib.mmlspark_multi_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mmlspark_multi_plane_hist.restype = i
+        lib._mmlspark_typed = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: cudaError {code} "
+            f"({torch.cuda.get_device_name()})"
+        )
+
+
+def plane_hist(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None",
+    num_bins: int,
+) -> torch.Tensor:
+    """The ``plane_hist`` kernel on CUDA tensors: uint8/int32 (n, d) bins,
+    f32 (n, 3) stats, optional f32 (n,) mask -> f32 (d*B, 3)."""
+    dev = bins.device
+    if dev.type != "cuda":
+        raise ValueError(f"plane_hist runs on CUDA tensors, got {dev}")
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be (n, d), got shape {tuple(bins.shape)}")
+    n, d = bins.shape
+    _check("bins", bins, (n, d), tuple(_BIN_KIND), dev)
+    _check("stats", stats, (n, 3), (torch.float32,), dev)
+    if mask is not None:
+        _check("mask", mask, (n,), (torch.float32,), dev)
+    if num_bins < 1:
+        raise ValueError(f"num_bins must be >= 1, got {num_bins}")
+    out = torch.empty((d * num_bins, 3), dtype=torch.float32, device=dev)
+    if d == 0:
+        return out
+    fb = _features_per_block(d, num_bins)
+    nchunks = _num_chunks(n, -(-d // fb))
+    partial = torch.empty(nchunks * d * num_bins * 3, dtype=torch.float32, device=dev)
+    code = _lib().mmlspark_plane_hist(
+        bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        partial.data_ptr(), out.data_ptr(), n, d, num_bins, fb, nchunks,
+        -(-n // nchunks), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "plane_hist")
+    launches["plane_hist"] += 1
+    return out
+
+
+def multi_plane_hist(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int,
+) -> torch.Tensor:
+    """The ``multi_plane_hist`` kernel on CUDA tensors: uint8/int32 (n, d)
+    bins, f32 (n, 3) stats, int32 (n,) slot -> f32 (S, d*B, 3)."""
+    dev = bins.device
+    if dev.type != "cuda":
+        raise ValueError(f"multi_plane_hist runs on CUDA tensors, got {dev}")
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be (n, d), got shape {tuple(bins.shape)}")
+    n, d = bins.shape
+    _check("bins", bins, (n, d), tuple(_BIN_KIND), dev)
+    _check("stats", stats, (n, 3), (torch.float32,), dev)
+    _check("slot", slot, (n,), (torch.int32,), dev)
+    if num_bins < 1 or num_slots < 1:
+        raise ValueError("num_bins and num_slots must be >= 1")
+    out = torch.empty((num_slots, d * num_bins, 3), dtype=torch.float32, device=dev)
+    if d == 0:
+        return out
+    fb = _features_per_block(d, num_bins)
+    groups = -(-num_slots // _SLOT_GROUP)
+    nchunks = _num_chunks(n, -(-d // fb) * groups)
+    partial = torch.empty(
+        nchunks * num_slots * d * num_bins * 3, dtype=torch.float32, device=dev
+    )
+    code = _lib().mmlspark_multi_plane_hist(
+        bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(), slot.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n, d, num_bins, num_slots, fb,
+        nchunks, -(-n // nchunks), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "multi_plane_hist")
+    launches["multi_plane_hist"] += 1
+    return out
+
+
+# -- the builders the growers call -------------------------------------------
+
+
+def _on_cpu(t: torch.Tensor, op: str) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{op}: unsupported device {t.device}")
+
+
+def plane_histogram(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None" = None,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """(d * B, 3) gradient-histogram plane of the masked rows.
+
+    ``bins``: (n, d) int bin codes (uint8 or int32 on CUDA); ``stats``:
+    (n, 3) f32 per-row (g, h, count); ``mask``: optional (n,) f32 row weight
+    (0 rows contribute nothing)."""
+    if _on_cpu(bins, "plane_histogram"):
+        return plane_histogram_plain(bins, stats, mask, num_bins)
+    return plane_hist(bins, stats, mask, num_bins)
+
+
+def multi_plane_histogram(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """Histogram planes for many leaves in one pass over the rows:
+    ``slot`` (n,) picks each row's plane (outside [0, S) = none). Returns
+    (num_slots, d * B, 3). The depthwise grower's workhorse."""
+    if _on_cpu(bins, "multi_plane_histogram"):
+        return multi_plane_histogram_plain(bins, stats, slot, num_slots, num_bins)
+    return multi_plane_hist(bins, stats, slot, num_slots, num_bins)
+
+
+def leaf_stat_sums(
+    leaf: torch.Tensor, stats: torch.Tensor, num_leaves: int
+) -> torch.Tensor:
+    """Per-leaf (g, h, count) totals: (n,) int32 leaf ids in [0, L) + (n, 3)
+    stats -> (L, 3). On CUDA this is ``plane_hist`` with d = 1 and B = L,
+    as the JAX package's host path reuses its plane kernel, so it is
+    deterministic too."""
+    if _on_cpu(leaf, "leaf_stat_sums"):
+        return plane_histogram_plain(leaf[:, None], stats, None, num_leaves)
+    return plane_hist(leaf[:, None], stats, None, num_leaves)
