@@ -4,8 +4,9 @@ Each source under ``ops/csrc/`` compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``. The build happens at first
 use, from the sources in the checkout, into ``build/mmlspark_tpu_torch/`` at
 the repository root (``MMLSPARK_TPU_TORCH_BUILD_DIR`` overrides it). A
-library's file name carries a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads as it is.
+library's file name carries a hash of its source, of every other file under
+``csrc/`` (headers it may include) and of the flags, so an edited source or
+header rebuilds and an unchanged one loads as it is.
 
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without ``nvcc`` must still import the package.
@@ -56,7 +57,9 @@ def nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    h = hashlib.sha256((CSRC / source).read_bytes())
+    h = hashlib.sha256(source.encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

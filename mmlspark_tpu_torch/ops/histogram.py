@@ -17,9 +17,19 @@ Each builder is a wrapper with two bodies:
 
 There is no fallback between the two: the tensor's device decides.
 
-The kernels are deterministic (no float atomics): the same inputs give a
-bitwise-equal output on every run. Their sums are f32 in another order than
-the plain version's, so the two agree to f32 rounding, and counts exactly.
+The kernels sum in fixed point: each column j gets a power-of-two scale
+2^k_j from the largest |stat| of the call (n * max * 2^k_j < 2^62), every
+row adds its stats rounded to int64 at that scale, and the int64 sums are
+scaled back and rounded to f32. A row's rounding is at most
+max * 2^-(62 - ceil(log2 n)) of its column: at n = 200,000 a value 2^20
+below the column's largest is rounded no more coarsely than f32 rounds it
+(2^-24 of itself). Integer
+addition does not depend on order, so the kernels are
+deterministic (the same inputs give a bitwise-equal output on every run)
+and equal, bit for bit, the ``*_emulated`` versions here, which repeat that
+arithmetic in PyTorch. Those serve the tests and ``chip_smoke.py`` only.
+The plain versions sum in f32, so kernel and plain agree to f32 rounding,
+and counts exactly.
 
 Every launch adds one to ``launches[<kernel>]``; ``chip_smoke.py`` resets
 the counts before it drives the main path and reads them after.
@@ -28,6 +38,7 @@ the counts before it drives the main path and reads them after.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,13 +46,8 @@ NUM_BINS = 256
 
 launches = {"plane_hist": 0, "multi_plane_hist": 0}
 
-# launch geometry, mirrored from csrc/histogram.cu
-_THREADS = 256      # threads per block: one (feature, bin) cell each
-_MAX_FB = 16        # most features per block
-_SLOT_GROUP = 16    # slots per multi-plane block
-_MIN_CHUNK_ROWS = 1024
-_TARGET_BLOCKS = 2048  # ~16 blocks per SM on 132 SMs
-_MAX_CHUNKS = 65535    # grid.y limit
+_SUM_BITS = 62  # n * max|v| * 2^k < 2^62: no int64 sum overflows (csrc kSumBits)
+_TOO_MANY_BINS = -1  # csrc kTooManyBins
 
 _BIN_KIND = {torch.uint8: 0, torch.int32: 1}
 
@@ -106,17 +112,88 @@ def multi_plane_histogram_plain(
     return out[: size * 3].view(num_slots, d * num_bins, 3)
 
 
+# -- the kernels' fixed-point arithmetic in PyTorch (tests, chip_smoke.py) ---
+
+
+def _fixed_scale(v: torch.Tensor, n: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Per column j of the (rows, 3) contributions ``v``: the largest
+    exponent k_j with n * max|v_j| * 2^k_j < 2^62, and whether that max is
+    finite."""
+    amax = v.abs().amax(0) if v.shape[0] else v.new_zeros(3)
+    _, e = torch.frexp(amax)
+    finite = torch.isfinite(amax)
+    nb = (n - 1).bit_length() if n > 1 else 0   # least nb with 2^nb >= n
+    k = torch.where(finite, _SUM_BITS - nb - e.long(), 0)
+    return k, finite
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k in f64, built from its bits (|k| stays far inside f64's range)."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def _to_fixed(v: torch.Tensor, k: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
+    """round_half_even(v * 2^k) as int64; the product is exact in f64."""
+    v = torch.where(finite, v, 0.0).double()
+    return torch.round(v * _pow2(k)).long()
+
+
+def _from_fixed(acc: torch.Tensor, k: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
+    """int64 sums (|sum| < 2^62) rounded to f64, times 2^-k (exact), rounded
+    to f32; NaN in a column whose max was not finite."""
+    out = (acc.double() * _pow2(-k)).float()
+    return torch.where(finite, out, float("nan"))
+
+
+def plane_histogram_emulated(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None" = None,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """``plane_hist``'s own arithmetic (fixed-point sums) in PyTorch:
+    (n, d) bins + (n, 3) stats [+ (n,) mask] -> (d*B, 3), equal to the
+    kernel bit for bit."""
+    n, d = bins.shape
+    v = stats if mask is None else stats * mask[:, None]
+    k, finite = _fixed_scale(v, n)
+    q = _to_fixed(v, k, finite)
+    size = d * num_bins
+    acc = torch.zeros((size + 1) * 3, dtype=torch.int64, device=bins.device)
+    acc.index_add_(0, _flat_index(bins, num_bins, None, size),
+                   q[:, None, :].expand(n, d, 3).reshape(-1))
+    return _from_fixed(acc[: size * 3].view(size, 3), k, finite)
+
+
+def multi_plane_histogram_emulated(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """``multi_plane_hist``'s own arithmetic in PyTorch -> (S, d*B, 3); the
+    scale comes from the rows whose slot lies in [0, S)."""
+    n, d = bins.shape
+    sl = slot.long()
+    ok = (sl >= 0) & (sl < num_slots)
+    k, finite = _fixed_scale(stats[ok], n)
+    q = _to_fixed(stats, k, finite)
+    size = num_slots * d * num_bins
+    base = torch.where(ok, sl * (d * num_bins), -1)
+    acc = torch.zeros((size + 1) * 3, dtype=torch.int64, device=bins.device)
+    acc.index_add_(0, _flat_index(bins, num_bins, base, size),
+                   q[:, None, :].expand(n, d, 3).reshape(-1))
+    return _from_fixed(acc[: size * 3].view(num_slots, d * num_bins, 3), k, finite)
+
+
 # -- the CUDA kernels -------------------------------------------------------
 
 
-def _features_per_block(d: int, num_bins: int) -> int:
-    return max(1, min(d, _MAX_FB, _THREADS // num_bins))
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of the device: the kernels size their grid by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _num_chunks(n: int, blocks_per_chunk: int) -> int:
-    by_rows = -(-n // _MIN_CHUNK_ROWS)
-    by_grid = -(-_TARGET_BLOCKS // blocks_per_chunk)
-    return max(1, min(by_rows, by_grid, _MAX_CHUNKS))
+def _scratch(n: int, out_cells: int, dev: torch.device) -> torch.Tensor:
+    """int64 words: accumulator, 2 header words, the kept-row list (int32)."""
+    return torch.empty(out_cells + 2 + (n + 1) // 2, dtype=torch.int64, device=dev)
 
 
 def _lib() -> ctypes.CDLL:
@@ -125,9 +202,9 @@ def _lib() -> ctypes.CDLL:
     lib = library("histogram.cu")
     if not getattr(lib, "_mmlspark_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mmlspark_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mmlspark_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
         lib.mmlspark_plane_hist.restype = i
-        lib.mmlspark_multi_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mmlspark_multi_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p]
         lib.mmlspark_multi_plane_hist.restype = i
         lib._mmlspark_typed = True
     return lib
@@ -145,7 +222,12 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(code: int, kernel: str) -> None:
+def _raise_on(code: int, kernel: str, num_bins: int) -> None:
+    if code == _TOO_MANY_BINS:
+        raise ValueError(
+            f"{kernel}: num_bins {num_bins} is more than one block's shared memory "
+            "holds for a feature"
+        )
     if code != 0:
         raise RuntimeError(
             f"{kernel} launch failed: cudaError {code} "
@@ -174,16 +256,14 @@ def plane_hist(
     out = torch.empty((d * num_bins, 3), dtype=torch.float32, device=dev)
     if d == 0:
         return out
-    fb = _features_per_block(d, num_bins)
-    nchunks = _num_chunks(n, -(-d // fb))
-    partial = torch.empty(nchunks * d * num_bins * 3, dtype=torch.float32, device=dev)
+    scratch = _scratch(n, d * num_bins * 3, dev)
     code = _lib().mmlspark_plane_hist(
         bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        partial.data_ptr(), out.data_ptr(), n, d, num_bins, fb, nchunks,
-        -(-n // nchunks), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), out.data_ptr(), n, d, num_bins, _sm_count(dev.index or 0),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(code, "plane_hist")
+    _raise_on(code, "plane_hist", num_bins)
     launches["plane_hist"] += 1
     return out
 
@@ -208,18 +288,13 @@ def multi_plane_hist(
     out = torch.empty((num_slots, d * num_bins, 3), dtype=torch.float32, device=dev)
     if d == 0:
         return out
-    fb = _features_per_block(d, num_bins)
-    groups = -(-num_slots // _SLOT_GROUP)
-    nchunks = _num_chunks(n, -(-d // fb) * groups)
-    partial = torch.empty(
-        nchunks * num_slots * d * num_bins * 3, dtype=torch.float32, device=dev
-    )
+    scratch = _scratch(n, num_slots * d * num_bins * 3, dev)
     code = _lib().mmlspark_multi_plane_hist(
         bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(), slot.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n, d, num_bins, num_slots, fb,
-        nchunks, -(-n // nchunks), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), out.data_ptr(), n, d, num_bins, num_slots,
+        _sm_count(dev.index or 0), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(code, "multi_plane_hist")
+    _raise_on(code, "multi_plane_hist", num_bins)
     launches["multi_plane_hist"] += 1
     return out
 

@@ -7,9 +7,11 @@ conftest:
 
     python -m pytest -m cuda --noconftest tests/test_torch_port_cuda.py
 
-Tolerance: counts exact; g and h within 1e-5 * sum_r |stats[r, j]| of the
-plain PyTorch version (both f32, summed in different orders). Each kernel
-must also give a bitwise-equal output when run twice.
+Tolerance: counts exact (integer row weights; fractional weights are held
+like g and h); g and h within 1e-5 * sum_r |stats[r, j]| of the
+plain PyTorch version (f32 sums against the kernels' fixed-point sums). Each
+kernel must also give a bitwise-equal output when run twice, and equal its
+PyTorch emulation (``*_emulated``: the same int64 arithmetic) bit for bit.
 """
 
 from __future__ import annotations
@@ -45,12 +47,42 @@ def _inputs(n, d, B, seed):
     return bins, stats
 
 
-def _assert_close(got, want, stats):
+def _assert_close(got, want, stats, integer_counts=True):
     got, want = got.double().cpu(), want.double().cpu()
-    assert torch.equal(got[..., 2], want[..., 2])
-    for j in (0, 1):
+    if integer_counts:
+        assert torch.equal(got[..., 2], want[..., 2])
+    for j in (0, 1) if integer_counts else (0, 1, 2):
         atol = TOL * float(stats[:, j].abs().sum())
         assert float((got[..., j] - want[..., j]).abs().max()) <= atol
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+def _check_plane(b, s, m, B, integer_counts=True):
+    """Twice bitwise, equal to the emulation bitwise, close to the plain sum
+    (counts exactly, when the row weights are integers)."""
+    a = PH.plane_hist(b, s, m, B)
+    a2 = PH.plane_hist(b, s, m, B)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(a2))
+    assert torch.equal(_bits(a), _bits(PH.plane_histogram_emulated(b, s, m, B)))
+    pre = s if m is None else s * m[:, None]
+    if bool(pre.isfinite().all()):
+        _assert_close(a, PH.plane_histogram_plain(b, s, m, B), pre.cpu(), integer_counts)
+    return a
+
+
+def _check_multi(b, s, sl, S, B, integer_counts=True):
+    a = PH.multi_plane_hist(b, s, sl, S, B)
+    a2 = PH.multi_plane_hist(b, s, sl, S, B)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(a2))
+    assert torch.equal(_bits(a), _bits(PH.multi_plane_histogram_emulated(b, s, sl, S, B)))
+    kept = torch.where(((sl >= 0) & (sl < S))[:, None], s, 0.0)
+    _assert_close(a, PH.multi_plane_histogram_plain(b, s, sl, S, B), kept.cpu(), integer_counts)
+    return a
 
 
 @pytest.mark.cuda
@@ -62,28 +94,121 @@ def test_plane_hist_matches_plain_and_is_deterministic(cuda_device, B, bin_dtype
         bins = bins.clamp(0, 255).to(torch.uint8)
     mask = (torch.rand(20_000, generator=torch.Generator().manual_seed(1)) < 0.5).float()
     b, s, m = bins.to(cuda_device), stats.to(cuda_device), mask.to(cuda_device)
-    a = PH.plane_hist(b, s, m, B)
-    a2 = PH.plane_hist(b, s, m, B)
-    torch.cuda.synchronize()
-    assert torch.equal(a, a2)
-    _assert_close(a, PH.plane_histogram_plain(b, s, m, B), stats * mask[:, None])
-    full = PH.plane_hist(b, s, None, B)
-    torch.cuda.synchronize()
-    _assert_close(full, PH.plane_histogram_plain(b, s, None, B), stats)
+    _check_plane(b, s, m, B)
+    _check_plane(b, s, None, B)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 16, 32, 100])
+@pytest.mark.parametrize("S", [1, 2, 16, 32, 64, 100])
 def test_multi_plane_hist_matches_plain_and_is_deterministic(cuda_device, S):
     bins, stats = _inputs(20_000, 5, 256, seed=S)
     slot = torch.randint(-1, S + 2, (20_000,), generator=torch.Generator().manual_seed(S),
                          dtype=torch.int32)
     b, s, sl = bins.to(cuda_device), stats.to(cuda_device), slot.to(cuda_device)
-    a = PH.multi_plane_hist(b, s, sl, S, 256)
-    a2 = PH.multi_plane_hist(b, s, sl, S, 256)
-    torch.cuda.synchronize()
-    assert torch.equal(a, a2)
-    _assert_close(a, PH.multi_plane_histogram_plain(b, s, sl, S, 256), stats)
+    _check_multi(b, s, sl, S, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [0.03, 0.0, 1.0])
+@pytest.mark.parametrize("d", [64, 33, 9])
+def test_plane_hist_sparse_and_empty_masks(cuda_device, keep, d):
+    """uint8 bins at the training layout; d not a multiple of the block's
+    features (33: a group of 32 and one of 1; 9: one narrow group)."""
+    bins, stats = _inputs(30_000, d, 256, seed=d)
+    bins = bins.clamp(0, 255).to(torch.uint8)
+    mask = (torch.rand(30_000, generator=torch.Generator().manual_seed(d)) < keep).float()
+    a = _check_plane(bins.to(cuda_device), stats.to(cuda_device), mask.to(cuda_device), 256)
+    if keep == 0.0:
+        assert not bool(a.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 16, 64, 100])
+def test_multi_plane_hist_uint8_with_dropped_rows(cuda_device, S):
+    """The depthwise grower's call: uint8 bins, about half the rows dropped
+    (slot S), the rest spread over S slots; slots below 0 drop too."""
+    bins, stats = _inputs(30_000, 64, 256, seed=3 * S)
+    bins = bins.clamp(0, 255).to(torch.uint8)
+    g = torch.Generator().manual_seed(S)
+    slot = torch.randint(0, S, (30_000,), generator=g, dtype=torch.int32)
+    slot = torch.where(torch.rand(30_000, generator=g) < 0.5, slot, S)
+    slot[::97] = -1
+    _check_multi(bins.to(cuda_device), stats.to(cuda_device), slot.to(cuda_device), S, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bin_dtype", [torch.uint8, torch.int32])
+def test_one_bin_feature_and_large_mixed_sign_stats(cuda_device, bin_dtype):
+    """Every row of feature 3 in one bin (every atomic of that feature on
+    one cell); g large and of both signs; fractional row weights in the
+    count column (as treegrow's row_weight puts them there)."""
+    g = torch.Generator().manual_seed(9)
+    bins = torch.randint(0, 64, (40_000, 40), generator=g, dtype=torch.int32)
+    bins[:, 3] = 17
+    w = torch.rand(40_000, generator=g) * 2.0
+    stats = torch.stack([torch.randn(40_000, generator=g) * 1e6 * w,
+                         torch.rand(40_000, generator=g) * w, w], 1)
+    b, s = bins.to(bin_dtype).to(cuda_device), stats.to(cuda_device)
+    a = _check_plane(b, s, None, 64, integer_counts=False)
+    plane = a.view(40, 64, 3)
+    assert int((plane[3, :, 2] != 0).sum()) == 1
+    sl = torch.randint(0, 4, (40_000,), generator=g, dtype=torch.int32).to(cuda_device)
+    _check_multi(b, s, sl, 4, 64, integer_counts=False)
+
+
+def _f64_cells(bins, v, B, slot=None, S=1):
+    """Exact (f64) per-cell sums of v: (S * d * B, 3)."""
+    b = bins.cpu().numpy().astype(np.int64)
+    v = v.cpu().numpy().astype(np.float64)
+    n, d = b.shape
+    sl = np.zeros(n, np.int64) if slot is None else slot.cpu().numpy().astype(np.int64)
+    out = np.zeros((S, d, B, 3))
+    for f in range(d):
+        ok = (sl >= 0) & (sl < S) & (b[:, f] >= 0) & (b[:, f] < B)
+        np.add.at(out, (sl[ok], f, b[ok, f]), v[ok])
+    return out.reshape(-1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plane", "multi"])
+def test_wide_range_column_keeps_f32_accuracy(cuda_device, kind):
+    """One row with |g| = 1e6 among 200,000 rows of |g| ~ 1e-3: every cell
+    within f32's own summation error of the exact sum, rows * 2^-24 *
+    sum |v|, the small-valued cells too; bitwise equal to the emulation."""
+    n, d, B, S = 200_000, 8, 64, 4
+    g = torch.Generator().manual_seed(13)
+    bins = torch.randint(0, B, (n, d), generator=g, dtype=torch.int32).to(torch.uint8)
+    stats = torch.stack([torch.randn(n, generator=g) * 1e-3,
+                         (torch.rand(n, generator=g) * 0.24 + 0.01) * 1e-3, torch.ones(n)], 1)
+    stats[n // 3, :2] = torch.tensor([-1e6, 2.5e5])
+    b, s = bins.to(cuda_device), stats.to(cuda_device)
+    if kind == "multi":
+        slot = torch.randint(-1, S + 1, (n,), generator=g, dtype=torch.int32)
+        got = _check_multi(b, s, slot.to(cuda_device), S, B).reshape(-1, 3)
+        exact = _f64_cells(bins, stats, B, slot, S)
+        sum_abs = _f64_cells(bins, stats.abs(), B, slot, S)
+    else:
+        got = _check_plane(b, s, None, B)
+        exact, sum_abs = _f64_cells(bins, stats, B), _f64_cells(bins, stats.abs(), B)
+    got = got.double().cpu().numpy()
+    assert np.array_equal(got[:, 2], exact[:, 2])
+    for j in (0, 1):
+        bound = exact[:, 2] * 2.0 ** -24 * sum_abs[:, j]
+        assert np.all(np.abs(got[:, j] - exact[:, j]) <= bound)
+
+
+@pytest.mark.cuda
+def test_nan_gradient_reaches_the_output(cuda_device):
+    bins, stats = _inputs(10_000, 8, 64, seed=5)
+    bins = bins.clamp(0, 63)
+    stats[123, 0] = float("nan")
+    b, s = bins.to(cuda_device), stats.to(cuda_device)
+    a = _check_plane(b, s, None, 64)
+    assert bool(a[:, 0].isnan().all()) and bool(a[:, 1:].isfinite().all())
+    slot = torch.zeros(10_000, dtype=torch.int32)
+    slot[123] = -1  # the NaN row dropped: the output stays finite
+    m = _check_multi(b, s, slot.to(cuda_device), 1, 64)
+    assert bool(m.isfinite().all())
 
 
 @pytest.mark.cuda
@@ -96,6 +221,8 @@ def test_leaf_stat_sums_launches_plane_hist(cuda_device):
     torch.cuda.synchronize()
     assert PH.launches["plane_hist"] == before + 1
     _assert_close(got, PH.leaf_stat_sums(leaf, stats, 63), stats)
+    want = PH.plane_histogram_emulated(leaf[:, None].to(cuda_device), stats.to(cuda_device), None, 63)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.cuda

@@ -11,7 +11,12 @@ growth policy it prints one JSON line with:
   included), measured without the profiler;
 - under ``torch.profiler`` (a second, traced fit): the summed device time
   of all kernels, the device-busy share of the traced fit's wall time, the
-  number of kernel launches per tree, and the top kernels by device time.
+  number of kernel launches per tree, the top kernels by device time, and
+  the histogram builders' device time with all their passes (memset, scan,
+  hist, convert; ``histogram_parts_ms`` lists each with its count, so that
+  memsets of other origin would show as a count above the histogram calls).
+
+The first line names the card, PyTorch, and the card's power limit.
 
 Needs a CUDA device; exits nonzero without one.
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -31,6 +37,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mmlspark_tpu_torch.models.gbdt import BinMapper, TrainConfig, train  # noqa: E402
 from mmlspark_tpu_torch.ops import histogram as H  # noqa: E402
+
+_HIST_PASSES = ("scan_rows_kernel", "hist_kernel", "to_float_kernel")
 
 
 def profile_fit(x, y, cfg: TrainConfig) -> dict:
@@ -61,6 +69,11 @@ def profile_fit(x, y, cfg: TrainConfig) -> dict:
         ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
         key=lambda t: -t[1],
     )
+    # one histogram call is a memset and three kernels: scan, hist, convert
+    parts = {
+        k: (us / 1e3, c) for k, us, c in by_name
+        if us > 0 and (k.startswith("Memset") or any(p in k for p in _HIST_PASSES))
+    }
     trees = len(booster.trees)
     return {
         "policy": cfg.growth_policy, "rows": len(y), "trees": trees,
@@ -70,6 +83,10 @@ def profile_fit(x, y, cfg: TrainConfig) -> dict:
         "device_kernel_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / traced_s,
         "kernel_launches_per_tree": len(kernels) / trees,
+        "histogram_device_s": sum(ms for ms, _ in parts.values()) / 1e3,
+        "histogram_parts_ms": [
+            {"name": k[:80], "device_ms": ms, "count": c} for k, (ms, c) in parts.items()
+        ],
         "top_kernels_ms": [
             {"name": k[:80], "device_ms": us / 1e3, "count": c}
             for k, us, c in by_name[:8] if us > 0
@@ -88,7 +105,11 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     x = rng.normal(size=(args.rows, 64)).astype(np.float32)
     y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float64)
-    print(torch.cuda.get_device_name(0), torch.__version__, flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    print(torch.cuda.get_device_name(0), torch.__version__, smi[:1], flush=True)
     for policy in ("lossguide", "depthwise"):
         cfg = TrainConfig(num_iterations=args.rounds, num_leaves=63,
                           min_data_in_leaf=20, seed=0, growth_policy=policy)
