@@ -12,6 +12,13 @@ CUDA graph of the same 20 calls, replayed), then drives the main path
 63 leaves, 20 rounds) for both growth policies and for ``max_bin=63``, and
 checks that every kernel of the path was launched and that the models are
 right (held-out AUC >= 0.90; card and CPU fits of the same data agree).
+Then the other boosting types and objectives at the same width, each
+fit checked for its kernel launches and its quality: GOSS, dart and rf
+classifiers, bagging (both growth policies), an early-stopped fit on
+250,000 rows with 50,000 validation rows and 10% flipped labels, quantile
+and Poisson regressors against their boost_from_average constant, a
+LightGBMRanker on 10,000 queries x 20 documents against random scores,
+and same-seed GOSS and bagged fits repeated byte for byte.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -22,6 +29,7 @@ CPU. Without a CUDA device the script exits nonzero before any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -38,10 +46,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mmlspark_tpu_torch import DataFrame  # noqa: E402
 from mmlspark_tpu_torch.core.metrics import binary_auc  # noqa: E402
-from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier, TrainConfig, train  # noqa: E402
+from mmlspark_tpu_torch.models.gbdt import (  # noqa: E402
+    LightGBMClassifier,
+    LightGBMRanker,
+    LightGBMRegressor,
+    TrainConfig,
+    objectives,
+    train,
+)
 from mmlspark_tpu_torch.ops import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.ops import histogram as H  # noqa: E402
 
+TRAIN = importlib.import_module("mmlspark_tpu_torch.models.gbdt.train")  # host_reads
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
@@ -374,11 +390,11 @@ def dataset(n: int, seed: int = SEED):
     return x, y
 
 
-def fit_main_path(x, y, x_test, y_test, **params) -> dict:
-    est = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20,
-                             seed=0, device=DEV.type, **params)
-    train_df = DataFrame.from_dict({"features": x, "label": y})
-    test_df = DataFrame.from_dict({"features": x_test, "label": y_test})
+def drive(name: str, est, train_df, kernel: str, score, **info) -> "tuple[dict, object]":
+    """Fit ``est`` on the card with the launch counts set to 0 just before
+    and read just after the fit and its scoring (``score(model)`` -> dict
+    of quality numbers); print the phase line; fail if the fit never
+    launched ``kernel``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     H.reset_launch_counts()
@@ -386,20 +402,34 @@ def fit_main_path(x, y, x_test, y_test, **params) -> dict:
     model = est.fit(train_df)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    out = model.transform(test_df)
+    quality = score(model)
     torch.cuda.synchronize()
     launches = dict(H.launches)
-    proba = out["probability"]
-    if proba.shape != (len(y_test), 2) or not np.all(np.isfinite(proba)):
-        raise AssertionError("transform returned malformed probabilities")
-    auc = binary_auc(y_test, proba[:, 1])
     trees = len(model.booster.trees)
-    rec = dict(params, trees=trees, fit_s=fit_s, trees_per_s=trees / fit_s,
-               auc=auc, peak_mem_bytes=torch.cuda.max_memory_allocated(),
-               launches=launches)
-    phase("main_path", **rec)
-    if auc < 0.90:
-        raise AssertionError(f"held-out AUC {auc} < 0.90 for {params}")
+    rec = dict(info, trees=trees, fit_s=fit_s, trees_per_s=trees / fit_s, **quality,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    phase(name, **rec)
+    if launches[kernel] == 0:
+        raise AssertionError(f"{name} {info}: the fit never launched {kernel}")
+    return rec, model
+
+
+def fit_main_path(x, y, x_test, y_test, name="main_path", **params) -> dict:
+    est = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20,
+                             seed=0, device=DEV.type, **params)
+    train_df = DataFrame.from_dict({"features": x, "label": y})
+    test_df = DataFrame.from_dict({"features": x_test, "label": y_test})
+
+    def score(model) -> dict:
+        proba = model.transform(test_df)["probability"]
+        if proba.shape != (len(y_test), 2) or not np.all(np.isfinite(proba)):
+            raise AssertionError("transform returned malformed probabilities")
+        return {"auc": binary_auc(y_test, proba[:, 1])}
+
+    kernel = "multi_plane_hist" if params.get("growth_policy") == "depthwise" else "plane_hist"
+    rec, _ = drive(name, est, train_df, kernel, score, **params)
+    if rec["auc"] < 0.90:
+        raise AssertionError(f"held-out AUC {rec['auc']} < 0.90 for {params}")
     return rec
 
 
@@ -428,6 +458,134 @@ def card_vs_cpu(x_test, y_test) -> dict:
     if abs(auc_gpu - auc_cpu) > 0.002:
         raise AssertionError(f"card AUC {auc_gpu} and CPU AUC {auc_cpu} differ by more than 0.002")
     return rec
+
+
+# -- the other boosting types and objectives at full width -------------------
+
+
+def early_stopped() -> dict:
+    """250,000 rows, the last 50,000 marked by ``validation_indicator_col``,
+    10% of the labels flipped so the model overfits: the fit must stop
+    before ``num_iterations`` at the arg-best of its per-round metric."""
+    n, n_valid, rounds = 250_000, 50_000, 300
+    x, clean = dataset(n, seed=SEED + 2)
+    flip = np.random.default_rng(SEED + 2).random(n) < 0.10
+    y = np.where(flip, 1.0 - clean, clean)
+    valid = np.arange(n) >= n - n_valid
+    est = LightGBMClassifier(num_iterations=rounds, learning_rate=0.5, num_leaves=63,
+                             min_data_in_leaf=20, early_stopping_round=10, seed=0,
+                             validation_indicator_col="is_valid", device=DEV.type)
+    df = DataFrame.from_dict({"features": x, "label": y, "is_valid": valid})
+
+    def score(model) -> dict:
+        b = model.booster
+        proba = model.transform(DataFrame.from_dict({"features": x[valid]}))["probability"]
+        # a lossguide tree of 63 leaves launches plane_hist 64 times (root,
+        # 62 children, leaf sums); rounds past the stop, up to the end of
+        # their 16-round metric chunk, are grown and then dropped
+        return {"rounds_run": len(b.trees), "best_iteration": b.best_iteration,
+                "rounds_grown": H.launches["plane_hist"] // 64,
+                "host_reads": TRAIN.host_reads["count"],
+                "binary_logloss": b.evals["binary_logloss"],
+                "auc_unflipped_labels": binary_auc(clean[valid], proba[:, 1])}
+
+    rec, _ = drive("early_stopped", est, df, "plane_hist", score, rows=n,
+                   validation_rows=n_valid, flipped=0.10, num_iterations=rounds,
+                   early_stopping_round=10, learning_rate=0.5)
+    hist = rec["binary_logloss"]
+    if not rec["rounds_run"] < rounds:
+        raise AssertionError(f"early stopping never stopped ({rec['rounds_run']} rounds)")
+    if rec["best_iteration"] != 1 + int(np.argmin(hist)) or len(hist) != rec["rounds_run"]:
+        raise AssertionError("best_iteration is not the arg-best of the per-round metric")
+    return rec
+
+
+def regression_target(n: int, seed: int):
+    """A nonnegative count target: y ~ Poisson(exp(0.5 x0 + 0.3 x1 x2 - 0.2 x3))."""
+    x = np.random.default_rng(seed).normal(size=(n, D)).astype(np.float32)
+    mu = np.exp(0.5 * x[:, 0] + 0.3 * x[:, 1] * x[:, 2] - 0.2 * x[:, 3])
+    return x, np.random.default_rng(seed).poisson(mu).astype(np.float64)
+
+
+def regressor(objective: str, alpha: float = 0.9) -> dict:
+    """The held-out loss of the model against that of its own
+    boost_from_average constant: pinball (quantile) or Poisson."""
+    x_all, y_all = regression_target(N + N_TEST, SEED + 3)
+    x, y, x_test, y_test = x_all[:N], y_all[:N], x_all[N:], y_all[N:]
+    est = LightGBMRegressor(objective=objective, alpha=alpha, num_iterations=20,
+                            num_leaves=63, min_data_in_leaf=20, seed=0, device=DEV.type)
+
+    def loss(pred) -> float:
+        if objective == "quantile":
+            r = y_test - pred
+            return float(np.maximum(alpha * r, (alpha - 1.0) * r).mean())
+        return float((pred - y_test * np.log(pred)).mean())   # Poisson, up to a constant
+
+    def score(model) -> dict:
+        pred = model.transform(DataFrame.from_dict({"features": x_test}))["prediction"]
+        if pred.shape != y_test.shape or not np.all(np.isfinite(pred)):
+            raise AssertionError("transform returned malformed predictions")
+        base = float(model.booster.base_score)
+        const = np.full_like(y_test, np.exp(base) if objective == "poisson" else base)
+        return {"held_out_loss": loss(pred), "constant_loss": loss(const)}
+
+    rec, _ = drive("regressor", est, DataFrame.from_dict({"features": x, "label": y}),
+                   "plane_hist", score, objective=objective)
+    if not rec["held_out_loss"] < rec["constant_loss"]:
+        raise AssertionError(f"{objective}: the model does not beat its constant")
+    return rec
+
+
+def ranking_data(queries: int, seed: int, docs: int = 20):
+    """Graded relevance 0-4 from a noise-free function of the features."""
+    x = np.random.default_rng(seed).normal(size=(queries * docs, D)).astype(np.float32)
+    f = x[:, 0] + 0.5 * x[:, 1] * x[:, 2] + 0.3 * x[:, 3]
+    rel = np.digitize(f, [0.0, 0.8, 1.5, 2.2]).astype(np.float64)
+    return x, rel, np.repeat(np.arange(queries), docs)
+
+
+def ndcg_at_5(scores: np.ndarray, rel: np.ndarray, groups: np.ndarray) -> float:
+    pi, va = objectives.lambdarank_pad_groups(groups)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+            for a in (scores.astype(np.float32), rel.astype(np.float32), pi, va)]
+    return float(objectives.grouped_ndcg_device(*args, k=5))
+
+
+def ranker() -> dict:
+    """LightGBMRanker on 10,000 queries x 20 documents (the device-gradient
+    path: G * M * M = 4e6 pair entries); held-out NDCG@5 on 2,500 queries
+    against random scores."""
+    x, rel, q = ranking_data(10_000, SEED + 5)
+    x_t, rel_t, q_t = ranking_data(2_500, SEED + 6)
+    est = LightGBMRanker(group_col="query", num_iterations=20, num_leaves=63,
+                         min_data_in_leaf=20, seed=0, device=DEV.type)
+    df = DataFrame.from_dict({"features": x, "label": rel, "query": q})
+
+    def score(model) -> dict:
+        pred = model.transform(DataFrame.from_dict({"features": x_t}))["prediction"]
+        rand = np.random.default_rng(SEED).normal(size=len(pred))
+        return {"ndcg5": ndcg_at_5(pred, rel_t, q_t), "ndcg5_random": ndcg_at_5(rand, rel_t, q_t)}
+
+    rec, _ = drive("ranker", est, df, "plane_hist", score, queries=10_000, docs=20)
+    if not rec["ndcg5"] > rec["ndcg5_random"]:
+        raise AssertionError("the ranker does not beat random scores")
+    return rec
+
+
+def determinism() -> dict:
+    """Same-seed GOSS and bagged fits of 20,000 rows, twice each on the
+    card: byte-identical model strings."""
+    x, y = dataset(N_CPU, seed=SEED + 7)
+    out = {}
+    for mode, kw in (("goss", dict(boosting_type="goss")),
+                     ("bagging", dict(bagging_fraction=0.8, bagging_freq=1))):
+        cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=5, **kw)
+        a, b = (train(x, y, cfg, device=DEV).to_model_string() for _ in range(2))
+        out[mode] = {"identical": a == b, "model_bytes": len(a)}
+    phase("determinism", rows=N_CPU, **out)
+    if not all(v["identical"] for v in out.values()):
+        raise AssertionError(f"same-seed fits differ: {out}")
+    return out
 
 
 def main() -> None:
@@ -465,13 +623,19 @@ def main() -> None:
         "depthwise": fit_main_path(x, y, x_test, y_test, growth_policy="depthwise", max_bin=255),
         "lossguide_b64": fit_main_path(x, y, x_test, y_test, growth_policy="lossguide", max_bin=63),
     }
-    need = {"lossguide": "plane_hist", "depthwise": "multi_plane_hist",
-            "lossguide_b64": "plane_hist"}
-    for run, kernel in need.items():
-        if runs[run]["launches"][kernel] == 0:
-            raise AssertionError(f"the {run} fit never launched {kernel}")
-
     card_vs_cpu(x_test, y_test)
+
+    for mode in ("goss", "dart", "rf"):
+        fit_main_path(x, y, x_test, y_test, name="boosting", boosting_type=mode,
+                      growth_policy="lossguide")
+    for policy in ("lossguide", "depthwise"):
+        fit_main_path(x, y, x_test, y_test, name="bagging", bagging_fraction=0.8,
+                      bagging_freq=1, growth_policy=policy)
+    early_stopped()
+    regressor("quantile")
+    regressor("poisson")
+    ranker()
+    determinism()
 
     def entry(name, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

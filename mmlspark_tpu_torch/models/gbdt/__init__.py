@@ -5,6 +5,8 @@ from mmlspark_tpu_torch.models.gbdt.train import TrainConfig, train
 from mmlspark_tpu_torch.models.gbdt.estimators import (
     LightGBMClassificationModel,
     LightGBMClassifier,
+    LightGBMRanker,
+    LightGBMRankerModel,
     LightGBMRegressionModel,
     LightGBMRegressor,
 )
@@ -18,6 +20,8 @@ __all__ = [
     "train",
     "LightGBMClassifier",
     "LightGBMClassificationModel",
+    "LightGBMRanker",
+    "LightGBMRankerModel",
     "LightGBMRegressor",
     "LightGBMRegressionModel",
 ]

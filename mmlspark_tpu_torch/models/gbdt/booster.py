@@ -106,6 +106,9 @@ class Booster:
     # binary sigmoid slope: p = sigmoid(sigmoid * score)
     sigmoid: float = 1.0
     objective_param: Optional[float] = None
+    # per-round validation metric of the fit that made this booster, by
+    # metric name (not part of the model string)
+    evals: dict = field(default_factory=dict, init=False, repr=False, compare=False)
     # device-resident stacked trees, per (device, tree count)
     _stacked: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 

@@ -8,7 +8,7 @@ package's parameters: one dict of numpy arrays per tree, under the JAX
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -26,11 +26,17 @@ def booster_from_reference(
     base_score: Any,
     boosting_type: str = "gbdt",
     sigmoid: float = 1.0,
+    best_iteration: int = -1,
+    objective_param: Optional[float] = None,
 ) -> Booster:
     """Per tree, a dict with the JAX ``Tree`` fields ``leaf``, ``feature``,
     ``threshold``, ``active``, ``gain``, ``values`` and ``counts`` (and
     optionally ``default_left``). Categorical trees (``is_cat`` with a true
-    entry) are not ported yet and raise."""
+    entry) are not ported yet and raise.
+
+    ``best_iteration`` (an early-stopped booster scores its best prefix of
+    rounds) and ``objective_param`` (the regression objective's knob) come
+    from the JAX ``Booster`` fields of the same names."""
     out = []
     for i, t in enumerate(trees):
         missing = [f for f in TREE_FIELDS if f not in t]
@@ -56,4 +62,5 @@ def booster_from_reference(
         trees=out, objective=objective, num_class=num_class,
         num_features=num_features, base_score=base_score,
         boosting_type=boosting_type, sigmoid=sigmoid,
+        best_iteration=best_iteration, objective_param=objective_param,
     )

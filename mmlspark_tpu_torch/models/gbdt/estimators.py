@@ -1,14 +1,15 @@
 """LightGBM-compatible estimator facades on the port's GBDT.
 
-The port of ``mmlspark_tpu.models.gbdt.estimators`` for the first slice:
-``LightGBMClassifier`` / ``LightGBMClassificationModel`` and
-``LightGBMRegressor`` / ``LightGBMRegressionModel`` — ``fit(DataFrame)``
-trains on the device, ``transform(DataFrame)`` scores on the device.
+The port of ``mmlspark_tpu.models.gbdt.estimators``:
+``LightGBMClassifier`` / ``LightGBMClassificationModel``,
+``LightGBMRegressor`` / ``LightGBMRegressionModel`` and ``LightGBMRanker``
+/ ``LightGBMRankerModel`` — ``fit(DataFrame)`` trains on the device,
+``transform(DataFrame)`` scores on the device.
 
 The params are the JAX package's, plus ``device`` (``"cuda"`` by default;
 ``"cpu"`` runs the plain PyTorch histogram versions). A param whose
 feature is not ported yet must keep its default: ``fit`` raises
-``NotImplementedError`` naming the ROADMAP.md item otherwise. The ranker,
+``NotImplementedError`` naming the ROADMAP.md item otherwise.
 ``num_batches`` and the pipeline-compiler hooks (``fusable_kernel``) are not
 ported (ROADMAP.md, Queue A items 3 and 6).
 """
@@ -23,6 +24,7 @@ from mmlspark_tpu_torch.core.dataframe import DataFrame, Partition
 from mmlspark_tpu_torch.core.params import (
     ComplexParam,
     HasFeaturesCol,
+    HasGroupCol,
     HasInitScoreCol,
     HasLabelCol,
     HasPredictionCol,
@@ -55,7 +57,6 @@ _UNPORTED_PARAMS = {
     "resume_from": "checkpoint/resume",
     "model_string": "continued training",
     "delegate": "delegates",
-    "validation_indicator_col": "validation and early stopping",
     "categorical_slot_indexes": "categorical splits",
 }
 
@@ -86,9 +87,11 @@ class _LightGBMParams(
         validator=lambda v: 2 <= v <= 255,
     )
     feature_fraction = Param("feature subsample per tree", default=1.0, type_=float)
-    bagging_fraction = Param("row subsample (not ported: keep 1.0)", default=1.0, type_=float)
-    bagging_freq = Param("bagging frequency (0=off; not ported)", default=0, type_=int)
-    early_stopping_round = Param("early stopping patience (0=off; not ported)", default=0, type_=int)
+    bagging_fraction = Param("row subsample per bagging round", default=1.0, type_=float)
+    bagging_freq = Param("bagging frequency in rounds (0=off)", default=0, type_=int)
+    early_stopping_round = Param(
+        "early stopping patience on the validation rows (0=off)", default=0, type_=int
+    )
     metric = Param("eval metric name ('' = objective default)", default="", type_=str)
     parallelism = Param(
         "data_parallel (voting_parallel is not ported)",
@@ -107,7 +110,7 @@ class _LightGBMParams(
     top_k = Param("voting_parallel K (parity)", default=20, type_=int)
     boost_from_average = Param("init score from label average", default=True, type_=bool)
     boosting_type = Param(
-        "gbdt (goss | dart | rf are not ported)",
+        "gbdt | goss | dart | rf",
         default="gbdt",
         type_=str,
         validator=lambda v: v in ("gbdt", "goss", "dart", "rf"),
@@ -189,14 +192,18 @@ class _LightGBMParams(
         }
         wc = self.get("weight_col")
         out["w"] = df[wc].astype(np.float32) if wc else None
+        vc = self.get("validation_indicator_col")
+        out["valid"] = df[vc].astype(bool) if vc else None
         ic = self.get("init_score_col")
         out["init"] = df[ic].astype(np.float32) if ic else None
         return out
 
-    def _train(self, data: dict, cfg: TrainConfig, base_score: Any) -> Booster:
+    def _train(self, data: dict, cfg: TrainConfig, base_score: Any = 0.0,
+               group_ids: Optional[np.ndarray] = None) -> Booster:
         return train(
             data["x"], data["y"], cfg, sample_weight=data["w"],
-            init_score=data["init"], base_score=base_score,
+            init_score=data["init"], valid_mask=data["valid"],
+            group_ids=group_ids, base_score=base_score,
             device=self.get("device"),
         )
 
@@ -220,6 +227,12 @@ class _BoosterModel(Model, HasFeaturesCol, HasDevice):
     def _raw(self, p: Partition) -> np.ndarray:
         x = np.asarray(p[self.get("features_col")], np.float32)
         return self.booster.predict_raw(x, device=self.get("device"))
+
+    def _keep(self, booster: Booster) -> None:
+        """Hold the fitted booster itself (its ``evals`` are not in the
+        model string)."""
+        self.set(model_string=booster.to_model_string())
+        self._booster, self._booster_src = booster, self.get("model_string")
 
 
 class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPredictionCol, HasPredictionCol):
@@ -251,7 +264,7 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
             raw_prediction_col=self.get("raw_prediction_col"),
             device=self.get("device"),
         )
-        m.set(model_string=booster.to_model_string())
+        m._keep(booster)
         return m
 
 
@@ -280,7 +293,11 @@ class LightGBMClassificationModel(
 
 
 class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
-    objective = Param("regression (L2; the other kinds are not ported)", default="regression", type_=str)
+    objective = Param(
+        "regression | regression_l1 | quantile | huber | fair | poisson | "
+        "tweedie | gamma | mape (LightGBM objective passthrough)",
+        default="regression", type_=str,
+    )
 
     def fit(self, df: DataFrame) -> "LightGBMRegressionModel":
         self._check_ported()
@@ -289,14 +306,24 @@ class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
         base = 0.0
         y = data["y"]
         if self.get("boost_from_average") and data["init"] is None and len(y):
-            base = float(y.mean())
+            # LightGBM's BoostFromScore per objective family: log-link
+            # objectives start at log(mean), quantile at the alpha
+            # percentile, l1/mape at the median
+            if obj in objectives.LOG_LINK_KINDS:
+                base = float(np.log(np.clip(y.mean(), 1e-9, None)))
+            elif obj == "quantile":
+                base = float(np.percentile(y, self.get("alpha") * 100.0))
+            elif obj in ("regression_l1", "mape"):
+                base = float(np.median(y))
+            else:
+                base = float(y.mean())
         booster = self._train(data, self._config(obj), base)
         m = LightGBMRegressionModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),
             device=self.get("device"),
         )
-        m.set(model_string=booster.to_model_string())
+        m._keep(booster)
         return m
 
 
@@ -307,6 +334,43 @@ class LightGBMRegressionModel(_BoosterModel, HasPredictionCol):
         return df.with_column(
             self.get("prediction_col"),
             lambda p: booster.predict(
+                np.asarray(p[fc], np.float32), device=self.get("device")
+            ).astype(np.float64),
+        )
+
+
+class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol, HasPredictionCol):
+    objective = Param("lambdarank", default="lambdarank", type_=str)
+    evaluate_at = Param("NDCG truncation positions", default=[1, 3, 5, 10], type_=list)
+
+    def fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        self._check_ported()
+        gc = self.get("group_col")
+        if not gc:
+            raise ValueError("LightGBMRanker requires group_col (query column)")
+        data = self._gather(df)
+        groups_raw = df[gc]
+        _, group_ids = np.unique(
+            groups_raw.astype(str) if groups_raw.dtype == object else groups_raw,
+            return_inverse=True,
+        )
+        booster = self._train(data, self._config("lambdarank"), group_ids=group_ids)
+        m = LightGBMRankerModel(
+            features_col=self.get("features_col"),
+            prediction_col=self.get("prediction_col"),
+            device=self.get("device"),
+        )
+        m._keep(booster)
+        return m
+
+
+class LightGBMRankerModel(_BoosterModel, HasPredictionCol):
+    def transform(self, df: DataFrame) -> DataFrame:
+        booster = self.booster
+        fc = self.get("features_col")
+        return df.with_column(
+            self.get("prediction_col"),
+            lambda p: booster.predict_raw(
                 np.asarray(p[fc], np.float32), device=self.get("device")
             ).astype(np.float64),
         )

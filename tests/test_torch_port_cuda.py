@@ -254,3 +254,116 @@ def test_training_on_the_card_tracks_the_cpu(cuda_device, policy):
     auc_gpu = binary_auc(y, gpu.predict_raw(x, device=cuda_device))
     auc_cpu = binary_auc(y, cpu.predict_raw(x, device="cpu"))
     assert abs(auc_gpu - auc_cpu) <= 0.005
+
+
+# -- boosting types and objectives on the card ---------------------------------
+
+
+def _breast_cancer():
+    a = np.loadtxt(os.path.join(DATA_DIR, "breast_cancer.csv"), delimiter=",", skiprows=1)
+    return a[:, :-1].astype(np.float32), a[:, -1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["goss", "bagging", "dart"])
+def test_same_seed_fits_are_byte_identical_on_the_card(cuda_device, mode):
+    """The card's draws are seeded from (seed, round, stream) and every
+    kernel is deterministic, so a fit repeats byte for byte; another seed
+    draws other rows."""
+    x, y = _breast_cancer()
+    kw = dict(num_iterations=15, num_leaves=15, min_data_in_leaf=5, seed=11)
+    if mode == "bagging":
+        kw.update(bagging_fraction=0.7, bagging_freq=1)
+    else:
+        kw.update(boosting_type=mode, drop_rate=0.3, skip_drop=0.2)
+    a = train(x, y, TrainConfig(**kw), device=cuda_device).to_model_string()
+    assert train(x, y, TrainConfig(**kw), device=cuda_device).to_model_string() == a
+    if mode != "dart":  # dart's draws are host draws, seeded alike
+        kw["seed"] = 12
+        assert train(x, y, TrainConfig(**kw), device=cuda_device).to_model_string() != a
+
+
+@pytest.mark.cuda
+def test_goss_weights_and_quantile_renewal_equal_the_cpu(cuda_device):
+    from mmlspark_tpu_torch.models.gbdt import objectives as PO
+    from mmlspark_tpu_torch.models.gbdt import sampling as PS
+
+    g = torch.Generator().manual_seed(21)
+    n, L = 200_000, 63
+    g_abs = torch.round(torch.rand(n, generator=g) * 50) / 10     # many ties
+    w = (torch.rand(n, generator=g) < 0.9).float()
+    u = torch.rand(n, generator=g)
+    for top, other in ((0.2, 0.1), (0.05, 0.3)):
+        cpu = PS.goss_weights(g_abs, w, u, top, other)
+        gpu = PS.goss_weights(g_abs.to(cuda_device), w.to(cuda_device), u.to(cuda_device),
+                              top, other)
+        assert torch.equal(gpu.cpu(), cpu)
+    leaf = torch.randint(0, L - 1, (n,), generator=g, dtype=torch.int32)
+    resid = torch.round(torch.randn(n, generator=g) * 10) / 10
+    wq = torch.randint(0, 3, (n,), generator=g).float() * 0.75
+    for alpha in (0.5, 0.9):
+        a = torch.tensor(alpha)
+        cpu = PO.leaf_quantile_renewal(leaf, resid, wq, L, a)
+        gpu = PO.leaf_quantile_renewal(leaf.to(cuda_device), resid.to(cuda_device),
+                                       wq.to(cuda_device), L, a.to(cuda_device))
+        assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_device_auc_and_ndcg_equal_the_cpu(cuda_device):
+    """f32 sums in another order on the card: equal to 1e-6 relative; the
+    device NDCG equals the host one to 1e-5."""
+    from mmlspark_tpu_torch.models.gbdt import evaluation as PE
+    from mmlspark_tpu_torch.models.gbdt import objectives as PO
+
+    rng = np.random.default_rng(5)
+    n = 100_000
+    s = np.round(rng.normal(size=n), 2).astype(np.float32)
+    y = (rng.random(n) < 0.3).astype(np.float32)
+    vw = (rng.random(n) < 0.5).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (s, y, vw)]
+    cpu = float(PE.device_metric(*t, "auc"))
+    gpu = float(PE.device_metric(*[a.to(cuda_device) for a in t], "auc"))
+    assert gpu == pytest.approx(cpu, rel=1e-6)
+    assert cpu == pytest.approx(binary_auc(y[vw > 0], s[vw > 0]), rel=1e-5)
+    groups = np.repeat(np.arange(n // 20), 20)
+    rel = rng.integers(0, 5, n).astype(np.float32)
+    pi, va = PO.lambdarank_pad_groups(groups)
+    args = [torch.from_numpy(a) for a in (s, rel, pi, va)]
+    cpu = float(PO.grouped_ndcg_device(*args, k=5))
+    gpu = float(PO.grouped_ndcg_device(*[a.to(cuda_device) for a in args], k=5))
+    assert gpu == pytest.approx(cpu, rel=1e-6)
+    assert cpu == pytest.approx(PO.grouped_ndcg(s, rel, groups, k=5), rel=1e-5)
+    gc, hc = PO.lambdarank_grad_hess_device(*args)
+    gg, hg = PO.lambdarank_grad_hess_device(*[a.to(cuda_device) for a in args])
+    torch.testing.assert_close(gg.cpu(), gc, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(hg.cpu(), hc, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["quantile", "poisson", "lambdarank"])
+def test_objectives_on_the_card_track_the_cpu(cuda_device, objective):
+    """Early-stopped fits on the card and the CPU reach validation metrics
+    within 2% of each other (histograms summed in another order)."""
+    rng = np.random.default_rng(6)
+    n = 20_000
+    x = rng.normal(size=(n, 8)).astype(np.float32)
+    mean = np.exp(0.5 * x[:, 0] + 0.3 * x[:, 1] * x[:, 2])
+    y = rng.poisson(mean).astype(np.float64)
+    groups = None
+    if objective == "lambdarank":
+        y = np.digitize(x[:, 0] + 0.5 * x[:, 1], [-1.0, 0.0, 1.0, 2.0]).astype(np.float64)
+        groups = np.repeat(np.arange(n // 20), 20)
+    valid = np.arange(n) % 5 == 0
+    cfg = TrainConfig(objective=objective, num_iterations=40, num_leaves=15,
+                      early_stopping_round=5, learning_rate=0.2)
+    base = float(np.log(y.mean())) if objective == "poisson" else 0.0
+    PH.reset_launch_counts()
+    gpu = train(x, y, cfg, valid_mask=valid, group_ids=groups, base_score=base,
+                device=cuda_device)
+    assert PH.launches["plane_hist"] > 0
+    cpu = train(x, y, cfg, valid_mask=valid, group_ids=groups, base_score=base, device="cpu")
+    (name, vg), = gpu.evals.items()
+    vc = cpu.evals[name]
+    best = max if objective == "lambdarank" else min
+    assert best(vg) == pytest.approx(best(vc), rel=0.02)

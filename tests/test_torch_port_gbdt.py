@@ -35,6 +35,7 @@ from mmlspark_tpu_torch.models.gbdt import (
     Booster,
     LightGBMClassificationModel,
     LightGBMClassifier,
+    LightGBMRanker,
     LightGBMRegressor,
     TrainConfig,
     booster_from_reference,
@@ -245,18 +246,37 @@ def test_port_has_its_own_stage_registry():
     assert JAX_REGISTRY["LightGBMClassifier"] is JClassifier
 
 
-@pytest.mark.parametrize("cfg_kw,match", [
-    (dict(boosting_type="dart"), "goss/dart/rf"),
-    (dict(bagging_fraction=0.5, bagging_freq=1), "bagging"),
-    (dict(early_stopping_round=5), "early stopping"),
-    (dict(categorical_features=(0,)), "categorical"),
-    (dict(objective="quantile"), "other objectives"),
-    (dict(parallelism="voting_parallel"), "voting"),
-])
-def test_unported_options_raise(cfg_kw, match):
+def _fit_with(x, y, cfg_kw=None, **train_kw):
+    return train(x, y, TrainConfig(**(cfg_kw or {})), device="cpu", **train_kw)
+
+
+def _init_booster(x, y):
+    return _fit_with(x, y, dict(num_iterations=1, num_leaves=4))
+
+
+def _csr_input(x, y):
+    from scipy.sparse import csr_matrix
+
+    return _fit_with(csr_matrix(x), y)
+
+
+def _estimator_num_batches(x, y):
+    df = DataFrame.from_dict({"features": x, "label": y})
+    return LightGBMClassifier(num_batches=2, device="cpu").fit(df)
+
+
+@pytest.mark.parametrize("run,match", [
+    (lambda x, y: _fit_with(x, y, dict(delegate=object())), "delegates"),
+    (_csr_input, "CSR"),
+    (lambda x, y: _fit_with(x, y, init_booster=_init_booster(x, y)), "continued training"),
+    (_estimator_num_batches, "num_batches"),
+    (lambda x, y: _fit_with(x, y, dict(categorical_features=(0,))), "categorical"),
+    (lambda x, y: _fit_with(x, y, dict(parallelism="voting_parallel")), "voting"),
+], ids=["delegate", "csr_input", "init_booster", "num_batches", "categorical", "voting"])
+def test_unported_options_raise(run, match):
     x, y = load_xy("iris")
     with pytest.raises(NotImplementedError, match=match):
-        train(x, (y > 0).astype(float), TrainConfig(**cfg_kw), device="cpu")
+        run(x, (y > 0).astype(float))
 
 
 def test_unported_estimator_params_raise():
@@ -275,6 +295,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(x, y, TrainConfig(objective="multiclass", num_class=3))
     assert LightGBMClassifier().get("device") == "cuda"
+    df = DataFrame.from_dict({"features": x, "label": y, "q": np.arange(len(y)) // 10})
+    for est in (LightGBMRanker(group_col="q"), LightGBMRegressor(objective="quantile"),
+                LightGBMClassifier(boosting_type="goss")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            est.fit(df)
 
 
 # -- interop with the JAX package's models -----------------------------------
