@@ -18,7 +18,15 @@ classifiers, bagging (both growth policies), an early-stopped fit on
 250,000 rows with 50,000 validation rows and 10% flipped labels, quantile
 and Poisson regressors against their boost_from_average constant, a
 LightGBMRanker on 10,000 queries x 20 documents against random scores,
-and same-seed GOSS and bagged fits repeated byte for byte.
+and same-seed GOSS and bagged fits repeated byte for byte. Then the
+categorical slice at the same width (columns 56-63 integer categories):
+categorical lossguide and depthwise fits against the same fits without
+categorical columns, their JSON and LightGBM-text round trips scored
+bitwise equal on the card, a categorical card-vs-CPU fit, continued
+training (``model_string``, ``num_batches``), a checkpointed GOSS and a
+bagged fit stopped at round 12 and resumed byte for byte, exact and
+approximate SHAP on 2,000 rows, and the card's Threefry draws against the
+CPU's bit for bit.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -32,6 +40,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -47,11 +56,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from mmlspark_tpu_torch import DataFrame  # noqa: E402
 from mmlspark_tpu_torch.core.metrics import binary_auc  # noqa: E402
 from mmlspark_tpu_torch.models.gbdt import (  # noqa: E402
+    Booster,
     LightGBMClassifier,
+    LightGBMDelegate,
     LightGBMRanker,
     LightGBMRegressor,
     TrainConfig,
     objectives,
+    sampling,
     train,
 )
 from mmlspark_tpu_torch.ops import cuda_build  # noqa: E402
@@ -65,6 +77,9 @@ N, D, N_TEST, N_CPU, SEED = 200_000, 64, 50_000, 20_000, 3
 TOL = 1e-5                     # g, h within TOL * sum |stats[:, j]|; counts exact
 SOURCE = "mmlspark_tpu_torch/ops/csrc/histogram.cu"
 TPU = "mmlspark_tpu/ops/histogram.py"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CAT_COLS = tuple(range(56, 64))
+CAT_LEVELS = (4, 8, 16, 32, 64, 128, 200, 253)
 
 
 def phase(name: str, **kv) -> None:
@@ -418,24 +433,37 @@ def fit_main_path(x, y, x_test, y_test, name="main_path", **params) -> dict:
     est = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20,
                              seed=0, device=DEV.type, **params)
     train_df = DataFrame.from_dict({"features": x, "label": y})
-    test_df = DataFrame.from_dict({"features": x_test, "label": y_test})
-
-    def score(model) -> dict:
-        proba = model.transform(test_df)["probability"]
-        if proba.shape != (len(y_test), 2) or not np.all(np.isfinite(proba)):
-            raise AssertionError("transform returned malformed probabilities")
-        return {"auc": binary_auc(y_test, proba[:, 1])}
-
     kernel = "multi_plane_hist" if params.get("growth_policy") == "depthwise" else "plane_hist"
-    rec, _ = drive(name, est, train_df, kernel, score, **params)
+    rec, _ = drive(name, est, train_df, kernel, classifier_score(x_test, y_test), **params)
     if rec["auc"] < 0.90:
         raise AssertionError(f"held-out AUC {rec['auc']} < 0.90 for {params}")
     return rec
 
 
-def card_vs_cpu(x_test, y_test) -> dict:
-    x, y = dataset(N_CPU, seed=SEED + 1)
-    cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0)
+def classifier_score(x_test, y_test):
+    """``score`` for ``drive``: held-out AUC and logloss of a classifier."""
+    test_df = DataFrame.from_dict({"features": x_test})
+
+    def score(model) -> dict:
+        proba = model.transform(test_df)["probability"]
+        if proba.shape != (len(y_test), 2) or not np.all(np.isfinite(proba)):
+            raise AssertionError("transform returned malformed probabilities")
+        p = np.clip(proba[:, 1].astype(np.float64), 1e-15, 1 - 1e-15)
+        return {"auc": binary_auc(y_test, proba[:, 1]),
+                "logloss": float(-np.mean(y_test * np.log(p) + (1 - y_test) * np.log(1 - p)))}
+
+    return score
+
+
+def card_vs_cpu(x_test, y_test, categorical: bool = False) -> dict:
+    """The same 20,000-row fit on the card and on the CPU (plain versions):
+    held-out AUCs within 0.002."""
+    if categorical:
+        x, y = categorical_dataset(N_CPU, seed=SEED + 9)
+    else:
+        x, y = dataset(N_CPU, seed=SEED + 1)
+    cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
+                      categorical_features=CAT_COLS if categorical else ())
     p = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
     base = float(np.log(p / (1 - p)))
     t0 = time.perf_counter()
@@ -452,7 +480,7 @@ def card_vs_cpu(x_test, y_test) -> dict:
         total += len(eq)
     auc_gpu = binary_auc(y_test, gpu.predict_raw(x_test, device=DEV))
     auc_cpu = binary_auc(y_test, cpu.predict_raw(x_test, device="cpu"))
-    rec = {"rows": len(y), "identical_split_share": same / total,
+    rec = {"rows": len(y), "categorical": categorical, "identical_split_share": same / total,
            "auc_card": auc_gpu, "auc_cpu": auc_cpu, "fit_s_card": gpu_s, "fit_s_cpu": cpu_s}
     phase("card_vs_cpu", **rec)
     if abs(auc_gpu - auc_cpu) > 0.002:
@@ -588,7 +616,189 @@ def determinism() -> dict:
     return out
 
 
+# -- the categorical slice at full width -------------------------------------
+
+
+def categorical_dataset(n: int, seed: int = SEED + 8):
+    """``dataset``'s features with columns 56-63 replaced by integer
+    categories of 4, 8, 16, 32, 64, 128, 200 and 253 levels, and
+    y = (x0 + x1 x2 + e[c63] > 0) with e ~ N(0, 1) per level of column 63:
+    a per-level effect no threshold on the level's number can express."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    for col, levels in zip(CAT_COLS, CAT_LEVELS):
+        x[:, col] = rng.integers(0, levels, n)
+    e = rng.normal(size=CAT_LEVELS[-1])
+    y = (x[:, 0] + x[:, 1] * x[:, 2] + e[x[:, 63].astype(np.int64)] > 0).astype(np.float64)
+    return x, y
+
+
+def categorical(policy: str, x, y, x_test, y_test) -> "tuple[dict, object]":
+    """A categorical fit and the same fit with no categorical column: the
+    first must reach AUC >= 0.90, hold categorical splits, beat the second's
+    held-out logloss, and score bitwise equal on the card after its JSON
+    and LightGBM-text round trips. Both fit without boost_from_average:
+    LightGBM's text has no base score and folds it into the first trees'
+    leaf values, an f32 addition that rounds, so only a model with no base
+    score can come back from the text bit for bit."""
+    kernel = "multi_plane_hist" if policy == "depthwise" else "plane_hist"
+    df = DataFrame.from_dict({"features": x, "label": y})
+    score = classifier_score(x_test, y_test)
+    params = dict(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
+                  growth_policy=policy, boost_from_average=False, device=DEV.type)
+    numeric, _ = drive("categorical_baseline", LightGBMClassifier(**params), df, kernel, score,
+                       growth_policy=policy, categorical_slot_indexes=[])
+
+    def cat_score(model) -> dict:
+        b = model.booster
+        rec = score(model)
+        rec["categorical_splits"] = int(sum(int(t.is_cat.sum()) for t in b.trees
+                                            if t.is_cat is not None))
+        rec["splits"] = int(sum(int(t.active.sum()) for t in b.trees))
+        return rec
+
+    rec, model = drive("categorical", LightGBMClassifier(
+        categorical_slot_indexes=list(CAT_COLS), **params), df, kernel, cat_score,
+        growth_policy=policy, categorical_slot_indexes=list(CAT_COLS))
+    b = model.booster
+    odd = x_test[:12].copy()
+    odd[:, 63] = [np.nan, 300, -1, 1e30, -1e30, np.inf, -np.inf, 252.6, 253, 254, 0.4, 2.5]
+    rows = np.concatenate([x_test, odd])
+    want = b.predict_raw(rows, device=DEV)
+    round_trips = {}
+    for fmt, back in (("json", Booster.from_model_string(b.to_model_string())),
+                      ("lightgbm_text", Booster.from_lightgbm_string(b.to_lightgbm_string()))):
+        got = back.predict_raw(rows, device=DEV)
+        round_trips[fmt] = bool(np.array_equal(got.view(np.int32), want.view(np.int32)))
+    out = dict(rec, numeric_auc=numeric["auc"], numeric_logloss=numeric["logloss"],
+               round_trips_bitwise=round_trips)
+    phase("categorical_checks", growth_policy=policy, auc=rec["auc"], logloss=rec["logloss"],
+          numeric_logloss=numeric["logloss"], categorical_splits=rec["categorical_splits"],
+          round_trips_bitwise=round_trips)
+    if rec["auc"] < 0.90:
+        raise AssertionError(f"categorical {policy}: held-out AUC {rec['auc']} < 0.90")
+    if rec["categorical_splits"] < 1:
+        raise AssertionError(f"categorical {policy}: no categorical split")
+    if not rec["logloss"] < numeric["logloss"]:
+        raise AssertionError(f"categorical {policy}: logloss {rec['logloss']} not below "
+                             f"the numerical fit's {numeric['logloss']}")
+    if not all(round_trips.values()):
+        raise AssertionError(f"categorical {policy}: a round trip scores differently: "
+                             f"{round_trips}")
+    return out, model
+
+
+def continued(x, y, x_test, y_test) -> dict:
+    """10 rounds, then 10 more from its ``model_string``: 20 trees, the
+    first 10 unchanged, held-out logloss lower; and ``num_batches=2`` of
+    10 rounds each: 20 trees, AUC >= 0.90."""
+    df = DataFrame.from_dict({"features": x, "label": y})
+    score = classifier_score(x_test, y_test)
+    params = dict(num_iterations=10, num_leaves=63, min_data_in_leaf=20, seed=0,
+                  device=DEV.type)
+    first, m1 = drive("continued", LightGBMClassifier(**params), df, "plane_hist", score,
+                      stage="first 10 rounds")
+    more, m2 = drive("continued", LightGBMClassifier(
+        model_string=m1.get("model_string"), boost_from_average=False, **params), df,
+        "plane_hist", score, stage="10 more rounds from model_string")
+    batches, m3 = drive("continued", LightGBMClassifier(num_batches=2, **params), df,
+                        "plane_hist", score, stage="num_batches=2")
+    kept = [t.to_dict() for t in m2.booster.trees[:10]] == [t.to_dict() for t in m1.booster.trees]
+    if len(m2.booster.trees) != 20 or not kept:
+        raise AssertionError("continued training did not append 10 trees to the first 10")
+    if not more["logloss"] < first["logloss"]:
+        raise AssertionError("10 more rounds did not lower the held-out logloss")
+    if len(m3.booster.trees) != 20 or batches["auc"] < 0.90:
+        raise AssertionError(f"num_batches=2: {len(m3.booster.trees)} trees, AUC {batches['auc']}")
+    return {"first": first, "more": more, "batches": batches}
+
+
+class Preempted(Exception):
+    """Raised by ``StopAt`` before a round, as a preemption would stop a fit."""
+
+
+class StopAt(LightGBMDelegate):
+    def __init__(self, round_: int):
+        self.round = round_
+
+    def before_train_iteration(self, iteration: int) -> None:
+        if iteration == self.round:
+            raise Preempted(iteration)
+
+
+def checkpointed(x, y, x_test, y_test) -> dict:
+    """A GOSS and a bagged fit checkpoint every 5 rounds; a second run of
+    each is stopped before round 12 by a raising delegate and resumed from
+    its last checkpoint (round 10): the model string must equal the
+    uninterrupted fit's byte for byte."""
+    df = DataFrame.from_dict({"features": x, "label": y})
+    score = classifier_score(x_test, y_test)
+    root = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for mode, kw in (("goss", dict(boosting_type="goss")),
+                     ("bagging", dict(bagging_fraction=0.8, bagging_freq=1))):
+        params = dict(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
+                      checkpoint_every=5, device=DEV.type, **kw)
+        full_dir, cut_dir = os.path.join(root, mode, "full"), os.path.join(root, mode, "cut")
+        full, m_full = drive("checkpoint", LightGBMClassifier(checkpoint_dir=full_dir, **params),
+                             df, "plane_hist", score, mode=mode, run="uninterrupted")
+        t0 = time.perf_counter()
+        try:
+            LightGBMClassifier(checkpoint_dir=cut_dir, delegate=StopAt(12), **params).fit(df)
+        except Preempted:
+            cut_s = time.perf_counter() - t0
+        else:
+            raise AssertionError("the delegate did not stop the fit")
+        resumed, m_res = drive("checkpoint", LightGBMClassifier(
+            checkpoint_dir=cut_dir, resume_from=cut_dir, **params), df, "plane_hist", score,
+            mode=mode, run="resumed from round 10", stopped_run_s=cut_s)
+        identical = m_res.get("model_string") == m_full.get("model_string")
+        out[mode] = {"identical": identical, "fit_s": full["fit_s"], "resume_fit_s": resumed["fit_s"]}
+        if not identical:
+            raise AssertionError(f"{mode}: the resumed fit differs from the uninterrupted one")
+    shutil.rmtree(root, ignore_errors=True)
+    phase("checkpoint_checks", **out)
+    return out
+
+
+def shap(model, x_test) -> dict:
+    """Exact TreeSHAP and the approximate (Saabas) walk on 2,000 held-out
+    rows of the categorical model: rows sum to ``predict_raw`` within 1e-4."""
+    b = model.booster
+    rows = x_test[:2000]
+    raw = b.predict_raw(rows, device=DEV).astype(np.float64)
+    rec = {"rows": len(rows), "trees": len(b.trees)}
+    for name, approximate in (("exact", False), ("approximate", True)):
+        t0 = time.perf_counter()
+        c = b.feature_contribs(rows, approximate=approximate)
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        rec[f"{name}_max_sum_err"] = float(np.abs(c.sum(axis=1) - raw).max())
+        if c.shape != (len(rows), D + 1) or rec[f"{name}_max_sum_err"] > 1e-4:
+            raise AssertionError(f"{name} SHAP rows do not sum to the raw score: {rec}")
+    phase("shap", **rec)
+    return rec
+
+
+def draws() -> dict:
+    """The card's Threefry draws at n = 200,000 equal the CPU's bit for bit;
+    one draw's time on the card."""
+    cpu = torch.device("cpu")
+    cases = ((0, 0, sampling.BAGGING_STREAM), (3, 17, sampling.GOSS_STREAM),
+             (-12345, 999, sampling.BAGGING_STREAM))
+    for seed, it, stream in cases:
+        gpu = sampling.uniform(seed, it, stream, N, DEV)
+        ref = sampling.uniform(seed, it, stream, N, cpu)
+        if not torch.equal(gpu.cpu().view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"card and CPU Threefry draws differ for {(seed, it, stream)}")
+    ms, device_ms = time_ms(lambda: sampling.uniform(0, 1, 1, N, DEV))
+    rec = {"n": N, "cases": len(cases), "bitwise_equal": True, "ms": ms, "device_ms": device_ms}
+    phase("draws", **rec)
+    return rec
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = card()
     build()
 
@@ -637,6 +847,16 @@ def main() -> None:
     ranker()
     determinism()
 
+    xc_all, yc_all = categorical_dataset(N + N_TEST)
+    xc, yc, xc_test, yc_test = xc_all[:N], yc_all[:N], xc_all[N:], yc_all[N:]
+    _, cat_model = categorical("lossguide", xc, yc, xc_test, yc_test)
+    categorical("depthwise", xc, yc, xc_test, yc_test)
+    card_vs_cpu(xc_test, yc_test, categorical=True)
+    continued(x, y, x_test, y_test)
+    checkpointed(x, y, x_test, y_test)
+    shap(cat_model, xc_test)
+    draws()
+
     def entry(name, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
@@ -652,6 +872,7 @@ def main() -> None:
         entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
               runs["depthwise"]["launches"]["multi_plane_hist"], errs["multi"], t_multi16),
     ]
+    phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 from mmlspark_tpu_torch.models.gbdt.binning import BinMapper
 from mmlspark_tpu_torch.models.gbdt.booster import Booster, Tree
 from mmlspark_tpu_torch.models.gbdt.convert import booster_from_reference
+from mmlspark_tpu_torch.models.gbdt.delegate import LightGBMDelegate
 from mmlspark_tpu_torch.models.gbdt.train import TrainConfig, train
 from mmlspark_tpu_torch.models.gbdt.estimators import (
     LightGBMClassificationModel,
@@ -16,6 +17,7 @@ __all__ = [
     "Booster",
     "Tree",
     "booster_from_reference",
+    "LightGBMDelegate",
     "TrainConfig",
     "train",
     "LightGBMClassifier",

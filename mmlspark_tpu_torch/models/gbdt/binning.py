@@ -9,9 +9,10 @@ missing values (NaN), LightGBM's missing-bin handling.
 Upper-bound thresholds stay in original feature space, so trained trees
 carry real-valued thresholds and prediction never needs the mapper.
 
-Only dense input is ported. CSR input, categorical identity binning, the
+Categorical features are binned by identity (category value v -> bin
+v+1), as in the JAX package. Only dense input is ported: CSR input, the
 C++ binning kernel and the streaming sketch are not (ROADMAP.md, Queue A
-item 3); asking for them raises ``NotImplementedError``.
+item 3), and CSR input raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,25 +53,46 @@ class BinMapper:
     ) -> "BinMapper":
         """Quantile bin bounds per feature, from at most ``sample`` rows
         drawn with ``numpy.random.default_rng(seed)`` (the JAX package's
-        draw, so both packages bin identically)."""
+        draw, so both packages bin identically).
+
+        ``categorical_features``: feature indices binned by identity
+        (category value v -> bin v+1, through half-integer bounds), so a
+        categorical split's bin set is a set of category values at
+        prediction time. Values must be integers in [0, max_bin-2]; values
+        outside raise, scanned over the full column (not the sample), so
+        training and prediction never route a row differently. Categories
+        unseen at fit time go right at prediction."""
         if not 2 <= max_bin <= 255:
             # bins live in a uint8 matrix (bin 0 = missing); larger values
             # would silently wrap mod 256
             raise ValueError(f"max_bin must be in [2, 255], got {max_bin}")
-        _require_dense(x)
-        if categorical_features:
-            raise NotImplementedError(
-                "categorical features are not ported to mmlspark_tpu_torch "
-                "yet (ROADMAP.md Queue A item 3: categorical splits)"
+        if categorical_features and is_sparse(x):
+            raise ValueError(
+                "categorical features require dense input (sparse "
+                "columns have no stable category<->bin identity for "
+                "absent entries)"
             )
+        _require_dense(x)
         n, d = x.shape
         if n > sample:
             idx = np.random.default_rng(seed).choice(n, sample, replace=False)
             xs = x[idx]
         else:
             xs = x
+        cat = set(int(f) for f in categorical_features)
         uppers = []
         for f in range(d):
+            if f in cat:
+                col = x[:, f]
+                col = col[~np.isnan(col)]
+                if len(col) and (col.min() < 0 or col.max() > max_bin - 2):
+                    raise ValueError(
+                        f"categorical feature {f} has values outside "
+                        f"[0, {max_bin - 2}] — re-index categories first"
+                    )
+                hi = int(col.max()) if len(col) else 0
+                uppers.append(np.arange(hi, dtype=np.float64) + 0.5)
+                continue
             col = xs[:, f]
             col = col[~np.isnan(col)]
             uniq = np.unique(col)

@@ -3,13 +3,17 @@
 The port of ``mmlspark_tpu.models.gbdt.booster``:
 
 - ``to_model_string`` / ``from_model_string`` — the JAX package's JSON
-  format (``mmlspark_tpu_gbdt_v1``), byte for byte, so a model string
-  written by either package loads in the other;
+  format (``mmlspark_tpu_gbdt_v1``, categorical splits as ``cat_splits``),
+  byte for byte, so a model string written by either package loads in the
+  other; ``from_model_string`` also reads LightGBM's own text format;
+- ``to_lightgbm_string`` / ``from_lightgbm_string`` — LightGBM's text
+  format (``lgbm_format``);
+- ``merge`` — continued training (the other booster's trees appended);
 - ``predict_raw`` / ``predict`` / ``predict_leaf`` — the batched split-log
-  replay of every tree at once (``treegrow.predict_leaves``) on the device.
-
-Not ported yet (ROADMAP.md, Queue A item 3): LightGBM's own text format,
-categorical splits, SHAP contributions and ``merge`` (continued training).
+  replay of every tree at once (``treegrow.predict_leaves``) on the device;
+- ``feature_contribs`` — exact TreeSHAP (``treeshap``) or, with
+  ``approximate=True``, the Saabas walk; host numpy in f64, as in the JAX
+  package; ``feature_importances`` and ``dump_model``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.gbdt import treegrow
+from mmlspark_tpu_torch.ops.histogram import NUM_BINS
 
 
 @dataclass
@@ -34,9 +39,17 @@ class Tree:
     gain: np.ndarray        # (S,) float32
     values: np.ndarray      # (L,) float32
     counts: np.ndarray      # (L,) int32
+    # categorical subset splits: for split k with is_cat[k], category value
+    # v (bin v+1) goes LEFT iff catmask[k, v+1]. None = all-numerical tree
+    is_cat: Optional[np.ndarray] = None     # (S,) bool
+    catmask: Optional[np.ndarray] = None    # (S, NUM_BINS) bool
     # per-split missing-value direction (LightGBM decision_type default-left
     # bit): NaN routes LEFT iff default_left[k]. None = all left
     default_left: Optional[np.ndarray] = None  # (S,) bool
+
+    @property
+    def has_categorical(self) -> bool:
+        return self.is_cat is not None and bool(np.any(self.is_cat))
 
     def to_dict(self) -> dict:
         # non-finite thresholds are meaningful (+inf: inactive/"all left",
@@ -55,18 +68,18 @@ class Tree:
             "values": np.asarray(self.values, dtype=np.float64).tolist(),
             "counts": self.counts.tolist(),
         }
+        if self.has_categorical:
+            # only the categorical splits, as lists of their left bins
+            out["cat_splits"] = {
+                str(k): np.flatnonzero(self.catmask[k]).tolist()
+                for k in np.flatnonzero(self.is_cat)
+            }
         if self.default_left is not None and not self.default_left.all():
             out["default_right"] = np.flatnonzero(~self.default_left).tolist()
         return out
 
     @staticmethod
     def from_dict(d: dict) -> "Tree":
-        if d.get("cat_splits"):
-            raise NotImplementedError(
-                "categorical splits are not ported to mmlspark_tpu_torch yet "
-                "(ROADMAP.md Queue A item 3: categorical splits)"
-            )
-
         def dec(t) -> float:
             if t is None or t == "inf":
                 return np.inf
@@ -78,6 +91,14 @@ class Tree:
         if d.get("default_right"):
             default_left = np.ones(len(d["leaf"]), bool)
             default_left[np.asarray(d["default_right"], np.int64)] = False
+        is_cat = catmask = None
+        if d.get("cat_splits"):
+            S = len(d["leaf"])
+            is_cat = np.zeros(S, bool)
+            catmask = np.zeros((S, NUM_BINS), bool)
+            for k, left_bins in d["cat_splits"].items():
+                is_cat[int(k)] = True
+                catmask[int(k), np.asarray(left_bins, np.int64)] = True
         return Tree(
             leaf=np.asarray(d["leaf"], np.int32),
             feature=np.asarray(d["feature"], np.int32),
@@ -86,6 +107,8 @@ class Tree:
             gain=np.asarray(d["gain"], np.float32),
             values=np.asarray(d["values"], np.float32),
             counts=np.asarray(d["counts"], np.int32),
+            is_cat=is_cat,
+            catmask=catmask,
             default_left=default_left,
         )
 
@@ -137,12 +160,10 @@ class Booster:
 
     @staticmethod
     def from_model_string(s: str) -> "Booster":
+        """The JSON model string, or LightGBM's own text format (which
+        starts with its ``tree`` section)."""
         if not s.lstrip().startswith("{"):
-            raise NotImplementedError(
-                "LightGBM's text model format is not ported to "
-                "mmlspark_tpu_torch yet (ROADMAP.md Queue A item 3: LightGBM "
-                "text format); pass a JSON model string"
-            )
+            return Booster.from_lightgbm_string(s)
         d = json.loads(s)
         return Booster(
             trees=[Tree.from_dict(t) for t in d["trees"]],
@@ -155,6 +176,43 @@ class Booster:
             boosting_type=d.get("boosting_type", "gbdt"),
             sigmoid=d.get("sigmoid", 1.0),
             objective_param=d.get("objective_param"),
+        )
+
+    def to_lightgbm_string(self) -> str:
+        """LightGBM's v3 text model (``saveNativeModel``): loads in
+        LightGBM itself and in the JAX package."""
+        from mmlspark_tpu_torch.models.gbdt.lgbm_format import to_lightgbm_string
+
+        return to_lightgbm_string(self)
+
+    @staticmethod
+    def from_lightgbm_string(s: str) -> "Booster":
+        """Parse a LightGBM text model (``loadNativeModelFromString``)."""
+        from mmlspark_tpu_torch.models.gbdt.lgbm_format import from_lightgbm_string
+
+        return from_lightgbm_string(s)
+
+    def merge(self, other: "Booster") -> "Booster":
+        """Continued training: ``other``'s trees appended to this
+        booster's. The baseline, sigmoid and boosting type stay this
+        booster's (``other`` was fit on top of its predictions)."""
+        if self.num_class != other.num_class:
+            raise ValueError(
+                f"cannot merge boosters of {self.num_class} and {other.num_class} classes"
+            )
+        return Booster(
+            trees=self.trees + other.trees,
+            objective=other.objective,
+            num_class=self.num_class,
+            num_features=max(self.num_features, other.num_features),
+            feature_names=self.feature_names or other.feature_names,
+            base_score=self.base_score,
+            boosting_type=self.boosting_type,
+            sigmoid=self.sigmoid,
+            objective_param=(
+                self.objective_param if self.objective_param is not None
+                else other.objective_param
+            ),
         )
 
     # -- device scoring ------------------------------------------------------
@@ -183,8 +241,10 @@ class Booster:
         dev = xt.device
         if not trees:
             return torch.zeros((xt.shape[0], 0), dtype=torch.float32, device=dev)
-        leaf, feat, thr, active, values, dleft = self._device_trees(len(trees), dev)
-        return treegrow.predict_scores(xt, leaf, feat, thr, active, values, dleft)
+        leaf, feat, thr, active, values, dleft, is_cat, catmask = self._device_trees(
+            len(trees), dev)
+        return treegrow.predict_scores(xt, leaf, feat, thr, active, values, dleft,
+                                       is_cat, catmask)
 
     def predict_raw(self, x: Any, num_iteration: Optional[int] = None,
                     device: "str | torch.device | None" = None) -> np.ndarray:
@@ -221,9 +281,52 @@ class Booster:
         if not self.trees:
             return np.zeros((x.shape[0], 0), np.int32)
         xt = _as_device_tensor(x, device)
-        leaf, feat, thr, active, _, dleft = self._device_trees(len(self.trees), xt.device)
-        leaves = treegrow.predict_leaves(xt, leaf, feat, thr, active, dleft)
+        leaf, feat, thr, active, _, dleft, is_cat, catmask = self._device_trees(
+            len(self.trees), xt.device)
+        leaves = treegrow.predict_leaves(xt, leaf, feat, thr, active, dleft, is_cat, catmask)
         return leaves.to(torch.int32).cpu().numpy()
+
+    # -- explanations (host, f64) --------------------------------------------
+
+    def feature_contribs(self, x: np.ndarray, approximate: bool = False,
+                         num_iteration: Optional[int] = None) -> np.ndarray:
+        """Per-feature contributions (n, d+1), the last column the expected
+        value: exact TreeSHAP (``treeshap.shap_values``) by default, the
+        Saabas walk (each split's change of the subtree expectation
+        credited to its feature) with ``approximate=True``. Rows sum to
+        the raw score, under rf averaging and the best-iteration prefix
+        too. Host numpy in f64, as in the JAX package."""
+        x = np.asarray(x)
+        n, d = x.shape
+        trees = self._trees(num_iteration)
+        out = np.zeros((n, d + 1), np.float64)
+        out[:, d] += float(np.sum(np.asarray(self.base_score)))
+        scale = 1.0
+        if self.boosting_type == "rf" and trees:
+            scale = 1.0 / (len(trees) // self.num_class)
+        if approximate:
+            for tree in trees:
+                out += scale * _tree_contribs(tree, x)
+            return out
+        from mmlspark_tpu_torch.models.gbdt.treeshap import shap_values
+
+        for tree in trees:
+            out += scale * shap_values(tree, x)
+        return out
+
+    def feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        """Per feature: its number of splits (``"split"``) or their summed
+        gain (``"gain"``), over every tree."""
+        imp = np.zeros(max(self.num_features, 1), np.float64)
+        for t in self.trees:
+            for s in range(len(t.leaf)):
+                if t.active[s]:
+                    imp[int(t.feature[s])] += (
+                        1.0 if importance_type == "split" else float(t.gain[s]))
+        return imp
+
+    def dump_model(self) -> dict:
+        return json.loads(self.to_model_string())
 
 
 def _as_device_tensor(x: Any, device: "str | torch.device | None") -> torch.Tensor:
@@ -236,7 +339,8 @@ def _as_device_tensor(x: Any, device: "str | torch.device | None") -> torch.Tens
 
 def _stack_trees(trees: list) -> tuple:
     """Pad a tree list to common split/leaf counts for the batched replay:
-    (leaf, feature, threshold f32, active, values, default_left or None)."""
+    (leaf, feature, threshold f32, active, values, default_left or None,
+    is_cat or None, catmask (T, S, NUM_BINS) or None)."""
     S = max(len(t.leaf) for t in trees)
     L = max(len(t.values) for t in trees)
     T = len(trees)
@@ -261,4 +365,60 @@ def _stack_trees(trees: list) -> tuple:
         for i, t in enumerate(trees):
             if t.default_left is not None:
                 rec_default_left[i, : len(t.default_left)] = t.default_left
-    return rec_leaf, rec_feature, rec_threshold, rec_active, values, rec_default_left
+    rec_is_cat = rec_catmask = None
+    if any(t.has_categorical for t in trees):
+        rec_is_cat = np.zeros((T, S), bool)
+        rec_catmask = np.zeros((T, S, NUM_BINS), bool)
+        for i, t in enumerate(trees):
+            if t.is_cat is not None:
+                rec_is_cat[i, : len(t.is_cat)] = t.is_cat
+                rec_catmask[i, : t.catmask.shape[0]] = t.catmask
+    return (rec_leaf, rec_feature, rec_threshold, rec_active, values, rec_default_left,
+            rec_is_cat, rec_catmask)
+
+
+def _tree_contribs(tree: Tree, x: np.ndarray) -> np.ndarray:
+    """Saabas contributions of one tree by split replay: at every split a
+    row passes, the change of the expected value of its node (the
+    count-weighted mean of the final leaves below it) goes to the split's
+    feature."""
+    n, d = x.shape
+    S = len(tree.leaf)
+    counts = tree.counts.astype(np.float64)
+    values = tree.values.astype(np.float64)
+    # exp_steps[k][l]: the expected value at leaf id l just before split k,
+    # built backwards by folding each split's right child into its parent
+    ws, cs = values * counts, counts.copy()
+    exp_steps = np.zeros((S + 1, len(values)), np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        exp_steps[S] = np.where(cs > 0, ws / cs, 0.0)
+    for k in range(S - 1, -1, -1):
+        if tree.active[k]:
+            parent = int(tree.leaf[k])
+            ws[parent] += ws[k + 1]
+            cs[parent] += cs[k + 1]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            exp_steps[k] = np.where(cs > 0, ws / cs, 0.0)
+
+    row_leaf = np.zeros(n, np.int64)
+    out = np.zeros((n, d + 1), np.float64)
+    out[:, d] = exp_steps[0][0]
+    for k in range(S):
+        if not tree.active[k]:
+            continue
+        parent = int(tree.leaf[k])
+        f = int(tree.feature[k])
+        in_leaf = row_leaf == parent
+        vals = x[:, f]
+        if tree.is_cat is not None and tree.is_cat[k]:
+            vbin = treegrow.category_bin_slot(vals, tree.catmask.shape[1])
+            goes_right = in_leaf & ~tree.catmask[k][vbin]
+        else:
+            nan_right = not (tree.default_left is None or bool(tree.default_left[k]))
+            goes_right = in_leaf & np.where(np.isnan(vals), nan_right, vals > tree.threshold[k])
+        stays_left = in_leaf & ~goes_right
+        before = exp_steps[k][parent]
+        out[goes_right, f] += exp_steps[k + 1][k + 1] - before
+        out[stays_left, f] += exp_steps[k + 1][parent] - before
+        row_leaf[goes_right] = k + 1
+    return out

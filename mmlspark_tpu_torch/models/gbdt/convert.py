@@ -13,6 +13,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from mmlspark_tpu_torch.models.gbdt.booster import Booster, Tree
+from mmlspark_tpu_torch.ops.histogram import NUM_BINS
 
 TREE_FIELDS = ("leaf", "feature", "threshold", "active", "gain", "values", "counts")
 
@@ -30,9 +31,10 @@ def booster_from_reference(
     objective_param: Optional[float] = None,
 ) -> Booster:
     """Per tree, a dict with the JAX ``Tree`` fields ``leaf``, ``feature``,
-    ``threshold``, ``active``, ``gain``, ``values`` and ``counts`` (and
-    optionally ``default_left``). Categorical trees (``is_cat`` with a true
-    entry) are not ported yet and raise.
+    ``threshold``, ``active``, ``gain``, ``values`` and ``counts``, and
+    optionally ``default_left`` and, for categorical splits, ``is_cat``
+    (S,) with ``catmask`` (S, B): the left bins of each split, B at most
+    ``NUM_BINS`` (padded to it).
 
     ``best_iteration`` (an early-stopped booster scores its best prefix of
     rounds) and ``objective_param`` (the regression objective's knob) come
@@ -42,11 +44,12 @@ def booster_from_reference(
         missing = [f for f in TREE_FIELDS if f not in t]
         if missing:
             raise KeyError(f"tree {i} lacks {missing}")
+        is_cat = catmask = None
         if t.get("is_cat") is not None and np.any(t["is_cat"]):
-            raise NotImplementedError(
-                "categorical splits are not ported to mmlspark_tpu_torch yet "
-                "(ROADMAP.md Queue A item 3: categorical splits)"
-            )
+            is_cat = np.asarray(t["is_cat"], bool)
+            cm = np.asarray(t["catmask"], bool)
+            catmask = np.zeros((len(is_cat), NUM_BINS), bool)
+            catmask[:, : cm.shape[1]] = cm
         dl = t.get("default_left")
         out.append(Tree(
             leaf=np.asarray(t["leaf"], np.int32),
@@ -56,6 +59,8 @@ def booster_from_reference(
             gain=np.asarray(t["gain"], np.float32),
             values=np.asarray(t["values"], np.float32),
             counts=np.asarray(t["counts"], np.int32),
+            is_cat=is_cat,
+            catmask=catmask,
             default_left=None if dl is None else np.asarray(dl, bool),
         ))
     return Booster(

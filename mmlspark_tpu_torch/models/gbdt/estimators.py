@@ -6,12 +6,17 @@ The port of ``mmlspark_tpu.models.gbdt.estimators``:
 / ``LightGBMRankerModel`` — ``fit(DataFrame)`` trains on the device,
 ``transform(DataFrame)`` scores on the device.
 
-The params are the JAX package's, plus ``device`` (``"cuda"`` by default;
-``"cpu"`` runs the plain PyTorch histogram versions). A param whose
-feature is not ported yet must keep its default: ``fit`` raises
-``NotImplementedError`` naming the ROADMAP.md item otherwise.
-``num_batches`` and the pipeline-compiler hooks (``fusable_kernel``) are not
-ported (ROADMAP.md, Queue A items 3 and 6).
+The params are the JAX package's (but ``fused_rounds``, the chunk size of
+its scan fusion, which the port does not have), plus ``device``
+(``"cuda"`` by default;
+``"cpu"`` runs the plain PyTorch histogram versions): categorical features,
+continued training (``model_string``, ``num_batches``), checkpoint/resume
+and delegates included. Every model reads and writes LightGBM's own text
+format (``save_native_model``, ``load_native_model_from_string`` /
+``_file``) and explains itself (``features_shap``, ``predict_leaf``,
+``get_feature_importances``). ``parallelism="voting_parallel"`` raises
+``NotImplementedError`` (ROADMAP.md, Queue A item 3), and the
+pipeline-compiler hook ``fusable_kernel`` is not ported (Queue A item 6).
 """
 
 from __future__ import annotations
@@ -47,18 +52,6 @@ class HasDevice(Params):
         "card) or 'cpu'", default="cuda", type_=str,
         validator=lambda v: v.split(":")[0] in ("cuda", "cpu"),
     )
-
-
-# params whose feature the port has not ported: name -> ROADMAP item.
-# They must keep their defaults.
-_UNPORTED_PARAMS = {
-    "num_batches": "num_batches",
-    "checkpoint_dir": "checkpoint/resume",
-    "resume_from": "checkpoint/resume",
-    "model_string": "continued training",
-    "delegate": "delegates",
-    "categorical_slot_indexes": "categorical splits",
-}
 
 
 class _LightGBMParams(
@@ -122,31 +115,36 @@ class _LightGBMParams(
     other_rate = Param("goss: small-gradient sample fraction", default=0.1, type_=float)
     eval_at = Param("ranking eval truncation (ndcg@k)", default=5, type_=int)
     categorical_slot_indexes = Param(
-        "feature indices treated as categorical (not ported)", default=None,
+        "feature indices treated as categorical (subset splits). Values must "
+        "be non-negative integers <= max_bin-2.",
+        default=None,
     )
-    model_string = Param("initial model for continued training (not ported)", default="", type_=str)
+    model_string = Param(
+        "initial model for continued training (JSON or LightGBM text)", default="", type_=str
+    )
     alpha = Param("quantile level / huber delta", default=0.9, type_=float)
     tweedie_variance_power = Param("tweedie variance power in (1, 2)", default=1.5, type_=float)
     poisson_max_delta_step = Param(
         "poisson hessian stabilizer exp(score + step)", default=0.7, type_=float
     )
     fair_c = Param("fair-loss scale c", default=1.0, type_=float)
-    num_batches = Param("fold training into k sequential batches (not ported)", default=0, type_=int)
-    checkpoint_dir = Param("round-level checkpoints (not ported)", default="", type_=str)
+    num_batches = Param(
+        "fold training into k sequential row batches, each continuing the last",
+        default=0, type_=int,
+    )
+    checkpoint_dir = Param(
+        "directory for round-level preemption-safe checkpoints ('' = off)",
+        default="", type_=str,
+    )
     checkpoint_every = Param("boosting rounds between checkpoints", default=10, type_=int)
-    resume_from = Param("checkpoint directory to resume from (not ported)", default="", type_=str)
-    delegate = ComplexParam("LightGBMDelegate (not ported)")
+    resume_from = Param(
+        "checkpoint directory to resume training from ('' = fresh run); "
+        "point it at checkpoint_dir for crash-loop-safe auto-resume",
+        default="", type_=str,
+    )
+    delegate = ComplexParam("LightGBMDelegate: lifecycle callbacks + dynamic learning rate")
     seed = Param("rng seed", default=0, type_=int)
     verbosity = Param("log level", default=-1, type_=int)
-
-    def _check_ported(self) -> None:
-        for name, item in _UNPORTED_PARAMS.items():
-            value = self.get(name)
-            if value not in (None, "", 0):
-                raise NotImplementedError(
-                    f"param {name}={value!r} is not ported to mmlspark_tpu_torch "
-                    f"yet (ROADMAP.md Queue A item 3: {item})"
-                )
 
     def _config(self, objective: str, num_class: int = 1) -> TrainConfig:
         return TrainConfig(
@@ -183,6 +181,8 @@ class _LightGBMParams(
             tweedie_variance_power=self.get("tweedie_variance_power"),
             poisson_max_delta_step=self.get("poisson_max_delta_step"),
             fair_c=self.get("fair_c"),
+            categorical_features=tuple(self.get("categorical_slot_indexes") or ()),
+            delegate=self.get("delegate"),
         )
 
     def _gather(self, df: DataFrame) -> dict:
@@ -198,17 +198,52 @@ class _LightGBMParams(
         out["init"] = df[ic].astype(np.float32) if ic else None
         return out
 
-    def _train(self, data: dict, cfg: TrainConfig, base_score: Any = 0.0,
-               group_ids: Optional[np.ndarray] = None) -> Booster:
-        return train(
-            data["x"], data["y"], cfg, sample_weight=data["w"],
-            init_score=data["init"], valid_mask=data["valid"],
-            group_ids=group_ids, base_score=base_score,
-            device=self.get("device"),
-        )
+    def _fit_batches(self, data: dict, cfg: TrainConfig, base_score: Any = 0.0,
+                     group_ids: Optional[np.ndarray] = None) -> Booster:
+        """Train on the device, continuing ``model_string`` when set.
+        ``num_batches`` > 1 splits the rows into that many contiguous
+        batches trained in turn, each continuing the booster of the one
+        before (``base_score`` only for the first fit of the chain)."""
+        s = self.get("model_string")
+        booster = Booster.from_model_string(s) if s else None
+        nb = self.get("num_batches")
+        delegate = self.get("delegate")
+        kw: dict = {"device": self.get("device")}
+        if not (nb and nb > 1):
+            kw.update(checkpoint_dir=self.get("checkpoint_dir") or None,
+                      checkpoint_every=self.get("checkpoint_every"),
+                      resume_from=self.get("resume_from") or None)
+        elif self.get("checkpoint_dir") or self.get("resume_from"):
+            # the batches' round numbers would collide in one directory
+            raise ValueError(
+                "checkpoint_dir/resume_from are incompatible with num_batches > 1 "
+                "(per-segment round indices would collide in one checkpoint directory)"
+            )
+        n = len(data["y"])
+        bounds = np.linspace(0, n, nb + 1).astype(int) if nb and nb > 1 else np.array([0, n])
+        for i in range(len(bounds) - 1):
+            sl = slice(bounds[i], bounds[i + 1])
+            part = {k: (None if v is None else v[sl]) for k, v in data.items()}
+            if delegate is not None and len(bounds) > 2:
+                delegate.before_train_batch(i, bounds[i + 1] - bounds[i], booster)
+            booster = train(
+                part["x"], part["y"], cfg, sample_weight=part["w"],
+                init_score=part["init"], valid_mask=part["valid"],
+                group_ids=None if group_ids is None else group_ids[sl],
+                init_booster=booster,
+                base_score=0.0 if booster is not None else base_score, **kw,
+            )
+            if delegate is not None and len(bounds) > 2:
+                delegate.after_train_batch(i, booster)
+        return booster
 
 
 class _BoosterModel(Model, HasFeaturesCol, HasDevice):
+    """A fitted booster: scoring on the device, LightGBM's text format in
+    and out (``save_native_model``, ``load_native_model_from_string`` /
+    ``_file``: ``model_string`` takes the JSON string or LightGBM's text),
+    and the explanations (host numpy, f64)."""
+
     model_string = Param("serialized booster", default="", type_=str)
 
     def __init__(self, **kw: Any):
@@ -234,12 +269,39 @@ class _BoosterModel(Model, HasFeaturesCol, HasDevice):
         self.set(model_string=booster.to_model_string())
         self._booster, self._booster_src = booster, self.get("model_string")
 
+    def save_native_model(self, path: str) -> None:
+        """Write the booster in LightGBM's own text format."""
+        with open(path, "w") as f:
+            f.write(self.booster.to_lightgbm_string())
+
+    @classmethod
+    def load_native_model_from_string(cls, text: str, **kw: Any) -> "_BoosterModel":
+        m = cls(**kw)
+        m.set(model_string=text)
+        m.booster  # parse now: malformed text fails here, not at transform
+        return m
+
+    @classmethod
+    def load_native_model_from_file(cls, path: str, **kw: Any) -> "_BoosterModel":
+        with open(path) as f:
+            return cls.load_native_model_from_string(f.read(), **kw)
+
+    def predict_leaf(self, x: np.ndarray) -> np.ndarray:
+        return self.booster.predict_leaf(np.asarray(x, np.float32), device=self.get("device"))
+
+    def features_shap(self, x: np.ndarray, approximate: bool = False) -> np.ndarray:
+        """Exact TreeSHAP by default; ``approximate=True`` = the Saabas
+        walk (much faster on large batches)."""
+        return self.booster.feature_contribs(np.asarray(x, np.float32), approximate=approximate)
+
+    def get_feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        return self.booster.feature_importances(importance_type)
+
 
 class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPredictionCol, HasPredictionCol):
     objective = Param("binary | multiclass", default="binary", type_=str)
 
     def fit(self, df: DataFrame) -> "LightGBMClassificationModel":
-        self._check_ported()
         data = self._gather(df)
         y = data["y"].astype(np.int64)
         n_classes = int(y.max()) + 1 if len(y) else 2
@@ -256,7 +318,7 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
             else:  # multiclass: per-class log prior
                 priors = np.bincount(y, minlength=num_class) / len(y)
                 base = np.log(np.clip(priors, 1e-6, None)).astype(np.float32)
-        booster = self._train(data, self._config(objective, num_class), base)
+        booster = self._fit_batches(data, self._config(objective, num_class), base)
         m = LightGBMClassificationModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),
@@ -300,7 +362,6 @@ class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
     )
 
     def fit(self, df: DataFrame) -> "LightGBMRegressionModel":
-        self._check_ported()
         data = self._gather(df)
         obj = objectives.canonical_objective(self.get("objective"))
         base = 0.0
@@ -317,7 +378,7 @@ class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
                 base = float(np.median(y))
             else:
                 base = float(y.mean())
-        booster = self._train(data, self._config(obj), base)
+        booster = self._fit_batches(data, self._config(obj), base)
         m = LightGBMRegressionModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),
@@ -344,7 +405,6 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol, HasPredictionCol):
     evaluate_at = Param("NDCG truncation positions", default=[1, 3, 5, 10], type_=list)
 
     def fit(self, df: DataFrame) -> "LightGBMRankerModel":
-        self._check_ported()
         gc = self.get("group_col")
         if not gc:
             raise ValueError("LightGBMRanker requires group_col (query column)")
@@ -354,7 +414,7 @@ class LightGBMRanker(Estimator, _LightGBMParams, HasGroupCol, HasPredictionCol):
             groups_raw.astype(str) if groups_raw.dtype == object else groups_raw,
             return_inverse=True,
         )
-        booster = self._train(data, self._config("lambdarank"), group_ids=group_ids)
+        booster = self._fit_batches(data, self._config("lambdarank"), group_ids=group_ids)
         m = LightGBMRankerModel(
             features_col=self.get("features_col"),
             prediction_col=self.get("prediction_col"),

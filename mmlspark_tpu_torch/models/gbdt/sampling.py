@@ -1,13 +1,16 @@
 """Random draws of a GBDT fit: row sampling (bagging, GOSS), per-round
 feature masks and dart's dropped rounds.
 
-Device draws go through one function, :func:`uniform`, seeded from
-``(seed, round, stream)`` alone (stream 1: bagging, stream 2: GOSS), so a
-round's draw depends on nothing drawn before it. The JAX package draws
-the same streams with ``jax.random.fold_in(fold_in(PRNGKey(seed), round),
-stream)``; Threefry and PyTorch's generators cannot give the same bits, so
-the two packages' draws differ by design, and the parity tests replace
-:func:`uniform` with the JAX package's own draws.
+Device draws go through one function, :func:`uniform`: element ``i`` of
+round ``it``'s draw of stream ``stream`` (1: bagging, 2: GOSS) is
+``jax.random.uniform(fold_in(fold_in(PRNGKey(seed), it), stream), (n,))[i]``
+bit for bit. With JAX's partitionable Threefry (its default) that element
+is ``bits1 ^ bits2`` of ``threefry2x32(key, (hi(i), lo(i)))`` turned into a
+float in [1, 2) by its top 23 bits, minus 1: pure 32-bit integer
+arithmetic, computed here with PyTorch ops on int64 tensors of the
+request's device. So the same seed gives the same bagged or GOSS model in
+both packages, a round's draw depends on nothing drawn before it (a
+resumed fit redraws it), and no draw needs a host copy or a sync.
 
 Host draws (feature masks, dart) come from ``numpy.random.default_rng(seed)``
 in the JAX package's order, so the same seed gives the same masks and the
@@ -26,14 +29,43 @@ BAGGING_STREAM = 1
 GOSS_STREAM = 2
 
 
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1: int, k2: int, x1, x2) -> tuple:
+    """Threefry-2x32 (20 rounds), as ``jax._src.prng._threefry2x32_lowering``
+    computes it, on Python ints or int64 tensors holding uint32 values."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1, x2 = (x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = (((x2 << r) & _M32) | (x2 >> (32 - r))) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def round_key(seed: int, it: int, stream: int) -> tuple:
+    """``fold_in(fold_in(PRNGKey(seed), it), stream)`` as two uint32s:
+    ``PRNGKey`` of JAX's default 32-bit integers keys ``(0, seed mod
+    2**32)``, and ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``."""
+    key = (0, int(seed) & _M32)
+    for data in (it, stream):
+        key = _threefry2x32(key[0], key[1], 0, int(data) & _M32)
+    return key
+
+
 def uniform(seed: int, it: int, stream: int, n: int, device: torch.device) -> torch.Tensor:
     """(n,) f32 uniform in [0, 1) on ``device`` for round ``it`` of draw
-    stream ``stream``. A generator on the device itself, so the draw needs
-    no host-to-device copy (and no sync)."""
-    key = np.random.SeedSequence([int(seed) & 0xFFFFFFFF, int(it), int(stream)])
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-    return torch.rand(n, generator=gen, device=device, dtype=torch.float32)
+    stream ``stream``: the JAX package's Threefry draw, bit for bit. The
+    key is host arithmetic on ints; the counters live on the device."""
+    k1, k2 = round_key(seed, it, stream)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    b1, b2 = _threefry2x32(k1, k2, i >> 32, i & _M32)
+    mantissa = ((b1 ^ b2) >> 9) | 0x3F800000
+    return mantissa.to(torch.int32).view(torch.float32) - 1.0
 
 
 def goss_weights(g_abs: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
@@ -68,19 +100,30 @@ class RoundDraws(NamedTuple):
 
     feature_masks: np.ndarray   # (rounds, d) f32 1/0
     drops: list                 # per round, the dropped earlier rounds (dart)
+    states: dict                # round r -> the generator's state before its draws
 
 
 def draw_rounds(seed: int, rounds: int, d: int, feature_fraction: float,
                 dart: bool = False, drop_rate: float = 0.1, max_drop: int = 50,
-                skip_drop: float = 0.5) -> RoundDraws:
+                skip_drop: float = 0.5, start: int = 0,
+                state: "dict | None" = None) -> RoundDraws:
     """Per round: the feature mask (``rng.random(d) < feature_fraction``,
     one random feature if none is drawn), then for dart after round 0 the
     skip draw, the per-earlier-round drop draws and, past ``max_drop``,
-    the choice among them — the reference's interleaving exactly."""
+    the choice among them — the reference's interleaving exactly.
+
+    A resumed fit draws rounds ``start`` on from the generator ``state``
+    its checkpoint saved (rounds before ``start`` get no draws); ``states``
+    holds the state before each round's draws, and at ``rounds``, for the
+    next checkpoint."""
     rng = np.random.default_rng(seed)
+    if state is not None:
+        rng.bit_generator.state = state
     fms = np.ones((rounds, d), np.float32)
-    drops: list = []
-    for it in range(rounds):
+    drops: list = [[] for _ in range(min(start, rounds))]
+    states: dict = {}
+    for it in range(start, rounds):
+        states[it] = rng.bit_generator.state
         if feature_fraction < 1.0:
             fm = (rng.random(d) < feature_fraction).astype(np.float32)
             if fm.sum() == 0:
@@ -93,4 +136,5 @@ def draw_rounds(seed: int, rounds: int, d: int, feature_fraction: float,
                 picked = rng.choice(picked, max_drop, replace=False)
             sel = [int(s) for s in picked]
         drops.append(sel)
-    return RoundDraws(fms, drops)
+    states[max(start, rounds)] = rng.bit_generator.state
+    return RoundDraws(fms, drops, states)

@@ -8,21 +8,24 @@ Scores, labels, gradients, row weights and the bin matrix (uint8) stay on
 the device for the whole run. The host reads the device only where the
 reference's algorithm needs a value there: the validation metrics, once per
 chunk of rounds (every round's metric is computed on the device and the
-stopping decision is replayed round by round), LambdaRank's f64 host
-gradients for groups the padded device layout cannot hold, and the split
+stopping decision is replayed round by round; every round when a delegate
+listens), LambdaRank's f64 host gradients for groups the padded device
+layout cannot hold, a checkpoint's scores and records, and the split
 records, once, after the last kept round.
 
 Ported: boosting types ``gbdt``, ``goss``, ``dart`` and ``rf``; bagging;
 validation rows with device eval metrics and early stopping; the
 objectives binary, multiclass, the regression zoo (with the quantile-family
 leaf renewal) and lambdarank; ``lossguide`` and ``depthwise`` growth;
-``feature_fraction``; sample weights; ``init_score``; ``base_score``. One
-device, one Python loop over rounds. Random draws: ``sampling``.
+categorical features (subset splits); continued training
+(``init_booster``); round-level checkpoint/resume (``checkpoint``);
+training delegates (``delegate``); ``feature_fraction``; sample weights;
+``init_score``; ``base_score``. One device, one Python loop over rounds.
+Random draws: ``sampling``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, Queue A item 3): categorical features, continued training,
-voting-parallel, checkpoint/resume, elastic and multi-host training,
-pre-binned and sparse input, delegates.
+item, Queue A item 3): voting-parallel, elastic and multi-host training,
+pre-binned and sparse input.
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.device import resolve_device
+from mmlspark_tpu_torch.models.gbdt import checkpoint as ckpt
 from mmlspark_tpu_torch.models.gbdt import evaluation, objectives, sampling
 from mmlspark_tpu_torch.models.gbdt.binning import BinMapper, _require_dense
 from mmlspark_tpu_torch.models.gbdt.booster import Booster, Tree
+from mmlspark_tpu_torch.ops.histogram import NUM_BINS
 from mmlspark_tpu_torch.models.gbdt.treegrow import (
     SplitParams,
     grow_tree,
@@ -55,15 +60,17 @@ OBJECTIVES = ("binary", "multiclass", "lambdarank") + objectives.REGRESSION_KIND
 MAX_RANK_PAIRS = 1 << 26
 
 # device -> host reads made by the last ``train`` call (metric chunks,
-# host LambdaRank gradients, the record transfer); chip_smoke.py prints it
+# host LambdaRank gradients, checkpoints, the record transfer);
+# chip_smoke.py prints it
 host_reads = {"count": 0}
 
 
 @dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` field for field, so one config
-    drives both packages; fields of unported features must keep their
-    defaults (``train`` checks)."""
+    drives both packages (and a checkpoint's fingerprint is the same in
+    both); ``parallelism`` must stay ``data_parallel`` (``train``
+    checks)."""
 
     objective: str = "binary"          # binary|multiclass|lambdarank|regression kinds
     num_class: int = 1
@@ -120,6 +127,9 @@ def _unported(what: str, item: str) -> NotImplementedError:
     )
 
 
+_DELEGATE_HOOKS = ("before_train_iteration", "after_train_iteration", "get_learning_rate")
+
+
 def _check_config(cfg: TrainConfig) -> None:
     if cfg.boosting_type not in BOOSTING_TYPES:
         raise ValueError(f"boosting_type must be one of {BOOSTING_TYPES}")
@@ -132,26 +142,44 @@ def _check_config(cfg: TrainConfig) -> None:
     if cfg.boosting_type == "goss" and cfg.top_rate + cfg.other_rate > 1.0:
         # LightGBM refuses too: the sampler is unbiased only if b/(1-a) <= 1
         raise ValueError("goss requires top_rate + other_rate <= 1")
-    if cfg.categorical_features:
-        raise _unported("categorical_features", "categorical splits")
     if cfg.parallelism != "data_parallel":
         raise _unported(f"parallelism={cfg.parallelism!r}", "voting-parallel")
     if cfg.delegate is not None:
-        raise _unported("training delegates", "delegates")
+        missing = [h for h in _DELEGATE_HOOKS if not hasattr(cfg.delegate, h)]
+        if missing:
+            raise TypeError(f"delegate lacks the LightGBMDelegate hooks {missing}")
 
 
-def _tree_from_host(rec: np.ndarray, L: int, mapper: BinMapper) -> Tree:
+def _pad_catmask(cm: np.ndarray) -> np.ndarray:
+    """Histogram-space catmask (..., B) -> record-space (..., NUM_BINS):
+    stored trees keep the whole uint8 bin space, so prediction's category
+    lookup (clipped to NUM_BINS - 1) never leaves the mask; the padding
+    bins are no category's, so an unseen category goes right."""
+    pad = [(0, 0)] * (cm.ndim - 1) + [(0, NUM_BINS - cm.shape[-1])]
+    return np.pad(cm, pad)
+
+
+def _tree_from_host(rec: np.ndarray, L: int, mapper: BinMapper, B: int,
+                    has_cat: bool) -> Tree:
     """One tree's packed f64 record vector -> a host Tree."""
     s = L - 1
     leaf, feature, bin_, active, gain = (rec[i * s:(i + 1) * s] for i in range(5))
-    values, counts = rec[5 * s: 5 * s + L], rec[5 * s + L:]
+    values, counts = rec[5 * s: 5 * s + L], rec[5 * s + L: 5 * s + 2 * L]
+    is_cat = catmask = None
+    if has_cat:
+        is_cat = rec[5 * s + 2 * L: 6 * s + 2 * L] > 0.5
+        words = rec[6 * s + 2 * L:].astype(np.int64)
+        catmask = ((words[:, None] >> np.arange(16)) & 1).astype(bool).reshape(s, B)
     thr = np.array(
         [
-            mapper.threshold_value(int(f), int(b)) if f >= 0 else np.inf
-            for f, b in zip(feature, bin_)
+            # a categorical split routes by its catmask, never by a threshold
+            mapper.threshold_value(int(f), int(b))
+            if f >= 0 and not (has_cat and is_cat[k]) else np.inf
+            for k, (f, b) in enumerate(zip(feature, bin_))
         ],
         dtype=np.float64,
     )
+    cat_tree = has_cat and bool(is_cat.any())
     return Tree(
         leaf=leaf.astype(np.int32),
         feature=feature.astype(np.int32),
@@ -160,18 +188,26 @@ def _tree_from_host(rec: np.ndarray, L: int, mapper: BinMapper) -> Tree:
         gain=gain.astype(np.float32),
         values=values.astype(np.float32),
         counts=counts.astype(np.int32),
+        is_cat=is_cat if cat_tree else None,
+        catmask=_pad_catmask(catmask) if cat_tree else None,
     )
 
 
 def _pack(grown: Any) -> torch.Tensor:
     """A grown tree's records as one f64 vector (exact for every field),
-    so all trees reach the host in one transfer."""
-    return torch.cat([
+    so all trees reach the host in one transfer. A categorical fit adds
+    ``rec_is_cat`` and the catmask bits, 16 to a word."""
+    parts = [
         grown.rec_leaf.double(), grown.rec_feature.double(),
         grown.rec_bin.double(), grown.rec_active.double(),
         grown.rec_gain.double(), grown.leaf_values.double(),
         grown.leaf_counts.double(),
-    ])
+    ]
+    if grown.rec_is_cat is not None:
+        bits = grown.rec_catmask.reshape(-1, 16).double()
+        weights = 2.0 ** torch.arange(16, dtype=torch.float64, device=bits.device)
+        parts += [grown.rec_is_cat.double(), (bits * weights).sum(1)]
+    return torch.cat(parts)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -209,10 +245,11 @@ class _DartTrees:
     of every tree grown so far, so the dropped trees' contribution is a
     device replay (``predict_scores`` over the f32 features, as the
     reference's ``per_tree_raw``) and their rescaling a device multiply.
-    The trees reach the host once, with everything else, at the end."""
+    The trees reach the host once, with everything else, at the end (and
+    at each checkpoint)."""
 
     def __init__(self, x: np.ndarray, n_trees: int, L: int, B: int,
-                 mapper: BinMapper, dev: torch.device):
+                 mapper: BinMapper, dev: torch.device, has_cat: bool):
         d = x.shape[1]
         self.x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
         table = np.array(
@@ -225,23 +262,46 @@ class _DartTrees:
         self.threshold = torch.full((n_trees, L - 1), torch.inf, device=dev)
         self.active = torch.zeros((n_trees, L - 1), dtype=torch.bool, device=dev)
         self.values = torch.zeros((n_trees, L), device=dev)
+        self.is_cat = self.catmask = None
+        if has_cat:
+            self.is_cat = torch.zeros((n_trees, L - 1), dtype=torch.bool, device=dev)
+            self.catmask = torch.zeros((n_trees, L - 1, NUM_BINS), dtype=torch.bool,
+                                       device=dev)
 
     def store(self, t: int, grown: Any, scale: float) -> None:
         feat = grown.rec_feature.clamp_min(0)
+        numeric = grown.rec_active
+        if self.is_cat is not None:
+            numeric = numeric & ~grown.rec_is_cat
+            self.is_cat[t] = grown.rec_is_cat
+            self.catmask[t, :, : grown.rec_catmask.shape[1]] = grown.rec_catmask
         self.leaf[t] = grown.rec_leaf
         self.feature[t] = feat
         self.threshold[t] = torch.where(
-            grown.rec_active, self.thr_table[feat, grown.rec_bin.clamp_min(0)], torch.inf
+            numeric, self.thr_table[feat, grown.rec_bin.clamp_min(0)], torch.inf
         )
         self.active[t] = grown.rec_active
         self.values[t] = grown.leaf_values * scale
 
+    def load(self, t: int, tree: Tree) -> None:
+        """A tree of a checkpoint (a resumed fit's earlier rounds)."""
+        dev = self.leaf.device
+        self.leaf[t] = torch.from_numpy(tree.leaf.astype(np.int64)).to(dev)
+        self.feature[t] = torch.from_numpy(np.clip(tree.feature, 0, None).astype(np.int64)).to(dev)
+        self.threshold[t] = torch.from_numpy(tree.threshold.astype(np.float32)).to(dev)
+        self.active[t] = torch.from_numpy(tree.active).to(dev)
+        self.values[t] = torch.from_numpy(tree.values).to(dev)
+        if self.is_cat is not None and tree.is_cat is not None:
+            self.is_cat[t] = torch.from_numpy(tree.is_cat).to(dev)
+            self.catmask[t] = torch.from_numpy(tree.catmask).to(dev)
+
     def contrib(self, idx: torch.Tensor, k: int) -> torch.Tensor:
         """Summed raw output of the trees ``idx`` (rounds in drop order,
         classes inside): (n,), or (n, k) summed per class in that order."""
+        cat = (None, None) if self.is_cat is None else (self.is_cat[idx], self.catmask[idx])
         per = predict_scores(
             self.x, self.leaf[idx], self.feature[idx], self.threshold[idx],
-            self.active[idx], self.values[idx],
+            self.active[idx], self.values[idx], None, *cat,
         )
         cols = list(per.unbind(1))
         if k == 1:
@@ -256,6 +316,22 @@ class _DartTrees:
 
     def scale(self, idx: torch.Tensor, factor: float) -> None:
         self.values[idx] = self.values[idx] * factor
+
+
+def _init_scores(booster: Booster, x: np.ndarray, k: int, dev: torch.device) -> torch.Tensor:
+    """A continued fit's starting scores: every tree of ``booster`` (not
+    its best-iteration prefix: ``merge`` keeps them all) replayed on the
+    device and summed as the JAX package's ``predict_raw`` sums them
+    (numpy's pairwise f32 order per class, / the rf tree count, +
+    base_score), so both packages start from the same scores."""
+    T = len(booster.trees)
+    per = booster._per_tree(x, T // booster.num_class, dev)
+    denom = float(T // k) if booster.boosting_type == "rf" else 1.0
+    cols = list(per.unbind(1))
+    raw = torch.stack([_pairwise_sum(cols[c::k]) / denom for c in range(k)], 1)
+    base = torch.from_numpy(np.asarray(booster.base_score, np.float32)).to(dev)
+    raw = raw + base
+    return raw[:, 0] if k == 1 else raw
 
 
 def _rank_pads(group_ids: np.ndarray, keep: Optional[np.ndarray],
@@ -284,6 +360,9 @@ def train(
     init_booster: Optional[Booster] = None,
     base_score: Any = 0.0,
     device: "str | torch.device | None" = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 10,
+    resume_from: Optional[str] = None,
 ) -> Booster:
     """Fit a booster on a dense (n, d) float matrix.
 
@@ -298,7 +377,18 @@ def train(
     of every row (lambdarank).
 
     ``base_score``: boost_from_average baseline (scalar, or (k,) for
-    multiclass), added to the initial scores and stored on the booster."""
+    multiclass), added to the initial scores and stored on the booster.
+
+    ``init_booster``: continued training — the new trees fit on top of
+    that booster's scores (all its trees) and are appended to it
+    (``Booster.merge``).
+
+    ``checkpoint_dir``: every ``checkpoint_every`` rounds (and after the
+    last) the trees, scores, bag, host generator state and early-stopping
+    counters go there (``checkpoint``); ``resume_from`` continues from the
+    last complete checkpoint of a directory (a fresh fit if it holds
+    none) and gives the model string of the uninterrupted fit, byte for
+    byte. The same directory for both is a crash-loop-safe auto-resume."""
     canon = objectives.canonical_objective(cfg.objective)
     if canon != cfg.objective:
         cfg = _dc_replace(cfg, objective=canon)
@@ -308,8 +398,6 @@ def train(
         raise ValueError(f"objective {canon!r} requires non-negative labels")
     if canon == "lambdarank" and group_ids is None:
         raise ValueError("lambdarank needs group_ids (the query of every row)")
-    if init_booster is not None and init_booster.trees:
-        raise _unported("continued training (init_booster)", "continued training")
     _require_dense(x)
     dev = resolve_device(device)
     host_reads["count"] = 0
@@ -324,9 +412,17 @@ def train(
     is_rf = cfg.boosting_type == "rf"
     is_dart = cfg.boosting_type == "dart"
     is_goss = cfg.boosting_type == "goss"
+    cat_features = tuple(int(f) for f in (cfg.categorical_features or ()))
+    delegate = cfg.delegate
 
-    mapper = BinMapper.fit(x, max_bin=cfg.max_bin, seed=cfg.seed)
+    mapper = BinMapper.fit(x, max_bin=cfg.max_bin, seed=cfg.seed,
+                           categorical_features=cat_features)
     bins = torch.from_numpy(mapper.transform(x)).to(dev)     # (n, d) uint8
+    cat_mask = None
+    if cat_features:
+        cat_np = np.zeros(d, bool)
+        cat_np[list(cat_features)] = True
+        cat_mask = torch.from_numpy(cat_np).to(dev)
     valid = None if valid_mask is None else np.asarray(valid_mask, bool).reshape(n)
     w = sample_weight if sample_weight is not None else np.ones(n, np.float32)
     if valid is not None:
@@ -355,6 +451,14 @@ def train(
     if init_score is not None:
         scores0 = scores0 + np.asarray(init_score).astype(scores0.dtype)
     scores = torch.from_numpy(np.ascontiguousarray(scores0, np.float32)).to(dev)
+    continued = init_booster is not None and bool(init_booster.trees)
+    if continued and init_booster.num_class != k:
+        raise ValueError(
+            f"init_booster has {init_booster.num_class} classes, this fit {k}: "
+            "continued training needs the same class count"
+        )
+    if continued:
+        scores = scores + _init_scores(init_booster, x, k, dev)
     if k > 1:
         y_enc = torch.from_numpy(np.eye(k, dtype=np.float32)[y.astype(np.int64)]).to(dev)
     else:
@@ -389,17 +493,39 @@ def train(
         rf_base = scores
         if cfg.objective == "lambdarank":
             g_np, h_np = objectives.lambdarank_grad_hess(
-                scores0.astype(np.float64), y.astype(np.float64), group_ids)
+                _to_host(rf_base).astype(np.float64), y.astype(np.float64), group_ids)
             g_rf, h_rf = torch.from_numpy(g_np).to(dev), torch.from_numpy(h_np).to(dev)
         else:
             g_rf, h_rf = gradients(rf_base)
         scores = torch.zeros_like(scores)
 
+    # -- checkpoint/resume --------------------------------------------------
+    start, lr_cur, resumed = 0, float(cfg.learning_rate), None
+    trees_done: list = []          # host trees of finished rounds (resumed, checkpointed)
+    fingerprint = None
+    checkpoint_every = max(1, int(checkpoint_every))
+    if checkpoint_dir or resume_from:
+        fingerprint = ckpt.config_fingerprint(cfg, n, d, k)
+    if resume_from:
+        resumed = ckpt.load_checkpoint(resume_from)
+    if resumed is not None:
+        if resumed.fingerprint != fingerprint:
+            raise ValueError(
+                f"checkpoint at {resume_from!r} was written by a different training "
+                "configuration or dataset shape — refusing to resume (fingerprint mismatch)"
+            )
+        start, lr_cur = resumed.round, resumed.lr
+        trees_done = list(resumed.booster.trees)
+        scores = torch.from_numpy(
+            np.ascontiguousarray(resumed.scores, np.float32).reshape(tuple(scores.shape))
+        ).to(dev)
+        log.info("resuming GBDT training from round %d", start)
+
     sp = SplitParams.make(
         dev, lambda_l2=cfg.lambda_l2, lambda_l1=cfg.lambda_l1,
         min_sum_hessian=cfg.min_sum_hessian_in_leaf,
         min_gain=cfg.min_gain_to_split,
-        learning_rate=1.0 if is_rf else cfg.learning_rate,
+        learning_rate=1.0 if is_rf else lr_cur,
     )
     grow = grow_tree_depthwise if cfg.growth_policy == "depthwise" else grow_tree
     renew = cfg.objective in objectives.RENEWED_KINDS and not is_rf
@@ -409,23 +535,45 @@ def train(
     draws = sampling.draw_rounds(
         cfg.seed, T, d, cfg.feature_fraction, dart=is_dart,
         drop_rate=cfg.drop_rate, max_drop=cfg.max_drop, skip_drop=cfg.skip_drop,
+        start=start, state=None if resumed is None else resumed.rng_state,
     )
     fms_dev = torch.from_numpy(draws.feature_masks).to(dev)
     dart = drop_idx = None
     if is_dart:
-        dart = _DartTrees(x, T * k, L, B, mapper, dev)
+        dart = _DartTrees(x, max(T, start) * k, L, B, mapper, dev, cat_mask is not None)
+        for t, tree in enumerate(trees_done):
+            dart.load(t, tree)
         flat = [r * k + c for sel in draws.drops for r in sel for c in range(k)]
         drop_idx = torch.tensor(flat, dtype=torch.int64).to(dev)
 
+    bag = None
+    if use_bag and start > 0:
+        # the bag in force at ``start``: redrawn from its round, and held
+        # against the one the checkpoint saved
+        r0 = (start - 1) // bagging_freq * bagging_freq
+        bag = (sampling.uniform(cfg.seed, r0, sampling.BAGGING_STREAM, n, dev)
+               < bagging_fraction).float()
+        if resumed.bag is None or not np.array_equal(_to_host(bag), resumed.bag):
+            raise ValueError(
+                f"checkpoint at {resume_from!r}: its bagging mask is not the draw of "
+                f"round {r0} — refusing to resume"
+            )
+
     # validation: every round's metric on the device, read once per chunk
-    eval_on = valid is not None and bool(valid.any()) and not is_dart
+    # (dart too: its metric reaches a delegate, though it never stops early)
+    eval_on = valid is not None and bool(valid.any())
     if eval_on:
         kind, eval_k = evaluation.eval_kind(cfg.objective, cfg.metric, cfg.eval_at)
         stopper = evaluation.EarlyStopping(kind, patience)
+        if resumed is not None:
+            stopper.best, stopper.best_iter = resumed.best_val, resumed.best_iter
+            stopper.since = resumed.rounds_no_improve
         valid_w = torch.from_numpy(valid.astype(np.float32)).to(dev)
         host_ndcg = kind == "ndcg" and rank is None
         rank_eval = _rank_pads(group_ids, valid, dev) if kind == "ndcg" and not host_ndcg else None
-        chunk = 1 if host_ndcg else (T if patience == 0 else min(T, max(16, patience)))
+        # a delegate reads every round's metric as it comes
+        chunk = (1 if host_ndcg or delegate is not None
+                 else T if patience == 0 else min(T, max(16, patience)))
         metric_name = (
             f"ndcg@{eval_k}" if kind == "ndcg"
             else objectives.regression_metric_name(kind)
@@ -440,12 +588,56 @@ def train(
                 return objectives.grouped_ndcg_device(s, y_enc, *rank_eval, k=eval_k)
             return evaluation.device_metric(s, y_enc, valid_w, kind, p1)
 
+    s_rec = 5 * (L - 1)  # offset of the leaf values in a packed record
+    has_cat = cat_mask is not None
+
+    def records_to_host(pending: list) -> list:
+        """The pending trees' records (and, for dart, every tree's current
+        values) to the host in one transfer each."""
+        done = len(trees_done)
+        if dart is not None and done:
+            old = _to_host(dart.values[:done])
+            for t, v in zip(trees_done, old):
+                t.values = v.astype(np.float32)
+        if not pending:
+            return []
+        recs = torch.stack(pending)
+        if dart is not None:  # the trees' final, rescaled values
+            recs[:, s_rec: s_rec + L] = dart.values[done: done + len(pending)].double()
+        return [_tree_from_host(r, L, mapper, B, has_cat) for r in _to_host(recs)]
+
+    def new_booster(trees: list) -> Booster:
+        return Booster(
+            trees=trees, objective=cfg.objective, num_class=k, num_features=d,
+            base_score=base_score, boosting_type=cfg.boosting_type,
+            objective_param=(
+                p1_host if cfg.objective in ("quantile", "huber", "fair", "tweedie") else None
+            ),
+        )
+
+    def save(next_round: int) -> None:
+        ckpt.save_checkpoint(checkpoint_dir, ckpt.TrainCheckpoint(
+            round=next_round, booster=new_booster(trees_done), scores=_to_host(scores),
+            bag=_to_host(bag) if use_bag else None,
+            rng_state=draws.states[next_round], fingerprint=fingerprint,
+            best_val=stopper.best if eval_on else None,
+            best_iter=stopper.best_iter if eval_on else -1,
+            rounds_no_improve=stopper.since if eval_on else 0, lr=lr_cur,
+        ))
+
     pending: list = []
     history: list = []
     chunk_vals: list = []
-    kept_rounds, it0, drop_at = T, 0, 0
-    bag = None
-    for it in range(T):
+    kept_rounds, it0, drop_at = T, start, 0
+    for it in range(start, T):
+        if delegate is not None:
+            delegate.before_train_iteration(it)
+            lr = float(delegate.get_learning_rate(it, lr_cur))
+            if lr != lr_cur and not is_rf:
+                # a fill on the device: no host copy, so no sync
+                sp = sp._replace(learning_rate=torch.full((), lr, dtype=torch.float32,
+                                                          device=dev))
+            lr_cur = lr
         w_it = w_dev
         if use_bag:
             if it % bagging_freq == 0:
@@ -475,6 +667,7 @@ def train(
                 num_leaves=L, sp=sp, feature_mask=fms_dev[it],
                 max_depth=int(cfg.max_depth),
                 min_data_in_leaf=int(cfg.min_data_in_leaf), num_bins=B,
+                categorical_mask=cat_mask,
             )
             if renew:
                 # the leaf's weighted percentile of residuals over the
@@ -503,35 +696,40 @@ def train(
             scores = scores - contrib * (1.0 - nf_drop)
         else:
             scores = new_scores
+        due = bool(checkpoint_dir) and ((it + 1) % checkpoint_every == 0 or it + 1 == T)
+        stopped, eval_result = False, None
         if eval_on:
             chunk_vals.append(metric(rf_base + scores / (it + 1) if is_rf else scores))
-            if len(chunk_vals) == chunk or it == T - 1:
+            if len(chunk_vals) == chunk or it == T - 1 or due:
                 vals = (chunk_vals if host_ndcg
                         else _to_host(torch.stack(chunk_vals)).tolist())
                 keep = stopper.replay(vals, it0)
                 history += vals[: len(vals) if keep is None else keep]
+                if len(vals) == 1:
+                    eval_result = (metric_name, vals[0], stopper.higher)
                 if keep is not None:
-                    kept_rounds = it0 + keep
-                    break
+                    kept_rounds, stopped = it0 + keep, True
                 it0, chunk_vals = it + 1, []
+        if delegate is not None:
+            delegate.after_train_iteration(it, eval_result, stopped or it == T - 1)
+        if stopped:
+            break
+        if due:
+            trees_done += records_to_host(pending)
+            pending = []
+            save(it + 1)
 
-    booster = Booster(
-        trees=[], objective=cfg.objective, num_class=k, num_features=d,
-        base_score=base_score, boosting_type=cfg.boosting_type,
-        objective_param=(
-            p1_host if cfg.objective in ("quantile", "huber", "fair", "tweedie") else None
-        ),
-    )
-    n_trees = kept_rounds * k
-    if n_trees:
-        recs = torch.stack(pending[:n_trees])
-        if is_dart:  # the trees' final, rescaled values
-            s = 5 * (L - 1)
-            recs[:, s: s + L] = dart.values[:n_trees].double()
-        records = _to_host(recs)  # the one transfer of the records
-        booster.trees = [_tree_from_host(r, L, mapper) for r in records]
+    trees_done += records_to_host(pending[:max(kept_rounds * k - len(trees_done), 0)])
+    booster = new_booster(trees_done)
     if eval_on:
         booster.evals = {metric_name: history}
-        if stopper.best_iter > 0:
+        if stopper.best_iter > 0 and not is_dart:
+            # dart rescales trees inside any prefix: none reproduces a score
             booster.best_iteration = stopper.best_iter
+    if continued:
+        new_best = booster.best_iteration
+        booster = init_booster.merge(booster)
+        if new_best > 0:
+            # counted from the front of the merged trees
+            booster.best_iteration = len(init_booster.trees) // k + new_best
     return booster

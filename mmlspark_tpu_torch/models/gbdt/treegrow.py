@@ -2,9 +2,9 @@
 
 The port of ``mmlspark_tpu.models.gbdt.treegrow``: leaf-wise (lossguide)
 growth, level-wise (depthwise) growth with sibling subtraction and the
-vectorized level application, the shared split search, and the batched
-split-log replay used for prediction. Numerical splits only; categorical
-splits are not ported yet (ROADMAP.md, Queue A item 3).
+vectorized level application, the shared split search (numerical
+thresholds and categorical subsets), and the batched split-log replay used
+for prediction.
 
 Convention (the JAX package's): a split sends ``bin <= threshold_bin`` (and
 missing/NaN) LEFT; the left child keeps the parent's leaf id, the right
@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mmlspark_tpu_torch.ops.histogram import (
@@ -45,6 +46,9 @@ class GrownTree(NamedTuple):
     leaf_values: torch.Tensor   # (L,) float32 (shrinkage applied)
     leaf_counts: torch.Tensor   # (L,) int32
     row_leaf: torch.Tensor      # (n,) int32 final leaf of every row
+    # categorical subset splits; None when the fit has no categorical feature
+    rec_is_cat: Optional[torch.Tensor] = None   # (L-1,) bool
+    rec_catmask: Optional[torch.Tensor] = None  # (L-1, B) bool: bins going LEFT
 
 
 class SplitParams(NamedTuple):
@@ -113,11 +117,19 @@ def make_leaf_best(
     min_data_in_leaf: int,
     sp: SplitParams,
     num_bins: int = NUM_BINS,
+    cat_f: Optional[torch.Tensor] = None,
 ):
     """Best-split search over a batch of (d*B, 3) histogram planes — the
     single source of split semantics both growers share. The reference's
     ``jax.vmap(leaf_best)`` over planes is the leading batch dimension
-    here. Returns (gain (P,), feature (P,), bin (P,))."""
+    here. Returns (gain (P,), feature (P,), bin (P,), catmask (P, B) bool
+    or None).
+
+    ``cat_f``: (d,) bool, the categorical features, or None (then none of
+    the categorical search runs). A categorical feature's candidate splits
+    are LightGBM's sorted-by-ratio scan: its bins ordered by G/H (empty bins
+    last), the left set a prefix of that order; its ``bin`` is the prefix
+    length - 1 and ``catmask`` the left set."""
     B = num_bins
     feat_ok = (feature_mask > 0)[None, :, None]
     mdl = float(min_data_in_leaf)
@@ -125,27 +137,42 @@ def make_leaf_best(
     def gscore(Gv: torch.Tensor, Hv: torch.Tensor) -> torch.Tensor:
         return split_gain_term(Gv, Hv, sp.lambda_l2, sp.lambda_l1)
 
+    def valid(CL, CR, HL, HR) -> torch.Tensor:
+        msh = sp.min_sum_hessian
+        return feat_ok & (CL >= mdl) & (CR >= mdl) & (HL >= msh) & (HR >= msh)
+
     def leaf_best(planes: torch.Tensor) -> tuple:
         P = planes.shape[0]
-        cube = planes.reshape(P, d, B, 3).permute(0, 3, 1, 2)  # (P, 3, d, B)
-        cs = prefix_sum(cube.contiguous())
+        cube = planes.reshape(P, d, B, 3).permute(0, 3, 1, 2).contiguous()  # (P, 3, d, B)
+        cs = prefix_sum(cube)
         GL, HL, CL = cs[:, 0], cs[:, 1], cs[:, 2]
         G, H, C = GL[..., -1:], HL[..., -1:], CL[..., -1:]
         GR, HR, CR = G - GL, H - HL, C - CL
         gain_num = gscore(GL, HL) + gscore(GR, HR) - gscore(G, H)
-        msh = sp.min_sum_hessian
-        valid = (
-            feat_ok
-            & (CL >= mdl) & (CR >= mdl)
-            & (HL >= msh) & (HR >= msh)
-        )
-        flat = torch.where(valid, gain_num, -math.inf).reshape(P, d * B)
+        gain = torch.where(valid(CL, CR, HL, HR), gain_num, -math.inf)
+        if cat_f is not None:
+            hg, hh, hc = cube[:, 0], cube[:, 1], cube[:, 2]
+            ratio = torch.where(hc > 0, hg / (hh + 1e-12), -math.inf)
+            # stable, and -0.0 made +0.0 first: jnp.argsort's comparator
+            # holds them equal, a bitwise sort on the card would not
+            order = torch.argsort(-ratio + 0.0, dim=-1, stable=True)  # (P, d, B)
+            srt = prefix_sum(torch.gather(cube, 3, order[:, None].expand(P, 3, d, B)))
+            cg, ch, cc = srt[:, 0], srt[:, 1], srt[:, 2]
+            gain_cat = gscore(cg, ch) + gscore(G - cg, H - ch) - gscore(G, H)
+            gain_cat = torch.where(valid(cc, C - cc, ch, H - ch), gain_cat, -math.inf)
+            gain = torch.where(cat_f[None, :, None], gain_cat, gain)
+        flat = gain.reshape(P, d * B)
         best = torch.argmax(flat, dim=1)  # first maximum, as jnp.argmax
-        return (
-            flat.gather(1, best[:, None])[:, 0],
-            torch.div(best, B, rounding_mode="floor"),
-            best % B,
-        )
+        bf, bb = torch.div(best, B, rounding_mode="floor"), best % B
+        catmask = None
+        if cat_f is not None:
+            # left set: the bins whose rank in the chosen feature's order is
+            # at most bb (the rank is the inverse permutation of the order)
+            order_sel = order.gather(1, bf[:, None, None].expand(P, 1, B))[:, 0]
+            rank = torch.empty_like(order_sel).scatter_(
+                1, order_sel, torch.arange(B, device=order.device).expand(P, B))
+            catmask = rank <= bb[:, None]
+        return flat.gather(1, best[:, None])[:, 0], bf, bb, catmask
 
     return leaf_best
 
@@ -176,9 +203,11 @@ def grow_tree(
     max_depth: int = -1,
     min_data_in_leaf: int = 20,
     num_bins: int = NUM_BINS,
+    categorical_mask: Optional[torch.Tensor] = None,  # (d,) bool
 ) -> GrownTree:
     """Leaf-wise (best-first) growth of one tree: the port of the JAX
-    package's ``_grow_tree``.
+    package's ``_grow_tree``. ``categorical_mask`` None leaves the
+    categorical search and routing out entirely.
 
     The (L, d*B, 3) histogram cube is carried incrementally and updated in
     place: each split histograms only the rows that moved to the new right
@@ -189,7 +218,8 @@ def grow_tree(
     L, B = num_leaves, num_bins
     dev = bins.device
     row_stats = _row_stats(grad, hess, row_weight)
-    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B)
+    cat_f = categorical_mask
+    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B, cat_f=cat_f)
 
     hist = torch.zeros((L, d * B, 3), dtype=torch.float32, device=dev)
     hist[0] = plane_histogram(bins, row_stats, None, B)
@@ -206,13 +236,20 @@ def grow_tree(
     rec_bin = torch.full((L - 1,), -1, dtype=torch.int64, device=dev)
     rec_active = torch.zeros(L - 1, dtype=torch.bool, device=dev)
     rec_gain = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+    rec_is_cat = rec_catmask = cache_catmask = None
+    if cat_f is not None:
+        rec_is_cat = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+        rec_catmask = torch.zeros((L - 1, B), dtype=torch.bool, device=dev)
+        cache_catmask = torch.zeros((L, B), dtype=torch.bool, device=dev)
 
     for k in range(L - 1):
         # refresh the two planes the previous split changed
-        pg, pf, pb = leaf_best(hist.index_select(0, prev_pair))
+        pg, pf, pb, pcm = leaf_best(hist.index_select(0, prev_pair))
         cache_gain.index_copy_(0, prev_pair, pg)
         cache_feat.index_copy_(0, prev_pair, pf)
         cache_bin.index_copy_(0, prev_pair, pb)
+        if cat_f is not None:
+            cache_catmask.index_copy_(0, prev_pair, pcm)
 
         leaf_ok = leaf_ids <= k
         if max_depth > 0:
@@ -225,7 +262,13 @@ def grow_tree(
         do_split = ~done & (best_gain > sp.min_gain) & torch.isfinite(best_gain)
 
         row_bins = bins.index_select(1, bf)[:, 0]
-        moved = do_split & (row_leaf == bl) & (row_bins > bb)
+        if cat_f is not None:
+            is_cat = cat_f.index_select(0, bf)
+            catmask = cache_catmask.index_select(0, bl)[0]
+            right = torch.where(is_cat, ~catmask[row_bins.long()], row_bins > bb)
+        else:
+            right = row_bins > bb
+        moved = do_split & (row_leaf == bl) & right
         row_leaf = torch.where(moved, k + 1, row_leaf)
         right = plane_histogram(bins, row_stats, moved.to(torch.float32), B)
         hist[k + 1] = right
@@ -241,12 +284,16 @@ def grow_tree(
         rec_bin[k: k + 1] = torch.where(do_split, bb, -1)
         rec_active[k: k + 1] = do_split
         rec_gain[k: k + 1] = torch.where(do_split, best_gain, 0.0)
+        if cat_f is not None:
+            cat_split = do_split & is_cat
+            rec_is_cat[k: k + 1] = cat_split
+            rec_catmask[k] = catmask & cat_split
         done = done | ~do_split
         prev_pair = torch.cat([bl, leaf_ids[k + 1: k + 2]])
 
     values, counts = _leaf_values(row_leaf, row_stats, L, sp)
     return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
-                     values, counts, row_leaf)
+                     values, counts, row_leaf, rec_is_cat, rec_catmask)
 
 
 def _put_drop(a: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -275,6 +322,7 @@ def grow_tree_depthwise(
     max_depth: int = -1,
     min_data_in_leaf: int = 20,
     num_bins: int = NUM_BINS,
+    categorical_mask: Optional[torch.Tensor] = None,
 ) -> GrownTree:
     """Level-wise growth: the port of the JAX package's
     ``_grow_tree_depthwise`` with sibling subtraction and the vectorized
@@ -296,7 +344,8 @@ def grow_tree_depthwise(
         else max(1, math.ceil(math.log2(L)))
     )
     row_stats = _row_stats(grad, hess, row_weight)
-    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B)
+    cat_f = categorical_mask
+    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B, cat_f=cat_f)
 
     i32, i64 = torch.int32, torch.int64
     row_slot = torch.zeros(n, dtype=i64, device=dev)
@@ -306,6 +355,10 @@ def grow_tree_depthwise(
     rec_bin = torch.full((L - 1,), -1, dtype=i64, device=dev)
     rec_active = torch.zeros(L - 1, dtype=torch.bool, device=dev)
     rec_gain = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+    rec_is_cat = rec_catmask = None
+    if cat_f is not None:
+        rec_is_cat = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+        rec_catmask = torch.zeros((L - 1, B), dtype=torch.bool, device=dev)
     # frontier of the current level: lut maps leaf id -> local plane index
     # (L = not in the frontier); inv maps plane index -> leaf id
     lut = torch.where(torch.arange(L, device=dev) == 0, 0, L).to(i64)
@@ -332,7 +385,7 @@ def grow_tree_depthwise(
         else:
             cube = multi_plane_histogram(bins, row_stats, local.to(i32), S, B)
         cube_prev = cube
-        gains, feats, bbs = leaf_best(cube)
+        gains, feats, bbs, catms = leaf_best(cube)
         order = torch.argsort(-gains, stable=True)
         S_next = min(2 * S, L)
 
@@ -351,6 +404,10 @@ def grow_tree_depthwise(
         rec_bin = _put_drop(rec_bin, idx, bb_s)
         rec_active = _put_drop(rec_active, idx, torch.ones_like(ok))
         rec_gain = _put_drop(rec_gain, idx, gain_s)
+        if cat_f is not None:
+            is_cat_s, cm_s = cat_f[bf_s], catms[order]
+            rec_is_cat = _put_drop(rec_is_cat, idx, is_cat_s)
+            rec_catmask = _put_drop(rec_catmask, idx, cm_s & is_cat_s[:, None])
         # next frontier: pair p (= rank) at locals (2p, 2p+1)
         lut_idx = torch.cat([torch.where(ok, slot_s, L), torch.where(ok, new_id, L)])
         lut = _set_drop(L, L, lut_idx, torch.cat([2 * rank, 2 * rank + 1]), i64)
@@ -370,16 +427,38 @@ def grow_tree_depthwise(
         split_new = _set_drop(S + 1, 0, sj, new_id, i64)
         j_r = local.clamp(max=S)
         row_bins = torch.gather(bins, 1, split_bf[j_r][:, None])[:, 0]
-        goes_right = split_ok[j_r] & (row_bins > split_bb[j_r])
+        if cat_f is not None:
+            split_iscat = _set_drop(S + 1, 0, sj, is_cat_s, torch.bool)
+            split_cm = _put_drop(torch.zeros((S + 1, B), dtype=torch.bool, device=dev), sj, cm_s)
+            right = torch.where(split_iscat[j_r], ~split_cm[j_r, row_bins.long()],
+                                row_bins > split_bb[j_r])
+        else:
+            right = row_bins > split_bb[j_r]
+        goes_right = split_ok[j_r] & right
         row_slot = torch.where(goes_right, split_new[j_r], row_slot)
         k = k + ok.sum()
 
     values, counts = _leaf_values(row_slot.to(i32), row_stats, L, sp)
     return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
-                     values, counts, row_slot.to(i32))
+                     values, counts, row_slot.to(i32), rec_is_cat, rec_catmask)
 
 
 # -- prediction -------------------------------------------------------------
+
+
+def category_bin_slot(vals, B: int = NUM_BINS):
+    """Category value -> bin slot, the one encoding shared by training
+    (identity binning), device prediction (:func:`predict_leaves`) and the
+    host SHAP walks: NaN -> 0 (the missing bin), value v -> v+1, clipped
+    into [0, B-1] (the clip is taken in float first, so +-1e30 and +-inf
+    cannot overflow the integer cast). Takes a numpy array or a tensor."""
+    if isinstance(vals, torch.Tensor):
+        finite = torch.nan_to_num(vals, nan=-1.0)
+        slot = torch.round(torch.clamp(finite, -1.0, float(B))).to(torch.int64) + 1
+        return torch.clamp(torch.where(torch.isnan(vals), 0, slot), 0, B - 1)
+    finite = np.nan_to_num(vals, nan=-1.0)
+    slot = np.round(np.clip(finite, -1.0, float(B))).astype(np.int32) + 1
+    return np.clip(np.where(np.isnan(vals), 0, slot), 0, B - 1)
 
 
 def predict_leaves(
@@ -389,15 +468,22 @@ def predict_leaves(
     rec_threshold: torch.Tensor,   # (T, S) float32 (<= goes left)
     rec_active: torch.Tensor,      # (T, S) bool
     rec_default_left: Optional[torch.Tensor] = None,  # (T, S) bool
+    rec_is_cat: Optional[torch.Tensor] = None,        # (T, S) bool
+    rec_catmask: Optional[torch.Tensor] = None,       # (T, S, NUM_BINS) bool
 ) -> torch.Tensor:
     """Replay the split logs of all trees at once -> (n, T) leaf indices.
 
-    NaN goes LEFT unless ``rec_default_left`` says otherwise per split
-    (LightGBM's decision_type default-left bit)."""
+    Numerical splits: NaN goes LEFT unless ``rec_default_left`` says
+    otherwise per split (LightGBM's decision_type default-left bit).
+    Categorical splits (``rec_is_cat``) route by set membership: value v
+    goes left iff ``rec_catmask[t, k, category_bin_slot(v)]``, so NaN
+    follows the missing bin and a category never seen in training goes
+    right."""
     n = x.shape[0]
     T, S = rec_leaf.shape
     row_leaf = torch.zeros((n, T), dtype=torch.int64, device=x.device)
     feat = rec_feature.clamp(0, max(x.shape[1] - 1, 0))
+    trees = torch.arange(T, device=x.device)[None, :]
     for k in range(S):  # the right child of step k is leaf k + 1
         vals = x[:, feat[:, k]]                         # (n, T)
         if rec_default_left is None:
@@ -406,6 +492,10 @@ def predict_leaves(
             right = torch.where(
                 torch.isnan(vals), ~rec_default_left[:, k], vals > rec_threshold[:, k]
             )
+        if rec_is_cat is not None:
+            cm = rec_catmask[:, k]                      # (T, B)
+            left_cat = cm[trees, category_bin_slot(vals, cm.shape[1])]
+            right = torch.where(rec_is_cat[:, k], ~left_cat, right)
         goes_right = (row_leaf == rec_leaf[:, k]) & rec_active[:, k] & right
         row_leaf = torch.where(goes_right, k + 1, row_leaf)
     return row_leaf
@@ -419,10 +509,13 @@ def predict_scores(
     rec_active: torch.Tensor,
     leaf_values: torch.Tensor,     # (T, L) float32
     rec_default_left: Optional[torch.Tensor] = None,
+    rec_is_cat: Optional[torch.Tensor] = None,
+    rec_catmask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-tree outputs (n, T): the leaf value each row lands in."""
     leaves = predict_leaves(
-        x, rec_leaf, rec_feature, rec_threshold, rec_active, rec_default_left
+        x, rec_leaf, rec_feature, rec_threshold, rec_active, rec_default_left,
+        rec_is_cat, rec_catmask,
     )
     T = leaf_values.shape[0]
     return leaf_values[torch.arange(T, device=x.device)[None, :], leaves]

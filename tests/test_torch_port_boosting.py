@@ -3,16 +3,12 @@ against the JAX package's, on the CPU.
 
 The same numpy inputs go through the JAX ``train(..., shard=False)`` with
 its device grower (``MMLSPARK_TPU_HIST_HOST=0``) and through the port's
-``train(..., device="cpu")``. Two things differ by design and are routed
-through the JAX package here, so the fits can be held to equal split
-records:
-
-- the row draws: the JAX package draws with Threefry
-  (``fold_in(fold_in(PRNGKey(seed), round), stream)``), the port with a
-  PyTorch generator seeded from ``(seed, round, stream)``
-  (``sampling.uniform``); the tests give the port the JAX draws;
-- sigmoid/softmax gradients: XLA's f32 ``exp`` and PyTorch's differ in the
-  last bit (``tests/test_torch_port_gbdt.py``).
+``train(..., device="cpu")``. The row draws need no help: the port's
+``sampling.uniform`` computes the JAX package's Threefry draws bit for bit
+(``tests/test_torch_port_sampling.py``). One thing differs by design and is
+routed through the JAX package here, so the fits can be held to equal
+split records: sigmoid/softmax gradients, since XLA's f32 ``exp`` and
+PyTorch's differ in the last bit (``tests/test_torch_port_gbdt.py``).
 
 Tolerances: split records (leaf, feature, threshold, active, counts) and
 dart's drop sets equal; leaf values and gains within RTOL=1e-4, ATOL=1e-6;
@@ -70,19 +66,6 @@ def reference_device_grower(monkeypatch):
     monkeypatch.setenv("MMLSPARK_TPU_HIST_HOST", "0")
 
 
-def _jax_uniform(seed, it, stream, n, device):
-    import jax
-
-    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed), it), stream)
-    return torch.from_numpy(np.array(jax.random.uniform(key, (n,)))).to(device)
-
-
-@pytest.fixture
-def jax_draws(monkeypatch):
-    """The port's device draws replaced by the JAX package's own."""
-    monkeypatch.setattr(PS, "uniform", _jax_uniform)
-
-
 @pytest.fixture
 def jax_gradients(monkeypatch):
     import jax.numpy as jnp
@@ -98,7 +81,7 @@ def jax_gradients(monkeypatch):
 
 
 @pytest.fixture
-def parity(reference_device_grower, jax_draws, jax_gradients):
+def parity(reference_device_grower, jax_gradients):
     return None
 
 

@@ -367,3 +367,65 @@ def test_objectives_on_the_card_track_the_cpu(cuda_device, objective):
     vc = cpu.evals[name]
     best = max if objective == "lambdarank" else min
     assert best(vg) == pytest.approx(best(vc), rel=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4097, 200_000])
+def test_threefry_draws_on_the_card_equal_the_cpu(cuda_device, n):
+    """Integer arithmetic on int64 tensors: the card's draw is the CPU's,
+    bit for bit (the CPU's is JAX's, ``tests/test_torch_port_sampling.py``)."""
+    from mmlspark_tpu_torch.models.gbdt import sampling as PS
+
+    for seed, it, stream in ((0, 0, 1), (7, 13, 2), (-12345, 999, 1)):
+        gpu = PS.uniform(seed, it, stream, n, cuda_device)
+        cpu = PS.uniform(seed, it, stream, n, torch.device("cpu"))
+        assert gpu.device.type == "cuda"
+        assert torch.equal(gpu.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def _categorical_data(n, seed=8):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 10)).astype(np.float32)
+    levels = (4, 16, 64, 253)
+    for j, lv in enumerate(levels):
+        x[:, 6 + j] = rng.integers(0, lv, n)
+    x[rng.random(n) < 0.03, 9] = np.nan
+    e = rng.normal(size=253)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] + np.nan_to_num(e[np.nan_to_num(x[:, 9]).astype(int)])
+         > 0).astype(np.float64)
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,kernel", [("lossguide", "plane_hist"),
+                                           ("depthwise", "multi_plane_hist")])
+def test_categorical_fit_and_text_round_trip_on_the_card(cuda_device, policy, kernel):
+    """A categorical fit on the card launches its histogram kernel, holds
+    categorical splits, tracks the CPU's held-out AUC within 0.01, and its
+    JSON and LightGBM-text round trips score bitwise equal on the card,
+    unseen, NaN and out-of-range categories included."""
+    from mmlspark_tpu_torch.models.gbdt import Booster
+
+    x, y = _categorical_data(24_000)
+    xt, yt = x[20_000:], y[20_000:]
+    x, y = x[:20_000], y[:20_000]
+    cfg = TrainConfig(num_iterations=10, num_leaves=31, growth_policy=policy,
+                      categorical_features=(6, 7, 8, 9))
+    PH.reset_launch_counts()
+    gpu = train(x, y, cfg, device=cuda_device)
+    assert PH.launches[kernel] > 0
+    assert any(t.has_categorical for t in gpu.trees)
+    cpu = train(x, y, cfg, device="cpu")
+    auc_g = binary_auc(yt, gpu.predict_raw(xt, device=cuda_device))
+    auc_c = binary_auc(yt, cpu.predict_raw(xt, device="cpu"))
+    assert auc_g > 0.8 and abs(auc_g - auc_c) < 0.01
+    odd = xt[:12].copy()
+    odd[:, 9] = [np.nan, 300, -1, 1e30, -1e30, np.inf, -np.inf, 252.6, 253, 254, 0.4, 2.5]
+    rows = np.concatenate([xt, odd])
+    want = gpu.predict_raw(rows, device=cuda_device)
+    for back in (Booster.from_model_string(gpu.to_model_string()),
+                 Booster.from_lightgbm_string(gpu.to_lightgbm_string())):
+        got = back.predict_raw(rows, device=cuda_device)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(gpu.predict_leaf(rows, device=cuda_device),
+                                  gpu.predict_leaf(rows, device="cpu"))

@@ -26,6 +26,8 @@ def test_import_with_jax_blocked():
         "import mmlspark_tpu_torch, mmlspark_tpu_torch.models.gbdt\n"
         "from mmlspark_tpu_torch.models.gbdt import LightGBMRanker, LightGBMRankerModel\n"
         "import mmlspark_tpu_torch.models.gbdt.sampling, mmlspark_tpu_torch.models.gbdt.evaluation\n"
+        "import mmlspark_tpu_torch.models.gbdt.lgbm_format, mmlspark_tpu_torch.models.gbdt.treeshap\n"
+        "import mmlspark_tpu_torch.models.gbdt.checkpoint, mmlspark_tpu_torch.models.gbdt.delegate\n"
         "import mmlspark_tpu_torch.ops.histogram, mmlspark_tpu_torch.ops.cuda_build\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"

@@ -32,7 +32,6 @@ from mmlspark_tpu_torch.models.gbdt import (
     LightGBMRegressor,
     TrainConfig,
     objectives as PO,
-    sampling as PS,
     train,
 )
 
@@ -58,9 +57,10 @@ def reference_device_grower(monkeypatch):
 
 @pytest.fixture
 def jax_gradients(monkeypatch):
-    """The port's regression and LambdaRank gradient functions (and its
-    bagging draws) routed through the JAX package's, so both trainers see
-    equal gradients and rows."""
+    """The port's regression and LambdaRank gradient functions routed
+    through the JAX package's, so both trainers see equal gradients (the
+    bagging draws are equal already: ``sampling.uniform`` is the JAX
+    package's Threefry draw)."""
     import jax
     import jax.numpy as jnp
 
@@ -80,13 +80,8 @@ def jax_gradients(monkeypatch):
         g, h = rank_jit(t2j(s), t2j(rel), t2j(pad_idx), t2j(valid))
         return j2t(g), j2t(h)
 
-    def uniform(seed, it, stream, n, device):
-        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed), it), stream)
-        return j2t(jax.random.uniform(key, (n,))).to(device)
-
     monkeypatch.setattr(PO, "regression_grad_hess", regression)
     monkeypatch.setattr(PO, "lambdarank_grad_hess_device", rank)
-    monkeypatch.setattr(PS, "uniform", uniform)
 
 
 def _reference_metric(ref, x, y, valid, kind, p1=0.0):
