@@ -26,7 +26,14 @@ bitwise equal on the card, a categorical card-vs-CPU fit, continued
 training (``model_string``, ``num_batches``), a checkpointed GOSS and a
 bagged fit stopped at round 12 and resumed byte for byte, exact and
 approximate SHAP on 2,000 rows, and the card's Threefry draws against the
-CPU's bit for bit.
+CPU's bit for bit. Last, image featurization (no kernel of its own: its
+convolutions, resize and normalisation are PyTorch ops): a ResNet-50 at
+224 on the card in f32 (TF32 off) and bf16 against the port's CPU f32;
+the packaged ResNet8_Digits and ResNet18_Patches through ImageFeaturizer
+on the card against the CPU (digits accuracy > 0.95); and bench.py's
+featurizer cell (2,048 images, ResNet50, batch 256) with its images/s,
+device-resident images/s, host-to-device MB/s, peak memory and share of
+the card's bf16 peak.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -797,6 +804,208 @@ def draws() -> dict:
     return rec
 
 
+# -- image featurization (ResNet through ImageFeaturizer) ------------------------
+
+BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+FEAT_F32_REL = 1e-3            # card f32 (TF32 off) vs CPU f32: max |d| <= 1e-3 * max |cpu|
+FEAT_BF16_L2 = 3e-2            # card bf16 vs CPU f32 (or bf16): relative L2 per output
+FEAT_ROWS, FEAT_BATCH, FEAT_SIZE = 2048, 256, 224   # bench.py's accelerator featurizer cell
+
+
+def _perturbed(module, seed: int) -> dict:
+    """A seeded flax-layout init of ``module`` with every leaf moved by a
+    numpy draw: a fresh init zeroes each block's last batch norm, so its
+    residual branch would output 0 and hide the convs behind it."""
+    from mmlspark_tpu_torch.models import resnet as R
+
+    rng = np.random.default_rng(seed)
+
+    def move(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: move(x, k) for k, x in tree.items()}
+        a = tree + rng.normal(size=tree.shape).astype(np.float32) * 0.1 * (np.abs(tree).mean() + 0.1)
+        return np.abs(a) + 0.5 if key == "var" else a
+
+    return move(R.init_flax_variables(module, seed))
+
+
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def resnet50_card_vs_cpu() -> dict:
+    """ResNet-50 at 224, full width, batch 8, perturbed seeded weights: every
+    named output of the card in f32 (TF32 off for convolutions and matrix
+    products) against the port's CPU f32, and of the card in bf16 against
+    the same CPU f32."""
+    from mmlspark_tpu_torch.models import resnet as R
+
+    variables = _perturbed(R.resnet50(dtype=torch.float32), seed=5)
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(8, 224, 224, 3)).astype(np.float32))
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        cpu = R.load_flax_variables(R.resnet50(dtype=torch.float32), variables).eval()(x)
+        rec = {"tf32": False, "batch": 8, "f32_max_rel": {}, "bf16_rel_l2": {}}
+        for dtype, key in ((torch.float32, "f32_max_rel"), (torch.bfloat16, "bf16_rel_l2")):
+            m = R.load_flax_variables(R.resnet50(dtype=dtype), variables).to(DEV).eval()
+            out = m(x.to(DEV))
+            for k, want in cpu.items():
+                got = out[k].float().cpu().numpy()
+                want = want.numpy()
+                if got.shape != want.shape or not np.isfinite(got).all():
+                    raise AssertionError(f"resnet50 {k}: {got.shape} or non-finite on the card")
+                if key == "f32_max_rel":
+                    rec[key][k] = float(np.abs(got - want).max() / np.abs(want).max())
+                else:
+                    rec[key][k] = _rel_l2(got, want)
+            del m, out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    bad = {k: v for k, v in rec["f32_max_rel"].items() if v > FEAT_F32_REL}
+    bad.update({k: v for k, v in rec["bf16_rel_l2"].items() if v > FEAT_BF16_L2})
+    phase("featurizer", part="resnet50 card vs cpu", f32_tol=FEAT_F32_REL,
+          bf16_tol=FEAT_BF16_L2, **rec)
+    if bad:
+        raise AssertionError(f"ResNet-50 card outputs off the CPU's: {bad}")
+    return rec
+
+
+def _digits():
+    raw = np.genfromtxt(os.path.join(ROOT, "tests", "resources", "data", "digits.csv"),
+                        delimiter=",", skip_header=1)
+    x8, y = raw[:, :64].reshape(-1, 8, 8), raw[:, 64].astype(np.int64)
+    img = np.kron(x8 / 16.0, np.ones((4, 4)))
+    return (np.repeat(img[..., None], 3, axis=-1).astype(np.float32) * 255).astype(np.uint8), y
+
+
+def trained_checkpoints(repo: str) -> dict:
+    """The packaged ResNet8_Digits and ResNet18_Patches through
+    ImageFeaturizer on the card and on the CPU: features agree; digits
+    logits classify rows 1500+ at > 0.95 (the JAX package's bar)."""
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+
+    imgs, y = _digits()
+    patches = np.random.default_rng(7).integers(0, 255, size=(64, 32, 32, 3), dtype=np.uint8)
+    rec = {}
+    for name, data, cut in (("ResNet8_Digits", imgs, 1), ("ResNet8_Digits", imgs[1500:], 0),
+                            ("ResNet18_Patches", patches, 1)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            f = ImageFeaturizer(input_col="image", output_col="f", model_name=name,
+                                cut_output_layers=cut, repo_dir=repo, device=dev)
+            out[dev] = f.transform(DataFrame.from_dict({"image": data}))["f"]
+        key = f"{name}_{'logits' if cut == 0 else 'pool'}"
+        rec[key] = {"rows": len(data), "width": out["cuda"].shape[1],
+                    "card_vs_cpu_rel_l2": _rel_l2(out["cuda"], out["cpu"])}
+        if cut == 0:
+            rec[key]["accuracy_rows_1500_on"] = float((out["cuda"].argmax(-1) == y[1500:]).mean())
+    phase("featurizer", part="trained checkpoints", tol=FEAT_BF16_L2, **rec)
+    for key, r in rec.items():
+        if r["card_vs_cpu_rel_l2"] > FEAT_BF16_L2:
+            raise AssertionError(f"{key}: card features off the CPU's: {r}")
+    if rec["ResNet8_Digits_logits"]["accuracy_rows_1500_on"] <= 0.95:
+        raise AssertionError(f"ResNet8_Digits accuracy {rec['ResNet8_Digits_logits']}")
+    return rec
+
+
+def _conv_flops(net, x) -> int:
+    """Multiply-adds x 2 of every conv and dense layer one call of ``net`` on
+    ``x`` runs, from the layers' own shapes (forward hooks)."""
+    from mmlspark_tpu_torch.models import resnet as R
+
+    total = [0]
+
+    def conv_hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
+
+    hooks = [m.register_forward_hook(conv_hook) for m in net.modules() if isinstance(m, R.Conv)]
+    with torch.inference_mode():
+        out = net(x)
+    for h in hooks:
+        h.remove()
+    if net.node == "logits":  # the head ran
+        total[0] += 2 * x.shape[0] * net.backbone.head.weight.numel()
+    return total[0]
+
+
+def bench_cell(repo: str, smi: str) -> dict:
+    """bench.py's featurizer cell (:115-178) on the card: 2,048 uint8
+    224x224x3 rows, ResNet50, batch 256, cut_output_layers=1."""
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+
+    t0 = time.perf_counter()
+    imgs = np.random.default_rng(0).integers(0, 255, size=(FEAT_ROWS, FEAT_SIZE, FEAT_SIZE, 3),
+                                             dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs})
+    feat = ImageFeaturizer(input_col="image", output_col="features", batch_size=FEAT_BATCH,
+                           model_name="ResNet50", cut_output_layers=1, image_size=FEAT_SIZE,
+                           repo_dir=repo)
+    feat.transform(DataFrame.from_dict({"image": imgs[:FEAT_BATCH]}))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = feat.transform(df)["features"]
+        runs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if out.shape != (FEAT_ROWS, 2048) or not np.isfinite(out).all():
+        raise AssertionError(f"bench cell features malformed: {out.shape}")
+
+    net = feat._build()._runner(DEV)
+    staged = torch.from_numpy(imgs[:FEAT_BATCH]).to(DEV)
+    flops = _conv_flops(net, staged)
+    reps = 40
+    with torch.inference_mode():
+        net(staged)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            net(staged)
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+    copy = torch.from_numpy(imgs[: 2 * FEAT_BATCH])
+    pinned = copy.pin_memory()
+    uplink = {}
+    for kind, src in (("pinned", pinned), ("pageable", copy)):
+        src.to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src.to(DEV, non_blocking=kind == "pinned")
+        torch.cuda.synchronize()
+        uplink[f"h2d_mb_s_{kind}"] = copy.numel() / 1e6 / (time.perf_counter() - t0)
+    tflops = flops * reps / resident_s / 1e12
+    rec = {
+        "rows": FEAT_ROWS, "batch": FEAT_BATCH, "model": "ResNet50", "output": "pool",
+        "setup_s": setup_s, "transform_s": runs,
+        "images_per_s": FEAT_ROWS / min(runs),
+        "device_resident_images_per_s": reps * FEAT_BATCH / resident_s,
+        **uplink, "h2d_copy_mb": copy.numel() / 1e6,
+        "peak_device_mb": peak / 2**20,
+        "flops_per_image": flops / FEAT_BATCH, "bf16_tflop_s": tflops,
+        "share_of_bf16_peak": tflops * 1e12 / BF16_PEAK_FLOPS,
+        "card": smi,
+    }
+    phase("featurizer", part="bench cell", **rec)
+    return rec
+
+
+def featurizer(smi: str) -> dict:
+    """The image featurization path: card vs CPU at full width, the trained
+    checkpoints, the bench cell. The zoo lives under build/ and is removed
+    after."""
+    repo = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    shutil.rmtree(repo, ignore_errors=True)
+    t0 = time.perf_counter()
+    rec = {"card_vs_cpu": resnet50_card_vs_cpu(), "checkpoints": trained_checkpoints(repo),
+           "bench": bench_cell(repo, smi)}
+    shutil.rmtree(repo, ignore_errors=True)
+    phase("featurizer", part="total", seconds=time.perf_counter() - t0)
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -856,6 +1065,7 @@ def main() -> None:
     checkpointed(x, y, x_test, y_test)
     shap(cat_model, xc_test)
     draws()
+    featurizer(smi)
 
     def entry(name, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -429,3 +429,153 @@ def test_categorical_fit_and_text_round_trip_on_the_card(cuda_device, policy, ke
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
     np.testing.assert_array_equal(gpu.predict_leaf(rows, device=cuda_device),
                                   gpu.predict_leaf(rows, device="cpu"))
+
+
+# -- image featurization on the card --------------------------------------------
+#
+# The card against the port's own CPU result (this machine has no JAX).
+# Float32 runs with TF32 off for both convolutions and matrix products
+# (``no_tf32``): every output within 1e-3 * max |cpu| (cuDNN's float32
+# algorithms sum in other orders, Winograd and FFT included). bf16 on the
+# card against float32 on the CPU: relative L2 <= 3e-2 per output (a
+# ResNet-50 at 224 stays under 1e-2, chip_smoke.py phase featurizer).
+
+CARD_F32_REL = 1e-3
+CARD_BF16_L2 = 3e-2
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _perturbed_resnet_vars(module, seed):
+    """A seeded init with every leaf moved by a numpy draw (the last batch
+    norm of a block starts at 0 and would hide the convs behind it)."""
+    from mmlspark_tpu_torch.models import resnet as TR
+
+    rng = np.random.default_rng(seed)
+
+    def move(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: move(x, k) for k, x in tree.items()}
+        a = tree + rng.normal(size=tree.shape).astype(np.float32) * 0.1 * (np.abs(tree).mean() + 0.1)
+        return np.abs(a) + 0.5 if key == "var" else a
+
+    return move(TR.init_flax_variables(module, seed))
+
+
+def _assert_card_close(card: dict, cpu: dict, f32: bool):
+    assert list(card) == list(cpu)
+    for k in cpu:
+        a, b = cpu[k].float().numpy(), card[k].float().cpu().numpy()
+        assert b.shape == a.shape and np.isfinite(b).all(), k
+        if f32:
+            assert float(np.abs(a - b).max()) <= CARD_F32_REL * float(np.abs(a).max()), k
+        else:
+            assert float(np.linalg.norm(a - b) / np.linalg.norm(a)) <= CARD_BF16_L2, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("torch_padding", [False, True])
+@pytest.mark.parametrize("net", ["resnet8", "resnet18", "resnet50"])
+def test_resnet_on_the_card_tracks_the_cpu(cuda_device, no_tf32, net, torch_padding):
+    from mmlspark_tpu_torch.models import resnet as TR
+
+    kw, size = {"resnet8": (dict(num_classes=10, small_inputs=True), 32),
+                "resnet18": (dict(num_classes=7, num_filters=8), 64),
+                "resnet50": (dict(num_classes=5, num_filters=4), 64)}[net]
+    make = getattr(TR, net)
+    variables = _perturbed_resnet_vars(make(dtype=torch.float32, **kw), seed=1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(3, size, size, 3)).astype(np.float32))
+    cpu = TR.load_flax_variables(make(dtype=torch.float32, torch_padding=torch_padding, **kw),
+                                 variables).eval()
+    with torch.inference_mode():
+        want = cpu(x)
+        for dtype in (torch.float32, torch.bfloat16):
+            m = TR.load_flax_variables(make(dtype=dtype, torch_padding=torch_padding, **kw),
+                                       variables).to(cuda_device).eval()
+            _assert_card_close(m(x.to(cuda_device)), want, dtype == torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resize_down", "resize_up", "blur", "gray", "normalize",
+                                  "unroll", "flip"])
+def test_image_ops_on_the_card_track_the_cpu(cuda_device, name):
+    from mmlspark_tpu_torch.ops import image as T
+
+    fn = {"resize_down": lambda x: T.resize(x, 37, 45), "resize_up": lambda x: T.resize(x, 96, 80),
+          "blur": lambda x: T.gaussian_blur(x, 5, 1.5), "gray": T.to_grayscale,
+          "normalize": T.normalize, "unroll": T.unroll, "flip": T.flip}[name]
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 60, 50, 3)).astype(np.uint8))
+    want = fn(x)
+    got = fn(x.to(cuda_device)).cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got.double() - want.double()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["module", "apply_fn"])
+@pytest.mark.parametrize("n,bs", [(21, 4), (3, 8), (0, 4)])
+def test_torch_model_on_the_card_pads_orders_and_selects(cuda_device, form, n, bs):
+    """More batches than the in-flight window come back in order."""
+    from mmlspark_tpu_torch.models import TorchModel
+
+    class Two(torch.nn.Module):
+        def forward(self, x):
+            return {"a": x.float() * 2, "b": x.float() + 1}
+
+    x = np.arange(n * 3, dtype=np.uint8).reshape(n, 3)
+    t = TorchModel(input_col="x", output_col="y", batch_size=bs, output_node="b", input_dtype=None)
+    if form == "module":
+        t.set(module=Two())
+    else:
+        t.set(apply_fn=lambda vs, v: {"b": v.float() + vs["one"]},
+              variables={"one": np.ones(1, np.float32)})
+    got = t.apply_batch(x)
+    assert got.shape == (n, 3)
+    np.testing.assert_array_equal(got, x.astype(np.float32) + 1)
+
+
+@pytest.mark.cuda
+def test_featurizer_on_the_card_classifies_digits_and_tracks_the_cpu(cuda_device, tmp_path):
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+
+    raw = np.genfromtxt(os.path.join(DATA_DIR, "digits.csv"), delimiter=",", skip_header=1)
+    x8, y = raw[:, :64].reshape(-1, 8, 8), raw[:, 64].astype(np.int64)
+    img = np.kron(x8 / 16.0, np.ones((4, 4)))
+    imgs = (np.repeat(img[..., None], 3, axis=-1).astype(np.float32) * 255).astype(np.uint8)
+    df = DataFrame.from_dict({"image": imgs[1500:]})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        f = ImageFeaturizer(input_col="image", output_col="logits", cut_output_layers=0,
+                            repo_dir=str(tmp_path), device=dev, batch_size=64)
+        out[dev] = f.transform(df)["logits"]
+    assert (out["cuda"].argmax(-1) == y[1500:]).mean() > 0.95
+    rel = np.linalg.norm(out["cuda"] - out["cpu"]) / np.linalg.norm(out["cpu"])
+    assert rel <= CARD_BF16_L2
+
+
+@pytest.mark.cuda
+def test_image_stages_on_the_card_track_the_cpu(cuda_device):
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.image import ImageSetAugmenter, ImageTransformer, UnrollImage
+
+    rng = np.random.default_rng(4)
+    col = np.empty(3, dtype=object)
+    for i, (h, w) in enumerate([(16, 16), (20, 12), (16, 16)]):
+        col[i] = (rng.random((h, w, 3)) * 255).astype(np.float32)
+    df = DataFrame.from_dict({"image": col})
+    for make in (lambda d: ImageTransformer(device=d).resize(8, 8).blur(3, 1.0).flip(),
+                 lambda d: UnrollImage(device=d),
+                 lambda d: ImageSetAugmenter(flip_up_down=True, device=d)):
+        got = make("cuda").transform(df)
+        want = make("cpu").transform(df)
+        oc = "unrolled" if isinstance(make("cpu"), UnrollImage) else "image"
+        for g, w in zip(got[oc], want[oc]):
+            assert float(np.abs(np.asarray(g) - np.asarray(w)).max()) <= 1e-4 * 255

@@ -19,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mmlspark_tpu_torch"
 
 
-def test_import_with_jax_blocked():
+def test_import_with_jax_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -29,12 +29,21 @@ def test_import_with_jax_blocked():
         "import mmlspark_tpu_torch.models.gbdt.lgbm_format, mmlspark_tpu_torch.models.gbdt.treeshap\n"
         "import mmlspark_tpu_torch.models.gbdt.checkpoint, mmlspark_tpu_torch.models.gbdt.delegate\n"
         "import mmlspark_tpu_torch.ops.histogram, mmlspark_tpu_torch.ops.cuda_build\n"
+        "import mmlspark_tpu_torch.models.image_featurizer, mmlspark_tpu_torch.image\n"
+        "import mmlspark_tpu_torch.downloader, mmlspark_tpu_torch.downloader.flax_msgpack\n"
+        "import mmlspark_tpu_torch.models.torch_model, mmlspark_tpu_torch.models.resnet\n"
+        "import mmlspark_tpu_torch.ops.image, mmlspark_tpu_torch.core.utils\n"
+        "from mmlspark_tpu_torch.models import ImageFeaturizer, TorchModel\n"
+        "from mmlspark_tpu_torch.image import ImageTransformer, ImageSetAugmenter\n"
+        "from mmlspark_tpu_torch.downloader import ModelDownloader, install_torch_checkpoint\n"
+        "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
+        "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
 
