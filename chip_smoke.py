@@ -12,6 +12,21 @@ CUDA graph of the same 20 calls, replayed), then drives the main path
 63 leaves, 20 rounds) for both growth policies and for ``max_bin=63``, and
 checks that every kernel of the path was launched and that the models are
 right (held-out AUC >= 0.90; card and CPU fits of the same data agree).
+The three main-path fits run under torch.profiler: the wrappers count
+the launches they make (the eager rounds'), the trace counts the
+histogram kernel on the device, a CUDA graph's replays included. Every
+fit that runs as fused chunks (the default: one round captured as a CUDA
+graph and replayed) is fitted again with the same round run eagerly
+(``fused_rounds=1``), and the two model strings must be byte-identical. Before the main path,
+phase ``binning`` holds device binning against the CPU's bit for bit
+(f32/f64, NaN/+-inf columns, max_bin 2/63/255, CSR) and fits a CSR bag of
+words; after it, phase ``gate`` runs bench.py's sklearn cell through the
+port (100,000 x 32, 50 rounds; ``train`` seconds and held-out AUC, with
+and without the graph; the sklearn side needs scikit-learn, which the
+card machine lacks), phase ``fused`` bench.py's trees/s cell (200,000 x
+64, 20 rounds, both policies, with and without the graph, launches per
+tree), and phase ``partitioned`` the data-partitioned grower beside the
+masked one.
 Then the other boosting types and objectives at the same width, each
 fit checked for its kernel launches and its quality: GOSS, dart and rf
 classifiers, bagging (both growth policies), an early-stopped fit on
@@ -31,7 +46,8 @@ convolutions, resize and normalisation are PyTorch ops): a ResNet-50 at
 224 on the card in f32 (TF32 off) and bf16 against the port's CPU f32;
 the packaged ResNet8_Digits and ResNet18_Patches through ImageFeaturizer
 on the card against the CPU (digits accuracy > 0.95); and bench.py's
-featurizer cell (2,048 images, ResNet50, batch 256) with its images/s,
+featurizer cell (2,048 images, ResNet50, batch 256; flax's seeded init,
+drawn on the card and held within 4 ulp of the CPU's) with its images/s,
 device-resident images/s, host-to-device MB/s, peak memory and share of
 the card's bf16 peak.
 
@@ -44,9 +60,12 @@ CPU. Without a CUDA device the script exits nonzero before any result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -89,8 +108,11 @@ CAT_COLS = tuple(range(56, 64))
 CAT_LEVELS = (4, 8, 16, 32, 64, 128, 200, 253)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    print(json.dumps({"phase": name, "t": time.perf_counter() - T_START, **kv}), flush=True)
 
 
 def card() -> str:
@@ -412,27 +434,76 @@ def dataset(n: int, seed: int = SEED):
     return x, y
 
 
-def drive(name: str, est, train_df, kernel: str, score, **info) -> "tuple[dict, object]":
+_HIST_KERNEL = re.compile(r"hist_kernel<[^,>]+, (true|false)>")
+
+
+def traced_launches(prof) -> dict:
+    """The device's ``hist_kernel`` events in a torch.profiler trace, by
+    wrapper: the kernel's ``kMulti`` template argument tells
+    ``multi_plane_hist`` (true) from ``plane_hist`` (false). A CUDA graph's
+    replays show here one event per captured launch."""
+    out = {"plane_hist": 0, "multi_plane_hist": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = _HIST_KERNEL.search(e.name)
+            if m:
+                out["multi_plane_hist" if m.group(1) == "true" else "plane_hist"] += 1
+    return out
+
+
+def drive(name: str, est, train_df, kernel: str, score, eager_check: bool = True,
+          trace: bool = False, **info) -> "tuple[dict, object]":
     """Fit ``est`` on the card with the launch counts set to 0 just before
     and read just after the fit and its scoring (``score(model)`` -> dict
     of quality numbers); print the phase line; fail if the fit never
-    launched ``kernel``."""
+    launched ``kernel``. The wrappers count the launches they make
+    themselves (the eager rounds'); with ``trace`` the fit also runs under
+    torch.profiler and ``traced_launches`` counts the kernel on the device,
+    a CUDA graph's replays included (``fit_s`` then carries the tracing's
+    cost). A fit that ran as fused chunks (one round captured as a CUDA
+    graph and replayed) is fitted again without the graph
+    (``fused_rounds=1``) unless ``eager_check`` is off: the model strings
+    must be byte-identical, and both fits' trees/s are printed."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     H.reset_launch_counts()
-    t0 = time.perf_counter()
-    model = est.fit(train_df)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    quality = score(model)
-    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CUDA]) if trace
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        model = est.fit(train_df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        graph = dict(TRAIN.fused)
+        quality = score(model)
+        torch.cuda.synchronize()
     launches = dict(H.launches)
     trees = len(model.booster.trees)
     rec = dict(info, trees=trees, fit_s=fit_s, trees_per_s=trees / fit_s, **quality,
-               peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+               graph=graph)
+    if trace:
+        rec["traced"] = True
+        rec["traced_launches"] = traced_launches(prof)
+    if graph["chunks"] and eager_check:
+        fused = est.get("fused_rounds")
+        est.set(fused_rounds=1)
+        t0 = time.perf_counter()
+        eager = est.fit(train_df)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        est.set(fused_rounds=fused)
+        rec.update(eager_fit_s=eager_s, eager_trees_per_s=trees / eager_s,
+                   graph_equals_eager=eager.get("model_string") == model.get("model_string"))
     phase(name, **rec)
     if launches[kernel] == 0:
         raise AssertionError(f"{name} {info}: the fit never launched {kernel}")
+    if trace and rec["traced_launches"][kernel] < launches[kernel]:
+        raise AssertionError(f"{name} {info}: the trace saw fewer {kernel} launches than "
+                             "the wrappers counted")
+    if not rec.get("graph_equals_eager", True):
+        raise AssertionError(f"{name} {info}: the graph-replayed fit differs from the eager one")
     return rec, model
 
 
@@ -441,10 +512,357 @@ def fit_main_path(x, y, x_test, y_test, name="main_path", **params) -> dict:
                              seed=0, device=DEV.type, **params)
     train_df = DataFrame.from_dict({"features": x, "label": y})
     kernel = "multi_plane_hist" if params.get("growth_policy") == "depthwise" else "plane_hist"
-    rec, _ = drive(name, est, train_df, kernel, classifier_score(x_test, y_test), **params)
+    rec, _ = drive(name, est, train_df, kernel, classifier_score(x_test, y_test),
+                   trace=name == "main_path", **params)
     if rec["auc"] < 0.90:
         raise AssertionError(f"held-out AUC {rec['auc']} < 0.90 for {params}")
     return rec
+
+
+def gate_data():
+    """bench.py ``_seg_sklearn``'s accelerator cell: x ~ N(0,1) of 125,000
+    x 32 from ``default_rng(7)``, y = sin(2 x0) + x1 x2 > 0; the first
+    100,000 rows train, the last 25,000 are held out."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(125_000, 32)).astype(np.float32)
+    y = (np.sin(2 * x[:, 0]) + x[:, 1] * x[:, 2] > 0).astype(np.float64)
+    return x[:100_000], y[:100_000], x[100_000:], y[100_000:]
+
+
+def timed_train(x, y, cfg, reps: int = 3, warm: bool = True, **kw) -> "tuple[float, object]":
+    """Best-of-``reps`` wall seconds of ``train`` on the card (each ending
+    in a synchronise), after one warm-up fit unless ``warm`` is off, and
+    the last fit's booster."""
+    if warm:
+        train(x, y, cfg, device=DEV.type, **kw)
+    best, booster = float("inf"), None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = train(x, y, cfg, device=DEV.type, **kw)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, booster
+
+
+_HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")
+
+
+PROFILED_ROUNDS = 5   # traced fits are cut to 5 rounds: tracing costs ~3 s a round
+
+
+def launches_per_tree(x, y, cfg, **kw) -> dict:
+    """One traced ``train`` of ``PROFILED_ROUNDS`` rounds: the device's
+    kernels (and memsets and copies) per tree, and the host's launch calls
+    per tree (kernel and graph launches; a fused fit pays for its eager
+    warm-up round and its capture once, then one graph launch a round, so
+    over 20 or 50 rounds its share per tree is lower than here:
+    tools/gbdt_torch_profile.py traces whole fits)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(cfg, num_iterations=PROFILED_ROUNDS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        booster = train(x, y, cfg, device=DEV.type, **kw)
+        torch.cuda.synchronize()
+    events = prof.events()
+    trees = len(booster.trees)
+    device_ops = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+    host = [e.name for e in events if e.name in _HOST_LAUNCHES]
+    return {"rounds": trees, "device_ops_per_tree": device_ops / trees,
+            "host_launch_calls_per_tree": len(host) / trees,
+            "graph_launches": host.count("cudaGraphLaunch")}
+
+
+def graph_and_eager(name: str, x, y, cfg, reps: int, eager_reps: int, profile: bool,
+                    **kw) -> dict:
+    """``train`` with the graph (``fused_rounds=0``) and with the same
+    round run eagerly (``fused_rounds=1``): best wall seconds, trees/s,
+    byte-identical model strings; with ``profile`` launches per tree."""
+    g_s, g_b = timed_train(x, y, cfg, reps=reps, **kw)
+    replays = dict(TRAIN.fused)
+    e_s, e_b = timed_train(x, y, cfg, reps=eager_reps, warm=False, fused_rounds=1, **kw)
+    trees = len(g_b.trees)
+    rec = {"train_s": g_s, "trees_per_s": trees / g_s, "eager_train_s": e_s,
+           "eager_trees_per_s": trees / e_s, "trees": trees, "graph": replays,
+           "graph_equals_eager": g_b.to_model_string() == e_b.to_model_string()}
+    if profile:
+        rec["launches"] = launches_per_tree(x, y, cfg, **kw)
+        rec["eager_launches"] = launches_per_tree(x, y, cfg, fused_rounds=1, **kw)
+    if not rec["graph_equals_eager"]:
+        raise AssertionError(f"{name}: the graph-replayed fit differs from the eager one")
+    return rec, g_b
+
+
+def gate(reps: int = 3) -> dict:
+    """The port's side of the round's gate (bench.py ``_seg_sklearn``): 50
+    rounds, 63 leaves, ``min_data_in_leaf=20``, seed 7; lossguide,
+    depthwise and lossguide at ``max_bin=63``; ``train`` seconds (best of
+    ``reps`` after a warm-up) and held-out AUC, with the graph and through
+    the round run eagerly (best of 1 after a warm-up), launches per tree of
+    the lossguide fit. The sklearn side is not measured here: the card
+    machine has no scikit-learn."""
+    x, y, x_te, y_te = gate_data()
+    out = {}
+    for name, extra in (("lossguide", {}), ("depthwise", {"growth_policy": "depthwise"}),
+                        ("lossguide_b63", {"max_bin": 63})):
+        cfg = TrainConfig(objective="binary", num_iterations=50, num_leaves=63,
+                          min_data_in_leaf=20, seed=7, **extra)
+        rec, booster = graph_and_eager(f"gate {name}", x, y, cfg, reps=reps, eager_reps=1,
+                                       profile=name == "lossguide")
+        raw = booster.predict_raw(x_te, device=DEV.type).astype(np.float64)
+        rec["auc"] = binary_auc(y_te, 1.0 / (1.0 + np.exp(-raw)))
+        out[name] = rec
+        if rec["auc"] < 0.90:
+            raise AssertionError(f"gate {name}: held-out AUC {rec['auc']} < 0.90")
+    phase("gate", reps=reps, sklearn="not measured: no scikit-learn on the card machine",
+          **out)
+    return out
+
+
+def fused(x, y) -> dict:
+    """bench.py ``_seg_gbdt``'s trees/s cell (200,000 x 64, 20 rounds, 63
+    leaves), both growth policies, with the graph (best of 2) and through
+    the round run eagerly (best of 2), launches per tree of each."""
+    out = {}
+    for policy in ("lossguide", "depthwise"):
+        cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
+                          growth_policy=policy)
+        out[policy], _ = graph_and_eager(f"fused {policy}", x, y, cfg, reps=2, eager_reps=2,
+                                         profile=True)
+    phase("fused", rows=len(y), rounds=20, **out)
+    return out
+
+
+def threshold_ties(bins, weight, a, b) -> list:
+    """The splits at which two grown trees with the same split leaves and
+    features chose different thresholds, each with the weighted rows of
+    its leaf in the bins between the two thresholds: 0 means both
+    thresholds part the weighted rows alike, so the two gains tie in exact
+    arithmetic. Replays ``a``'s records on the training rows (numerical
+    splits)."""
+    bins, w = bins.cpu().numpy(), weight.cpu().numpy() > 0
+    rl, rf, ra = (t.cpu().numpy() for t in (a.rec_leaf, a.rec_feature, a.rec_active))
+    ab, bb = a.rec_bin.cpu().numpy(), b.rec_bin.cpu().numpy()
+    leaf = np.zeros(len(bins), np.int64)
+    out = []
+    for k in np.flatnonzero(ra):
+        col, in_leaf = bins[:, rf[k]], leaf == rl[k]
+        if ab[k] != bb[k]:
+            lo, hi = sorted((int(ab[k]), int(bb[k])))
+            out.append({"split": int(k), "feature": int(rf[k]), "bins": [lo, hi],
+                        "weighted_rows_between": int(
+                            (in_leaf & w & (col > lo) & (col <= hi)).sum())})
+        leaf[in_leaf & (col > ab[k])] = k + 1
+    return out
+
+
+def subtraction_residue(bins, g, h, w, at: int = 100, pairs: "int | None" = None) -> dict:
+    """The cause of those ties, on two levels of splits: the root on
+    column f at bin ``at`` (right child B), its left child A on column
+    f+1 at ``at`` (children A1 <= and A2 >). Derived by subtraction, A1 =
+    (parent - B) - A2 carries the f32 rounding of each plane it came from,
+    so in the bins of column f+1 above ``at``, where A1 holds no weighted
+    row (its own plane is exactly 0 there), its G and H need not be 0. The
+    masked grower always derives the left child and the partitioned one
+    the larger, so their residues sit in different planes, and a tie
+    across such bins breaks either way."""
+    stats = torch.stack([g * w, h * w, w], -1)
+    parent = H.plane_hist(bins, stats, None, 256)
+    d = bins.shape[1]
+    out = {"pairs": 0, "cells_without_weight": 0, "nonzero_residues": 0,
+           "max_abs_residue": 0.0, "direct_plane_nonzero": 0}
+    for f in range(d if pairs is None else pairs):
+        left = bins[:, f] <= at
+        a2 = left & (bins[:, (f + 1) % d] > at)
+        b = H.plane_hist(bins, stats, (~left).float(), 256)
+        p_a2 = H.plane_hist(bins, stats, a2.float(), 256)
+        a1 = H.plane_hist(bins, stats, (left & ~a2).float(), 256)
+        empty = (a1[:, 2] == 0) & (p_a2[:, 2] > 0)
+        res = ((parent - b) - p_a2)[empty][:, :2]
+        out["pairs"] += 1
+        out["cells_without_weight"] += int(res.numel())
+        out["nonzero_residues"] += int((res != 0).sum())
+        out["direct_plane_nonzero"] += int((a1[empty][:, :2] != 0).sum())
+        if res.numel():
+            out["max_abs_residue"] = max(out["max_abs_residue"], float(res.abs().max()))
+    return out
+
+
+def partitioned(x, y, x_test, y_test, masked: dict, seeds=(0, 1, 2)) -> dict:
+    """The data-partitioned grower (``MMLSPARK_TPU_GBDT_PARTITION=1``) on
+    the trees/s cell, with the graph and eager, beside the masked grower's
+    (phase ``fused``); its model against the masked one's (split leaves,
+    features and thresholds per tree, held-out predictions); one tree of
+    each grower on the same gradients, for each of ``seeds`` (200,000 x 64,
+    10% of the rows at weight 0). The records are not all equal on the
+    card: a threshold may differ where the gains tie in exact arithmetic.
+    So the check is: split leaves, features, leaf counts and the weighted
+    rows' leaves equal; every differing threshold a tie (no weighted row
+    of the leaf between the two, see ``threshold_ties``); leaf values
+    within 1e-5 and gains within rtol 1e-3. ``subtraction_residue`` shows
+    where the ties break."""
+    from mmlspark_tpu_torch.models.gbdt import treegrow
+
+    cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0)
+    os.environ["MMLSPARK_TPU_GBDT_PARTITION"] = "1"
+    try:
+        rec, b_part = graph_and_eager("partitioned", x, y, cfg, reps=2, eager_reps=1,
+                                      profile=False)
+    finally:
+        del os.environ["MMLSPARK_TPU_GBDT_PARTITION"]
+    b_mask = train(x, y, cfg, device=DEV.type)
+    raw_p = b_part.predict_raw(x_test, device=DEV.type)
+    raw_m = b_mask.predict_raw(x_test, device=DEV.type)
+    same = [bool(np.array_equal(a.feature, b.feature) and np.array_equal(a.leaf, b.leaf))
+            for a, b in zip(b_part.trees, b_mask.trees)]
+    thr = [int((a.threshold != b.threshold).sum()) for a, b in zip(b_part.trees, b_mask.trees)]
+    rec.update(auc=binary_auc(y_test, raw_p), masked_auc=binary_auc(y_test, raw_m),
+               trees_with_identical_splits=sum(same),
+               thresholds_differing=sum(thr), trees_with_identical_thresholds=thr.count(0),
+               test_pred_max_abs_diff=float(np.abs(raw_p - raw_m).max()),
+               masked_trees_per_s=masked["lossguide"]["trees_per_s"],
+               masked_eager_trees_per_s=masked["lossguide"]["eager_trees_per_s"])
+    sp = treegrow.SplitParams.make(DEV, lambda_l2=1.0, lambda_l1=0.0, min_sum_hessian=1e-3,
+                                   min_gain=0.0, learning_rate=0.1)
+    kw = dict(num_leaves=63, sp=sp, feature_mask=torch.ones(D, device=DEV),
+              min_data_in_leaf=20, num_bins=256)
+    growers, ok = {}, True
+    for seed in seeds:
+        rng = np.random.default_rng(SEED + seed)
+        xb = torch.from_numpy(rng.integers(0, 200, size=(N, D)).astype(np.uint8)).to(DEV)
+        g = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(DEV)
+        h = torch.from_numpy((np.abs(rng.normal(size=N)) + 0.1).astype(np.float32)).to(DEV)
+        w = torch.from_numpy((rng.random(N) > 0.1).astype(np.float32)).to(DEV)
+        a = treegrow.grow_tree(xb, g, h, w, **kw)
+        b = treegrow.grow_tree_partitioned(xb, g, h, w, **kw)
+        weighted = w > 0
+        ties = threshold_ties(xb, w, a, b)
+        moved = a.row_leaf != b.row_leaf
+        r = {
+            "splits": int(a.rec_active.sum()),
+            "rec_leaf_feature_active_equal": bool(
+                torch.equal(a.rec_leaf, b.rec_leaf) and torch.equal(a.rec_feature, b.rec_feature)
+                and torch.equal(a.rec_active, b.rec_active)),
+            "thresholds_differing": len(ties),
+            "thresholds_differing_not_tied": sum(t["weighted_rows_between"] > 0 for t in ties),
+            "differing": ties[:8],
+            "weighted_row_leaf_equal": bool(torch.equal(a.row_leaf[weighted],
+                                                        b.row_leaf[weighted])),
+            "rows_in_other_leaves": int(moved.sum()),
+            "leaf_counts_equal": bool(torch.equal(a.leaf_counts, b.leaf_counts)),
+            "leaf_values_max_abs": float((a.leaf_values - b.leaf_values).abs().max()),
+            "gain_max_rel": float(((a.rec_gain - b.rec_gain).abs()
+                                   / a.rec_gain.abs().clamp_min(1e-4)).max()),
+        }
+        if seed == seeds[0]:
+            r["subtraction_residue"] = subtraction_residue(xb, g, h, w)
+        growers[f"seed {seed}"] = r
+        ok = ok and (r["rec_leaf_feature_active_equal"] and r["weighted_row_leaf_equal"]
+                     and r["thresholds_differing_not_tied"] == 0 and r["leaf_counts_equal"]
+                     and r["leaf_values_max_abs"] <= 1e-5 and r["gain_max_rel"] <= 1e-3)
+    rec["grower_vs_masked"] = growers
+    phase("partitioned", **rec)
+    if not ok:
+        raise AssertionError(f"the partitioned grower differs from the masked one: {growers}")
+    if rec["auc"] < 0.90 or abs(rec["auc"] - rec["masked_auc"]) > 0.002:
+        raise AssertionError(f"partitioned AUC {rec['auc']} vs masked {rec['masked_auc']}")
+    return rec
+
+
+def _binning_cases():
+    rng = np.random.default_rng(SEED + 20)
+    special = rng.normal(size=(20_000, 8))
+    special[::7, 0] = np.nan
+    special[::11, 1] = np.inf
+    special[::13, 1] = -np.inf
+    special[:, 2] = np.round(special[:, 2] * 3)
+    special[:, 3] = 1.5
+    special[:, 4] = np.nan
+    special[:, 5] = np.where(rng.random(20_000) < 0.5, 0.0, rng.lognormal(size=20_000))
+    special[:, 6] = np.where(rng.random(20_000) < 0.3, -0.0, special[:, 6])
+    x_main, _ = dataset(N)
+    x_gate = gate_data()[0]
+    return [("main 200000x64 f32", x_main, 255), ("main 200000x64 f32", x_main, 63),
+            ("main 200000x64 f64", x_main.astype(np.float64), 255),
+            ("gate 100000x32 f32", x_gate, 63), ("gate 100000x32 f32", x_gate, 255),
+            *((f"special f32 max_bin {mb}", special.astype(np.float32), mb) for mb in (2, 63, 255)),
+            *((f"special f64 max_bin {mb}", special, mb) for mb in (2, 255))]
+
+
+def _csr_text(n: int, dim: int, seed: int):
+    """Hashed bag-of-words rows (tests/test_gbdt.py's hashing): 5-19 words
+    of a 300-word vocabulary, hashed into ``dim`` columns; positive when a
+    row holds one of the words 0-4."""
+    import scipy.sparse as sp
+
+    r = np.random.default_rng(seed)
+    counts = r.integers(5, 20, size=n)
+    words = r.integers(0, 300, size=int(counts.sum()))
+    rows = np.repeat(np.arange(n), counts)
+    y = (np.bincount(rows, weights=(words < 5), minlength=n) > 0).astype(np.float64)
+    x = sp.csr_matrix((np.ones(len(words)), (rows, (words * 2654435761) % dim)),
+                      shape=(n, dim), dtype=np.float64)
+    x.sum_duplicates()
+    return x, y
+
+
+def binning(csr_rows: int = 50_000, csr_dim: int = 4096) -> dict:
+    """Device binning (``BinMapper.fit`` + ``bin_tensor`` on the card)
+    against the port's CPU binning, bitwise (bounds as f64 bit patterns,
+    bins as values), on the main path's and the gate's data, f32 and f64,
+    columns with NaN, +-inf, few values, one value, no value and +-0, and
+    max_bin 2, 63, 255; then CSR (a hashed bag of words, 50,000 x 4,096):
+    bins bitwise, a card fit's AUC on 10,000 held-out rows (>= 0.90: the
+    label is the presence of one of 5 words, which 15-leaf trees carve
+    out) and its graph == eager. Times:
+    ``binning_s`` on the card (the host copy included) and on the CPU."""
+    from mmlspark_tpu_torch.models.gbdt import BinMapper
+    from mmlspark_tpu_torch.models.gbdt.binning import densify_missing
+
+    def same(a, b) -> bool:
+        return all(u.shape == v.shape and np.array_equal(u.view(np.uint64), v.view(np.uint64))
+                   for u, v in zip(a.uppers, b.uppers)) and len(a.uppers) == len(b.uppers)
+
+    def timed(fn) -> "tuple[float, object]":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def on_card(x, mb):
+        xd = torch.from_numpy(x).to(DEV)
+        m = BinMapper.fit(xd, max_bin=mb, seed=0, device=DEV)
+        return m, m.bin_tensor(xd, DEV)
+
+    cases = {}
+    for name, x, mb in _binning_cases():
+        card_s, (card, bins) = timed(lambda: on_card(x, mb))
+        if name.startswith("main") and mb == 255:
+            card_s, (card, bins) = timed(lambda: on_card(x, mb))   # the second, warm
+        cpu_s, (cpu, cbins) = timed(lambda: (lambda m: (m, m.bin_tensor(x, "cpu")))(
+            BinMapper.fit(x, max_bin=mb, seed=0, device="cpu")))
+        ok = same(card, cpu) and torch.equal(bins.cpu(), cbins)
+        cases[f"{name} max_bin {mb}"] = {"bitwise_equal": ok, "binning_s": card_s,
+                                         "cpu_binning_s": cpu_s}
+        if not ok:
+            raise AssertionError(f"binning {name} max_bin {mb}: card and CPU differ")
+    x, y = _csr_text(csr_rows + csr_rows // 5, csr_dim, SEED)
+    xs_train, xs_test = x[:csr_rows], x[csr_rows:]
+    y_train, y_test = y[:csr_rows], y[csr_rows:]
+    card_s, card = timed(lambda: BinMapper.fit(xs_train, max_bin=255, device=DEV))
+    cpu = BinMapper.fit(xs_train, max_bin=255, device="cpu")
+    ok = same(card, cpu) and torch.equal(card.bin_tensor(xs_train, DEV).cpu(),
+                                         cpu.bin_tensor(xs_train, "cpu"))
+    cfg = TrainConfig(num_iterations=20, num_leaves=15, min_data_in_leaf=5, seed=0)
+    rec, b = graph_and_eager("csr", xs_train, y_train, cfg, reps=1, eager_reps=1, profile=False)
+    p = b.predict(densify_missing(xs_test), device=DEV)
+    csr = dict(rec, rows=csr_rows, columns=csr_dim, nnz=int(xs_train.nnz), bitwise_equal=ok,
+               binning_s=card_s, auc=binary_auc(y_test, p))
+    phase("binning", csr=csr, **cases)
+    if not ok or csr["auc"] < 0.90:
+        raise AssertionError(f"CSR on the card: {csr}")
+    return cases
 
 
 def classifier_score(x_test, y_test):
@@ -463,8 +881,8 @@ def classifier_score(x_test, y_test):
 
 
 def card_vs_cpu(x_test, y_test, categorical: bool = False) -> dict:
-    """The same 20,000-row fit on the card and on the CPU (plain versions):
-    held-out AUCs within 0.002."""
+    """The same 20,000-row, 20-round fit on the card and on the CPU (plain
+    versions): held-out AUCs within 0.002."""
     if categorical:
         x, y = categorical_dataset(N_CPU, seed=SEED + 9)
     else:
@@ -487,7 +905,7 @@ def card_vs_cpu(x_test, y_test, categorical: bool = False) -> dict:
         total += len(eq)
     auc_gpu = binary_auc(y_test, gpu.predict_raw(x_test, device=DEV))
     auc_cpu = binary_auc(y_test, cpu.predict_raw(x_test, device="cpu"))
-    rec = {"rows": len(y), "categorical": categorical, "identical_split_share": same / total,
+    rec = {"rows": len(y), "rounds": 20, "categorical": categorical, "identical_split_share": same / total,
            "auc_card": auc_gpu, "auc_cpu": auc_cpu, "fit_s_card": gpu_s, "fit_s_cpu": cpu_s}
     phase("card_vs_cpu", **rec)
     if abs(auc_gpu - auc_cpu) > 0.002:
@@ -515,11 +933,12 @@ def early_stopped() -> dict:
     def score(model) -> dict:
         b = model.booster
         proba = model.transform(DataFrame.from_dict({"features": x[valid]}))["probability"]
-        # a lossguide tree of 63 leaves launches plane_hist 64 times (root,
-        # 62 children, leaf sums); rounds past the stop, up to the end of
-        # their 16-round metric chunk, are grown and then dropped
+        # rounds past the stop, up to the end of their 16-round chunk, are
+        # grown and then dropped: one eager warm-up round plus the replays
+        # of the captured one
         return {"rounds_run": len(b.trees), "best_iteration": b.best_iteration,
-                "rounds_grown": H.launches["plane_hist"] // 64,
+                "rounds_grown": 1 + TRAIN.fused["replays"],
+                "fused_chunks": TRAIN.fused["chunks"],
                 "host_reads": TRAIN.host_reads["count"],
                 "binary_logloss": b.evals["binary_logloss"],
                 "auc_unflipped_labels": binary_auc(clean[valid], proba[:, 1])}
@@ -759,7 +1178,7 @@ def checkpointed(x, y, x_test, y_test) -> dict:
             raise AssertionError("the delegate did not stop the fit")
         resumed, m_res = drive("checkpoint", LightGBMClassifier(
             checkpoint_dir=cut_dir, resume_from=cut_dir, **params), df, "plane_hist", score,
-            mode=mode, run="resumed from round 10", stopped_run_s=cut_s)
+            eager_check=False, mode=mode, run="resumed from round 10", stopped_run_s=cut_s)
         identical = m_res.get("model_string") == m_full.get("model_string")
         out[mode] = {"identical": identical, "fit_s": full["fit_s"], "resume_fit_s": resumed["fit_s"]}
         if not identical:
@@ -832,6 +1251,41 @@ def _perturbed(module, seed: int) -> dict:
 def _rel_l2(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def seeded_init() -> dict:
+    """flax's seeded init of a ResNet-50 (what the zoo materialises for a
+    model without a checkpoint) drawn on the card against the CPU's: every
+    value within 4 ulp (the CPU's is within 4 ulp of flax's,
+    tests/test_torch_port_zoo.py)."""
+    from mmlspark_tpu_torch.models import resnet as R
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield "/".join(path), np.asarray(tree)
+
+    t0 = time.perf_counter()
+    card = dict(leaves(R.init_flax_variables(R.resnet50(), seed=0, device=DEV)))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = dict(leaves(R.init_flax_variables(R.resnet50(), seed=0, device="cpu")))
+    cpu_s = time.perf_counter() - t0
+    worst, same, total = 0, 0, 0
+    for k, a in cpu.items():
+        b = card[k]
+        worst = max(worst, int(np.abs(a.view(np.int32).astype(np.int64)
+                                      - b.view(np.int32).astype(np.int64)).max()))
+        same += int((a == b).sum())
+        total += a.size
+    rec = {"max_ulp": worst, "bitwise_share": same / total, "values": total,
+           "card_s": card_s, "cpu_s": cpu_s}
+    phase("featurizer", part="seeded init card vs cpu", ulp_tol=4, **rec)
+    if worst > 4:
+        raise AssertionError(f"the card's seeded init is {worst} ulp off the CPU's")
+    return rec
 
 
 def resnet50_card_vs_cpu() -> dict:
@@ -999,7 +1453,8 @@ def featurizer(smi: str) -> dict:
     repo = os.path.join(ROOT, "build", "chip_smoke_zoo")
     shutil.rmtree(repo, ignore_errors=True)
     t0 = time.perf_counter()
-    rec = {"card_vs_cpu": resnet50_card_vs_cpu(), "checkpoints": trained_checkpoints(repo),
+    rec = {"seeded_init": seeded_init(), "card_vs_cpu": resnet50_card_vs_cpu(),
+           "checkpoints": trained_checkpoints(repo),
            "bench": bench_cell(repo, smi)}
     shutil.rmtree(repo, ignore_errors=True)
     phase("featurizer", part="total", seconds=time.perf_counter() - t0)
@@ -1035,6 +1490,7 @@ def main() -> None:
     times["keep3_over_full_b256_device"] = keep3["device_ms"] / t_plane256["device_ms"]
     phase("times", **times)
 
+    binning()
     x_all, y_all = dataset(N + N_TEST)
     x, y, x_test, y_test = x_all[:N], y_all[:N], x_all[N:], y_all[N:]
     runs = {
@@ -1042,6 +1498,9 @@ def main() -> None:
         "depthwise": fit_main_path(x, y, x_test, y_test, growth_policy="depthwise", max_bin=255),
         "lossguide_b64": fit_main_path(x, y, x_test, y_test, growth_policy="lossguide", max_bin=63),
     }
+    gate()
+    masked = fused(x, y)
+    partitioned(x, y, x_test, y_test, masked)
     card_vs_cpu(x_test, y_test)
 
     for mode in ("goss", "dart", "rf"):
@@ -1067,20 +1526,22 @@ def main() -> None:
     draws()
     featurizer(smi)
 
-    def entry(name, replaces, launches, err, t):
+    def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "launches": run["launches"][kernel],
+                "traced_launches": run["traced_launches"][kernel],
+                "max_abs_err": err, "ms": t["ms"],
                 "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]}
 
     kernels = [
         entry("plane_hist (B=256)", f"{TPU}:424 _hist_split_kernel (B2, pallas_call :517)",
-              runs["lossguide"]["launches"]["plane_hist"], errs["plane256"], t_plane256),
+              runs["lossguide"], "plane_hist", errs["plane256"], t_plane256),
         entry("plane_hist (B=64)", f"{TPU}:389 _hist_kernel (B1, pallas_call :533)",
-              runs["lossguide_b64"]["launches"]["plane_hist"], errs["plane64"], t_plane64),
+              runs["lossguide_b64"], "plane_hist", errs["plane64"], t_plane64),
         entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
-              runs["depthwise"]["launches"]["multi_plane_hist"], errs["multi"], t_multi16),
+              runs["depthwise"], "multi_plane_hist", errs["multi"], t_multi16),
     ]
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -10,12 +10,11 @@ the port too (``downloader/builtin/``, byte-for-byte copies of the JAX
 package's). Checkpoints stored float16 are widened to float32 on load.
 
 A schema with no checkpoint (``ResNet50`` and the other large variants)
-gets a seeded random init with a loud warning, as in the JAX package, but
-the numbers are the port's own: flax's distributions drawn from a
-``torch.Generator(seed)`` (``models.resnet.init_flax_variables``), not
-JAX's init, so the two packages' seeded ResNet-50s differ until a real
-checkpoint is installed. ViT schemas raise ``NotImplementedError`` until
-the port has a ViT (ROADMAP Queue A item 9).
+gets a seeded random init with a loud warning, as in the JAX package:
+flax's own init of ``PRNGKey(schema.seed)`` reproduced without JAX
+(``models.resnet.init_flax_variables``, within 4 ulp), so both packages'
+seeded ResNet-50s give the same features. ViT schemas raise
+``NotImplementedError`` until the port has a ViT (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations

@@ -6,9 +6,7 @@ The port of ``mmlspark_tpu.models.gbdt.estimators``:
 / ``LightGBMRankerModel`` — ``fit(DataFrame)`` trains on the device,
 ``transform(DataFrame)`` scores on the device.
 
-The params are the JAX package's (but ``fused_rounds``, the chunk size of
-its scan fusion, which the port does not have), plus ``device``
-(``"cuda"`` by default;
+The params are the JAX package's, plus ``device`` (``"cuda"`` by default;
 ``"cpu"`` runs the plain PyTorch histogram versions): categorical features,
 continued training (``model_string``, ``num_batches``), checkpoint/resume
 and delegates included. Every model reads and writes LightGBM's own text
@@ -145,6 +143,12 @@ class _LightGBMParams(
     delegate = ComplexParam("LightGBMDelegate: lifecycle callbacks + dynamic learning rate")
     seed = Param("rng seed", default=0, type_=int)
     verbosity = Param("log level", default=-1, type_=int)
+    fused_rounds = Param(
+        "fused chunk size: 0 = auto (the whole run, bounded chunks under early "
+        "stopping; one CUDA graph per round on the card), 1 = the same rounds "
+        "run eagerly, no graph (identical model), N > 1 = cap chunks at N rounds",
+        default=0, type_=int,
+    )
 
     def _config(self, objective: str, num_class: int = 1) -> TrainConfig:
         return TrainConfig(
@@ -208,7 +212,7 @@ class _LightGBMParams(
         booster = Booster.from_model_string(s) if s else None
         nb = self.get("num_batches")
         delegate = self.get("delegate")
-        kw: dict = {"device": self.get("device")}
+        kw: dict = {"device": self.get("device"), "fused_rounds": self.get("fused_rounds")}
         if not (nb and nb > 1):
             kw.update(checkpoint_dir=self.get("checkpoint_dir") or None,
                       checkpoint_every=self.get("checkpoint_every"),

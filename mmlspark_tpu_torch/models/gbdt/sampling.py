@@ -47,25 +47,46 @@ def _threefry2x32(k1: int, k2: int, x1, x2) -> tuple:
     return x1, x2
 
 
-def round_key(seed: int, it: int, stream: int) -> tuple:
+def fold_in(key: tuple, data) -> tuple:
+    """``jax.random.fold_in(key, data)`` of a raw (2,) uint32 key:
+    ``threefry2x32(key, (0, data))``. ``key`` and ``data`` are ints or
+    int64 tensors holding uint32 values (a device scalar ``data`` keeps
+    the key on the device, with no host arithmetic)."""
+    return _threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def round_key(seed: int, it, stream: int) -> tuple:
     """``fold_in(fold_in(PRNGKey(seed), it), stream)`` as two uint32s:
     ``PRNGKey`` of JAX's default 32-bit integers keys ``(0, seed mod
-    2**32)``, and ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``."""
+    2**32)``. ``it`` is an int (host arithmetic) or an int64 device
+    scalar (then the key is two int64 device scalars, computed by the
+    same arithmetic, so a captured CUDA graph recomputes it on replay)."""
     key = (0, int(seed) & _M32)
-    for data in (it, stream):
-        key = _threefry2x32(key[0], key[1], 0, int(data) & _M32)
-    return key
+    return fold_in(fold_in(key, it), stream)
 
 
-def uniform(seed: int, it: int, stream: int, n: int, device: torch.device) -> torch.Tensor:
-    """(n,) f32 uniform in [0, 1) on ``device`` for round ``it`` of draw
-    stream ``stream``: the JAX package's Threefry draw, bit for bit. The
-    key is host arithmetic on ints; the counters live on the device."""
-    k1, k2 = round_key(seed, it, stream)
+def random_bits(key: tuple, n: int, device: torch.device) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` (32 bits each, as int64 values) with
+    JAX's partitionable Threefry: element i is ``bits1 ^ bits2`` of
+    ``threefry2x32(key, (hi(i), lo(i)))``; a multi-dimensional draw is the
+    flat draw of its row-major element count."""
     i = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = _threefry2x32(k1, k2, i >> 32, i & _M32)
-    mantissa = ((b1 ^ b2) >> 9) | 0x3F800000
-    return mantissa.to(torch.int32).view(torch.float32) - 1.0
+    b1, b2 = _threefry2x32(key[0], key[1], i >> 32, i & _M32)
+    return b1 ^ b2
+
+
+def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits -> f32 in [0, 1): the top 23 as the mantissa of a
+    float in [1, 2), minus 1 (``jax.random.uniform``)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(seed: int, it, stream: int, n: int, device: torch.device) -> torch.Tensor:
+    """(n,) f32 uniform in [0, 1) on ``device`` for round ``it`` of draw
+    stream ``stream``: the JAX package's Threefry draw, bit for bit. With
+    an int ``it`` the key is host arithmetic; with an int64 device scalar
+    it is computed on the device (the fused rounds' captured round)."""
+    return bits_to_unit(random_bits(round_key(seed, it, stream), n, device))
 
 
 def goss_weights(g_abs: torch.Tensor, w: torch.Tensor, u: torch.Tensor,

@@ -20,17 +20,33 @@ leaf renewal) and lambdarank; ``lossguide`` and ``depthwise`` growth;
 categorical features (subset splits); continued training
 (``init_booster``); round-level checkpoint/resume (``checkpoint``);
 training delegates (``delegate``); ``feature_fraction``; sample weights;
-``init_score``; ``base_score``. One device, one Python loop over rounds.
+``init_score``; ``base_score``; dense, sparse (CSR) and pre-binned
+(``BinnedDataset``) input, binned on the fit's device (``binning``).
 Random draws: ``sampling``.
 
+Fused rounds (``fused_rounds``, the JAX package's scan-fused chunks): where
+no round needs the host (no delegate, not dart, a device metric and device
+LambdaRank gradients), one round runs as a function of static device
+buffers only: the round index is a device scalar, and the round's Threefry
+keys, feature mask and bag are derived from it on the device; scores and
+bag are updated in place, the tree records go into a (T, k, W) buffer at
+row ``it`` and the metric into a (T,) buffer. On the card that round is
+captured once as a CUDA graph after one eager warm-up round and replayed,
+so a round costs one graph launch instead of thousands of kernel launches;
+on the CPU, and on the card with ``fused_rounds=1``, it runs eagerly. The
+host reads the metrics once per chunk and the records once (and at each
+checkpoint). That one round body serves every eligible fit, graph or
+not; only dart, delegates and the host LambdaRank/NDCG cases take the
+per-round loop, which reads the host between rounds.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, Queue A item 3): voting-parallel, elastic and multi-host training,
-pre-binned and sparse input.
+item): voting-parallel, elastic and multi-host training.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Optional
 
@@ -40,13 +56,19 @@ import torch
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.gbdt import checkpoint as ckpt
 from mmlspark_tpu_torch.models.gbdt import evaluation, objectives, sampling
-from mmlspark_tpu_torch.models.gbdt.binning import BinMapper, _require_dense
+from mmlspark_tpu_torch.models.gbdt.binning import (
+    BinMapper,
+    BinnedDataset,
+    densify_missing,
+    is_sparse,
+)
 from mmlspark_tpu_torch.models.gbdt.booster import Booster, Tree
 from mmlspark_tpu_torch.ops.histogram import NUM_BINS
 from mmlspark_tpu_torch.models.gbdt.treegrow import (
     SplitParams,
     grow_tree,
     grow_tree_depthwise,
+    grow_tree_partitioned,
     predict_scores,
 )
 
@@ -63,6 +85,9 @@ MAX_RANK_PAIRS = 1 << 26
 # host LambdaRank gradients, checkpoints, the record transfer);
 # chip_smoke.py prints it
 host_reads = {"count": 0}
+# the last ``train`` call's fused chunks (the JAX package's
+# mmlspark_gbdt_fused_chunks_total), CUDA graph captures and replays
+fused = {"chunks": 0, "captures": 0, "replays": 0}
 
 
 @dataclass
@@ -128,6 +153,15 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 _DELEGATE_HOOKS = ("before_train_iteration", "after_train_iteration", "get_learning_rate")
+
+
+def _partitioned() -> bool:
+    """Lossguide fits use the data-partitioned grower when
+    ``MMLSPARK_TPU_GBDT_PARTITION`` (the JAX package's switch) is set and
+    not "0"/"false"; off by default, as in the JAX package. It is there for
+    parity, not speed (``grow_tree_partitioned``)."""
+    env = os.environ.get("MMLSPARK_TPU_GBDT_PARTITION")
+    return env is not None and env not in ("0", "false")
 
 
 def _check_config(cfg: TrainConfig) -> None:
@@ -208,6 +242,20 @@ def _pack(grown: Any) -> torch.Tensor:
         weights = 2.0 ** torch.arange(16, dtype=torch.float64, device=bits.device)
         parts += [grown.rec_is_cat.double(), (bits * weights).sum(1)]
     return torch.cat(parts)
+
+
+def _pack_width(L: int, B: int, has_cat: bool) -> int:
+    """Length of one tree's :func:`_pack` vector."""
+    return 5 * (L - 1) + 2 * L + ((L - 1) * (1 + B // 16) if has_cat else 0)
+
+
+def _densify(x: Any) -> np.ndarray:
+    """CSR -> dense float32 with absent entries as NaN (what dart's replays
+    and a continued fit's scores see: trees trained on sparse data route
+    absent entries through the missing bin)."""
+    if is_sparse(x):
+        return densify_missing(x)
+    return np.asarray(x, np.float32)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -363,8 +411,13 @@ def train(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 10,
     resume_from: Optional[str] = None,
+    fused_rounds: int = 0,
 ) -> Booster:
-    """Fit a booster on a dense (n, d) float matrix.
+    """Fit a booster on a dense (n, d) float matrix, a scipy-style CSR
+    matrix (stored values binned per column, absent entries in the missing
+    bin) or a :class:`BinnedDataset` (already binned: no dart, continued
+    training or categorical features, and ``max_bin`` at least the
+    mapper's).
 
     ``device``: where training runs; ``None`` means ``"cuda"``, which
     raises when no card is present. Pass ``"cpu"`` to train on the CPU
@@ -388,7 +441,18 @@ def train(
     counters go there (``checkpoint``); ``resume_from`` continues from the
     last complete checkpoint of a directory (a fresh fit if it holds
     none) and gives the model string of the uninterrupted fit, byte for
-    byte. The same directory for both is a crash-loop-safe auto-resume."""
+    byte. The same directory for both is a crash-loop-safe auto-resume.
+
+    ``fused_rounds``: 0 (the default) runs eligible fits as fused chunks
+    sized automatically (the whole run without early stopping,
+    ``min(T, max(16, patience))`` rounds with it); 1 runs the same rounds
+    eagerly, one at a time, with no CUDA graph and no fused chunk; N > 1
+    caps a chunk at N rounds. With ``checkpoint_dir`` chunks align to
+    ``checkpoint_every``. Neither the chunk size nor the graph changes the
+    model, only how often the host reads the device and how the rounds are
+    launched. A fit with a delegate, dart, host LambdaRank gradients or a
+    host metric takes the per-round loop. On the card a fused fit captures
+    one round as a CUDA graph; a capture or replay that fails raises."""
     canon = objectives.canonical_objective(cfg.objective)
     if canon != cfg.objective:
         cfg = _dc_replace(cfg, objective=canon)
@@ -398,9 +462,37 @@ def train(
         raise ValueError(f"objective {canon!r} requires non-negative labels")
     if canon == "lambdarank" and group_ids is None:
         raise ValueError("lambdarank needs group_ids (the query of every row)")
-    _require_dense(x)
+    pre_binned = isinstance(x, BinnedDataset)
+    sparse_input = not pre_binned and is_sparse(x)
+    if pre_binned:
+        # rows binned elsewhere: whatever needs the float matrix is refused
+        if cfg.boosting_type == "dart":
+            raise ValueError(
+                "pre-binned input does not support dart (dropped-tree "
+                "re-prediction needs the float matrix)"
+            )
+        if init_booster is not None and init_booster.trees:
+            raise ValueError(
+                "pre-binned input does not support init_booster "
+                "(warm-start scoring needs the float matrix)"
+            )
+        if cfg.categorical_features:
+            raise ValueError(
+                "pre-binned input does not support categorical_features "
+                "(identity binning is a fit-time decision)"
+            )
+        if x.mapper.max_bin > cfg.max_bin:
+            # the histogram space is sized from cfg.max_bin: a larger code
+            # would land in the wrong plane
+            raise ValueError(
+                f"pre-binned input was quantized with max_bin="
+                f"{x.mapper.max_bin} but cfg.max_bin={cfg.max_bin}; "
+                "bin codes would overflow the histogram space"
+            )
     dev = resolve_device(device)
     host_reads["count"] = 0
+    for key in fused:
+        fused[key] = 0
 
     n, d = x.shape
     y = np.asarray(y).reshape(n)
@@ -415,9 +507,16 @@ def train(
     cat_features = tuple(int(f) for f in (cfg.categorical_features or ()))
     delegate = cfg.delegate
 
-    mapper = BinMapper.fit(x, max_bin=cfg.max_bin, seed=cfg.seed,
-                           categorical_features=cat_features)
-    bins = torch.from_numpy(mapper.transform(x)).to(dev)     # (n, d) uint8
+    if pre_binned:
+        mapper = x.mapper
+        bins = torch.from_numpy(x.bins).to(dev)
+    else:
+        # binned on the fit's device; a dense matrix crosses to it once
+        src = x if sparse_input else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        mapper = BinMapper.fit(src, max_bin=cfg.max_bin, seed=cfg.seed,
+                               categorical_features=cat_features, device=dev)
+        bins = mapper.bin_tensor(src, dev)                    # (n, d) uint8
+        del src
     cat_mask = None
     if cat_features:
         cat_np = np.zeros(d, bool)
@@ -458,7 +557,7 @@ def train(
             "continued training needs the same class count"
         )
     if continued:
-        scores = scores + _init_scores(init_booster, x, k, dev)
+        scores = scores + _init_scores(init_booster, _densify(x), k, dev)
     if k > 1:
         y_enc = torch.from_numpy(np.eye(k, dtype=np.float32)[y.astype(np.int64)]).to(dev)
     else:
@@ -527,7 +626,8 @@ def train(
         min_gain=cfg.min_gain_to_split,
         learning_rate=1.0 if is_rf else lr_cur,
     )
-    grow = grow_tree_depthwise if cfg.growth_policy == "depthwise" else grow_tree
+    grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
+            else grow_tree_partitioned if _partitioned() else grow_tree)
     renew = cfg.objective in objectives.RENEWED_KINDS and not is_rf
     q_renew = p1 if cfg.objective == "quantile" else torch.tensor(0.5).to(dev)
     # every round's host draws, made up front in the reference's order and
@@ -540,7 +640,8 @@ def train(
     fms_dev = torch.from_numpy(draws.feature_masks).to(dev)
     dart = drop_idx = None
     if is_dart:
-        dart = _DartTrees(x, max(T, start) * k, L, B, mapper, dev, cat_mask is not None)
+        dart = _DartTrees(_densify(x), max(T, start) * k, L, B, mapper, dev,
+                          cat_mask is not None)
         for t, tree in enumerate(trees_done):
             dart.load(t, tree)
         flat = [r * k + c for sel in draws.drops for r in sel for c in range(k)]
@@ -625,101 +726,206 @@ def train(
             rounds_no_improve=stopper.since if eval_on else 0, lr=lr_cur,
         ))
 
-    pending: list = []
+    def grow_class(c: int, g: torch.Tensor, h: torch.Tensor, w_grow: torch.Tensor,
+                   w_it: torch.Tensor, fm: torch.Tensor, eff: torch.Tensor) -> Any:
+        """Class ``c``'s tree of one round, with its renewed leaves."""
+        grown = grow(
+            bins, g[:, c] if k > 1 else g, h[:, c] if k > 1 else h, w_grow,
+            num_leaves=L, sp=sp, feature_mask=fm,
+            max_depth=int(cfg.max_depth),
+            min_data_in_leaf=int(cfg.min_data_in_leaf), num_bins=B,
+            categorical_mask=cat_mask,
+        )
+        if renew:
+            # the leaf's weighted percentile of residuals over the sampled
+            # rows at their pre-GOSS weights (LightGBM's RenewTreeOutput;
+            # GOSS amplification is not a data weight)
+            w_sel = torch.where(w_grow > 0, w_it, 0.0)
+            if cfg.objective == "mape":
+                w_sel = w_sel / torch.clamp_min(y_enc.abs(), 1.0)
+            renewed = objectives.leaf_quantile_renewal(
+                grown.row_leaf, y_enc - eff, w_sel, L, q_renew) * sp.learning_rate
+            grown = grown._replace(
+                leaf_values=torch.where(grown.leaf_counts > 0, renewed, 0.0))
+        return grown
+
+    def goss(g: torch.Tensor, w_it: torch.Tensor, it: Any) -> torch.Tensor:
+        g_abs = g.abs()
+        if k > 1:
+            g_abs = g_abs.sum(1)
+        u = sampling.uniform(cfg.seed, it, sampling.GOSS_STREAM, n, dev)
+        return w_it * sampling.goss_weights(g_abs, w_it, u, cfg.top_rate, cfg.other_rate)
+
+    def eval_scores(it_plus_1: torch.Tensor) -> torch.Tensor:
+        # rf averages its running sum; the round count is a device scalar
+        # on both loops, so both divide alike
+        return rf_base + scores / it_plus_1 if is_rf else scores
+
     history: list = []
-    chunk_vals: list = []
-    kept_rounds, it0, drop_at = T, start, 0
-    for it in range(start, T):
-        if delegate is not None:
-            delegate.before_train_iteration(it)
-            lr = float(delegate.get_learning_rate(it, lr_cur))
-            if lr != lr_cur and not is_rf:
-                # a fill on the device: no host copy, so no sync
-                sp = sp._replace(learning_rate=torch.full((), lr, dtype=torch.float32,
-                                                          device=dev))
-            lr_cur = lr
-        w_it = w_dev
-        if use_bag:
-            if it % bagging_freq == 0:
+    kept_rounds = T
+    fast = (delegate is None and not is_dart and not host_rank
+            and not (eval_on and host_ndcg))
+    if fast:
+        # -- one round as a function of static device buffers, run in
+        # chunks: captured once and replayed on the card when fused
+        # (fused_rounds != 1), eager otherwise
+        fusing = int(fused_rounds) != 1
+        C_full = T if patience == 0 else min(T, max(16, patience))
+        if int(fused_rounds) > 1:
+            C_full = max(1, min(C_full, int(fused_rounds)))
+        if checkpoint_dir:
+            # chunk ends are the checkpoint ends
+            C_full = max(1, min(C_full, checkpoint_every))
+        recs = torch.zeros((max(T, 1), k, _pack_width(L, B, has_cat)), dtype=torch.float64,
+                           device=dev)
+        mets = torch.zeros(max(T, 1), dtype=torch.float32, device=dev)
+        it_dev = torch.full((), start, dtype=torch.int64, device=dev)
+        scores = scores.clone()
+        if use_bag and bag is None:
+            bag = torch.ones(n, dtype=torch.float32, device=dev)   # redrawn at round 0
+
+        def one_round() -> None:
+            it = it_dev
+            w_it = w_dev
+            if use_bag:
                 u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev)
-                bag = (u < bagging_fraction).float()
-            w_it = w_dev * bag
-        drop = draws.drops[it]
-        eff = scores
-        if drop:
-            idx = drop_idx[drop_at: drop_at + len(drop) * k]
-            drop_at += len(drop) * k
-            contrib = dart.contrib(idx, k)
-            eff = scores - contrib
-        g, h = (g_rf, h_rf) if is_rf else gradients(eff)
-        w_grow = w_it
-        if is_goss:
-            g_abs = g.abs()
-            if k > 1:
-                g_abs = g_abs.sum(1)
-            u = sampling.uniform(cfg.seed, it, sampling.GOSS_STREAM, n, dev)
-            w_grow = w_it * sampling.goss_weights(g_abs, w_it, u, cfg.top_rate, cfg.other_rate)
-        nf_new = 1.0 / (len(drop) + 1)
-        deltas = []
-        for c in range(k):
-            grown = grow(
-                bins, g[:, c] if k > 1 else g, h[:, c] if k > 1 else h, w_grow,
-                num_leaves=L, sp=sp, feature_mask=fms_dev[it],
-                max_depth=int(cfg.max_depth),
-                min_data_in_leaf=int(cfg.min_data_in_leaf), num_bins=B,
-                categorical_mask=cat_mask,
-            )
-            if renew:
-                # the leaf's weighted percentile of residuals over the
-                # sampled rows at their pre-GOSS weights (LightGBM's
-                # RenewTreeOutput; GOSS amplification is not a data weight)
-                w_sel = torch.where(w_grow > 0, w_it, 0.0)
-                if cfg.objective == "mape":
-                    w_sel = w_sel / torch.clamp_min(y_enc.abs(), 1.0)
-                renewed = objectives.leaf_quantile_renewal(
-                    grown.row_leaf, y_enc - eff, w_sel, L, q_renew) * sp.learning_rate
-                grown = grown._replace(
-                    leaf_values=torch.where(grown.leaf_counts > 0, renewed, 0.0))
-            deltas.append(grown.leaf_values[grown.row_leaf])
-            pending.append(_pack(grown))
-            if is_dart:
-                dart.store(it * k + c, grown, nf_new)
-        step = torch.stack(deltas, 1) if k > 1 else deltas[0]
-        new_scores = eff + step
-        if drop:
-            # dart: the new tree x 1/(m+1), the m dropped trees x m/(m+1);
-            # the running scores keep the dropped trees' contribution
-            nf_drop = len(drop) / (len(drop) + 1)
-            scores = (scores - eff) + new_scores
-            scores = scores + step * (nf_new - 1.0)
-            dart.scale(idx, nf_drop)
-            scores = scores - contrib * (1.0 - nf_drop)
-        else:
-            scores = new_scores
-        due = bool(checkpoint_dir) and ((it + 1) % checkpoint_every == 0 or it + 1 == T)
-        stopped, eval_result = False, None
-        if eval_on:
-            chunk_vals.append(metric(rf_base + scores / (it + 1) if is_rf else scores))
-            if len(chunk_vals) == chunk or it == T - 1 or due:
-                vals = (chunk_vals if host_ndcg
-                        else _to_host(torch.stack(chunk_vals)).tolist())
+                bag.copy_(torch.where(it % bagging_freq == 0, (u < bagging_fraction).float(), bag))
+                w_it = w_dev * bag
+            g, h = (g_rf, h_rf) if is_rf else gradients(scores)
+            w_grow = goss(g, w_it, it) if is_goss else w_it
+            fm = fms_dev.index_select(0, it.view(1))[0]
+            grown = [grow_class(c, g, h, w_grow, w_it, fm, scores) for c in range(k)]
+            deltas = [t.leaf_values[t.row_leaf] for t in grown]
+            recs.index_copy_(0, it.view(1), torch.stack([_pack(t) for t in grown])[None])
+            scores.add_(torch.stack(deltas, 1) if k > 1 else deltas[0])
+            if eval_on:
+                m = metric(eval_scores(it.float() + 1.0))
+                mets.index_copy_(0, it.view(1), m.reshape(1).float())
+            it_dev.add_(1)
+
+        graph = None
+
+        def run(rounds: int) -> None:
+            nonlocal graph
+            for _ in range(rounds):
+                if dev.type != "cuda" or not fusing:
+                    one_round()
+                elif graph is None:
+                    # one eager round on a side stream (library loads,
+                    # allocator warm-up), then the capture, which runs nothing
+                    cur = torch.cuda.current_stream(dev)
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(cur)
+                    with torch.cuda.stream(side):
+                        one_round()
+                    cur.wait_stream(side)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        one_round()
+                    fused["captures"] += 1
+                else:
+                    graph.replay()
+                    fused["replays"] += 1
+
+        def unpack(r0: int, r1: int) -> list:
+            if r1 <= r0:
+                return []
+            rows = _to_host(recs[r0:r1]).reshape((r1 - r0) * k, -1)
+            return [_tree_from_host(r, L, mapper, B, has_cat) for r in rows]
+
+        it0, rec_read, stopped = start, start, False
+        while it0 < T and not stopped:
+            C = min(C_full, T - it0)
+            run(C)
+            fused["chunks"] += fusing
+            if eval_on:
+                vals = _to_host(mets[it0: it0 + C]).tolist()
                 keep = stopper.replay(vals, it0)
-                history += vals[: len(vals) if keep is None else keep]
-                if len(vals) == 1:
-                    eval_result = (metric_name, vals[0], stopper.higher)
+                history += vals[: C if keep is None else keep]
                 if keep is not None:
                     kept_rounds, stopped = it0 + keep, True
-                it0, chunk_vals = it + 1, []
-        if delegate is not None:
-            delegate.after_train_iteration(it, eval_result, stopped or it == T - 1)
-        if stopped:
-            break
-        if due:
-            trees_done += records_to_host(pending)
-            pending = []
-            save(it + 1)
-
-    trees_done += records_to_host(pending[:max(kept_rounds * k - len(trees_done), 0)])
+            it0 += C
+            if checkpoint_dir and not stopped and (
+                    (it0 - C) // checkpoint_every < it0 // checkpoint_every or it0 >= T):
+                trees_done += unpack(rec_read, it0)
+                rec_read = it0
+                save(it0)
+        graph = None
+        trees_done += unpack(rec_read, kept_rounds)
+    else:
+        # -- the per-round loop (dart, delegates, host gradients or
+        # metrics): each round reads the host before the next
+        pending: list = []
+        chunk_vals: list = []
+        it0, drop_at = start, 0
+        for it in range(start, T):
+            if delegate is not None:
+                delegate.before_train_iteration(it)
+                lr = float(delegate.get_learning_rate(it, lr_cur))
+                if lr != lr_cur and not is_rf:
+                    # a fill on the device: no host copy, so no sync
+                    sp = sp._replace(learning_rate=torch.full((), lr, dtype=torch.float32,
+                                                              device=dev))
+                lr_cur = lr
+            w_it = w_dev
+            if use_bag:
+                if it % bagging_freq == 0:
+                    u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev)
+                    bag = (u < bagging_fraction).float()
+                w_it = w_dev * bag
+            drop = draws.drops[it]
+            eff = scores
+            if drop:
+                idx = drop_idx[drop_at: drop_at + len(drop) * k]
+                drop_at += len(drop) * k
+                contrib = dart.contrib(idx, k)
+                eff = scores - contrib
+            g, h = (g_rf, h_rf) if is_rf else gradients(eff)
+            w_grow = goss(g, w_it, it) if is_goss else w_it
+            nf_new = 1.0 / (len(drop) + 1)
+            deltas = []
+            for c in range(k):
+                grown = grow_class(c, g, h, w_grow, w_it, fms_dev[it], eff)
+                deltas.append(grown.leaf_values[grown.row_leaf])
+                pending.append(_pack(grown))
+                if is_dart:
+                    dart.store(it * k + c, grown, nf_new)
+            step = torch.stack(deltas, 1) if k > 1 else deltas[0]
+            new_scores = eff + step
+            if drop:
+                # dart: the new tree x 1/(m+1), the m dropped trees x m/(m+1);
+                # the running scores keep the dropped trees' contribution
+                nf_drop = len(drop) / (len(drop) + 1)
+                scores = (scores - eff) + new_scores
+                scores = scores + step * (nf_new - 1.0)
+                dart.scale(idx, nf_drop)
+                scores = scores - contrib * (1.0 - nf_drop)
+            else:
+                scores = new_scores
+            due = bool(checkpoint_dir) and ((it + 1) % checkpoint_every == 0 or it + 1 == T)
+            stopped, eval_result = False, None
+            if eval_on:
+                rounds = torch.full((), it + 1.0, dtype=torch.float32, device=dev)
+                chunk_vals.append(metric(eval_scores(rounds)))
+                if len(chunk_vals) == chunk or it == T - 1 or due:
+                    vals = (chunk_vals if host_ndcg
+                            else _to_host(torch.stack(chunk_vals)).tolist())
+                    keep = stopper.replay(vals, it0)
+                    history += vals[: len(vals) if keep is None else keep]
+                    if len(vals) == 1:
+                        eval_result = (metric_name, vals[0], stopper.higher)
+                    if keep is not None:
+                        kept_rounds, stopped = it0 + keep, True
+                    it0, chunk_vals = it + 1, []
+            if delegate is not None:
+                delegate.after_train_iteration(it, eval_result, stopped or it == T - 1)
+            if stopped:
+                break
+            if due:
+                trees_done += records_to_host(pending)
+                pending = []
+                save(it + 1)
+        trees_done += records_to_host(pending[:max(kept_rounds * k - len(trees_done), 0)])
     booster = new_booster(trees_done)
     if eval_on:
         booster.evals = {metric_name: history}

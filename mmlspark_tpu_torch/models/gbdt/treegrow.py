@@ -296,6 +296,185 @@ def grow_tree(
                      values, counts, row_leaf, rec_is_cat, rec_catmask)
 
 
+def _range_sizes(n: int, min_size: int = 512) -> tuple:
+    """The JAX package's power-of-2 row buckets for a range histogram."""
+    sizes = []
+    s = min(min_size, n)
+    while s < n:
+        sizes.append(s)
+        s *= 2
+    sizes.append(n)
+    return tuple(sizes)
+
+
+def grow_tree_partitioned(
+    bins: torch.Tensor,            # (n, d) uint8
+    grad: torch.Tensor,            # (n,) f32
+    hess: torch.Tensor,            # (n,) f32
+    row_weight: torch.Tensor,      # (n,) f32 (0 = ignore)
+    *,
+    num_leaves: int,
+    sp: SplitParams,
+    feature_mask: torch.Tensor,    # (d,) f32 1/0 (feature_fraction)
+    max_depth: int = -1,
+    min_data_in_leaf: int = 20,
+    num_bins: int = NUM_BINS,
+    categorical_mask: Optional[torch.Tensor] = None,  # (d,) bool
+) -> GrownTree:
+    """Leaf-wise growth over rows kept partitioned by leaf: the port of the
+    JAX package's ``_grow_tree_partitioned`` (LightGBM's DataPartition with
+    histogram subtraction). The split semantics are :func:`grow_tree`'s
+    (the same ``make_leaf_best``, records and leaf values); the histogram
+    work differs:
+
+    - the rows live in a permuted order in which every leaf owns the
+      contiguous range [start, start + count); each split stable-partitions
+      the parent's range (left block, then right block);
+    - only the smaller child is histogrammed, with ``plane_hist`` over a
+      static power-of-two bucket of the permuted rows (the smallest of the
+      JAX package's buckets that holds any smaller child, half the rows),
+      gathered from a device-side start and masked to the child's range;
+      the larger child is parent - smaller.
+
+    Every shape is static and no value crosses to the host, so a round
+    with this grower is capturable as a CUDA graph. (The JAX package picks
+    the bucket per split with ``lax.switch``; a per-split choice here would
+    read the child's size on the host.)
+
+    This grower is kept for parity with the JAX package, not for speed: a
+    split permutes all n rows and gathers a bucket of half of them, while
+    the masked grower's ``plane_hist`` already reads only the kept rows, so
+    on the card it is slower on every fit. It could become the default
+    only once the histogram kernel reads a child's start and count on the
+    device (a bucket per split), and then only where the card's trees/s
+    say so. Its records are the masked grower's up to ties: it derives the
+    larger child by subtraction where the masked grower derives the left
+    one, and a derived plane carries f32 rounding residues in bins its
+    leaf holds no weighted row of, so a threshold may move across such
+    bins (a tie in exact arithmetic). The weighted rows' partition is the
+    same; rows of weight 0 and new rows in those bins go the other way."""
+    n, d = bins.shape
+    L, B = num_leaves, num_bins
+    dev = bins.device
+    i64 = torch.int64
+    row_stats = _row_stats(grad, hess, row_weight)
+    cat_f = categorical_mask
+    leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B, cat_f=cat_f)
+    size = next(sz for sz in _range_sizes(n) if sz >= (n + 1) // 2)
+
+    hist = torch.zeros((L, d * B, 3), dtype=torch.float32, device=dev)
+    hist[0] = plane_histogram(bins, row_stats, None, B)
+    pos = torch.arange(n, dtype=i64, device=dev)
+    bucket = torch.arange(size, dtype=i64, device=dev)
+    order, bins_ord, stats_ord = pos, bins, row_stats
+    leaf_ids = torch.arange(L, device=dev)
+    leaf_start = torch.zeros(L, dtype=i64, device=dev)
+    leaf_count = torch.zeros(L, dtype=i64, device=dev)
+    leaf_count[:1].fill_(n)        # a fill, not a host copy: capturable
+    leaf_depth = torch.zeros(L, dtype=torch.int32, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    cache_gain = torch.full((L,), -math.inf, dtype=torch.float32, device=dev)
+    cache_feat = torch.zeros(L, dtype=i64, device=dev)
+    cache_bin = torch.zeros(L, dtype=i64, device=dev)
+    prev_pair = torch.zeros(2, dtype=i64, device=dev)  # root twice
+    rec_leaf = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_feature = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_bin = torch.full((L - 1,), -1, dtype=i64, device=dev)
+    rec_active = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+    rec_gain = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+    rec_is_cat = rec_catmask = cache_catmask = None
+    if cat_f is not None:
+        rec_is_cat = torch.zeros(L - 1, dtype=torch.bool, device=dev)
+        rec_catmask = torch.zeros((L - 1, B), dtype=torch.bool, device=dev)
+        cache_catmask = torch.zeros((L, B), dtype=torch.bool, device=dev)
+
+    for k in range(L - 1):
+        pg, pf, pb, pcm = leaf_best(hist.index_select(0, prev_pair))
+        cache_gain.index_copy_(0, prev_pair, pg)
+        cache_feat.index_copy_(0, prev_pair, pf)
+        cache_bin.index_copy_(0, prev_pair, pb)
+        if cat_f is not None:
+            cache_catmask.index_copy_(0, prev_pair, pcm)
+
+        leaf_ok = leaf_ids <= k
+        if max_depth > 0:
+            leaf_ok = leaf_ok & (leaf_depth < max_depth)
+        sel = torch.where(leaf_ok, cache_gain, -math.inf)
+        bl = torch.argmax(sel).view(1)
+        best_gain = sel.index_select(0, bl)
+        bf = cache_feat.index_select(0, bl)
+        bb = cache_bin.index_select(0, bl)
+        do_split = ~done & (best_gain > sp.min_gain) & torch.isfinite(best_gain)
+
+        # stable partition of the parent's range: left block, right block
+        s = leaf_start.index_select(0, bl)
+        c = leaf_count.index_select(0, bl)
+        in_range = (pos >= s) & (pos < s + c)
+        row_bins = bins_ord.index_select(1, bf)[:, 0]
+        if cat_f is not None:
+            is_cat = cat_f.index_select(0, bf)
+            catmask = cache_catmask.index_select(0, bl)[0]
+            decide = torch.where(is_cat, ~catmask[row_bins.long()], row_bins > bb)
+        else:
+            decide = row_bins > bb
+        right_m = in_range & decide & do_split
+        left_m = in_range & ~right_m & do_split
+        c_right = right_m.sum().view(1)
+        c_left = c - c_right
+        dest = torch.where(
+            left_m, s + torch.cumsum(left_m, 0) - 1,
+            torch.where(right_m, s + c_left + torch.cumsum(right_m, 0) - 1, pos))
+        inv = torch.empty_like(pos).index_put_((dest,), pos)
+        order = order.index_select(0, inv)
+        bins_ord = bins_ord.index_select(0, inv)
+        stats_ord = stats_ord.index_select(0, inv)
+
+        # the smaller child's plane from its (now contiguous) range
+        small_left = c_left <= c_right
+        s_small = torch.where(small_left, s, s + c_left)
+        c_small = torch.where(do_split, torch.minimum(c_left, c_right), 0)
+        p = torch.clamp(s_small, 0, n - size) + bucket
+        keep = ((p >= s_small) & (p < s_small + c_small)).to(torch.float32)
+        small = plane_histogram(bins_ord.index_select(0, p), stats_ord.index_select(0, p),
+                                keep, B)
+        parent = hist.index_select(0, bl)[0]
+        big = parent - small
+        split = do_split.view(1, 1)
+        hist.index_copy_(0, bl, torch.where(split, torch.where(small_left, small, big),
+                                            parent)[None])
+        hist[k + 1] = torch.where(split, torch.where(small_left, big, small), hist[k + 1])
+
+        leaf_start[k + 1: k + 2] = torch.where(do_split, s + c_left, leaf_start[k + 1: k + 2])
+        counts = leaf_count.index_copy(0, bl, c_left)
+        counts[k + 1: k + 2] = c_right
+        leaf_count = torch.where(do_split, counts, leaf_count)
+        child_depth = leaf_depth.index_select(0, bl) + 1
+        deeper = leaf_depth.index_copy(0, bl, child_depth)
+        deeper[k + 1: k + 2] = child_depth
+        leaf_depth = torch.where(do_split, deeper, leaf_depth)
+        rec_leaf[k: k + 1] = torch.where(do_split, bl, -1)
+        rec_feature[k: k + 1] = torch.where(do_split, bf, -1)
+        rec_bin[k: k + 1] = torch.where(do_split, bb, -1)
+        rec_active[k: k + 1] = do_split
+        rec_gain[k: k + 1] = torch.where(do_split, best_gain, 0.0)
+        if cat_f is not None:
+            cat_split = do_split & is_cat
+            rec_is_cat[k: k + 1] = cat_split
+            rec_catmask[k] = catmask & cat_split
+        done = done | ~do_split
+        prev_pair = torch.cat([bl, leaf_ids[k + 1: k + 2]])
+
+    # position -> leaf from the final ranges (they tile [0, n)), then back
+    # to the original row order through the permutation
+    in_leaf = (pos[:, None] >= leaf_start[None, :]) & (
+        pos[:, None] < (leaf_start + leaf_count)[None, :])
+    row_leaf = torch.empty(n, dtype=torch.int32, device=dev).index_put_(
+        (order,), torch.argmax(in_leaf.to(torch.uint8), dim=1).to(torch.int32))
+    values, counts = _leaf_values(row_leaf, row_stats, L, sp)
+    return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
+                     values, counts, row_leaf, rec_is_cat, rec_catmask)
+
+
 def _put_drop(a: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``a.at[idx].set(vals, mode="drop")``: indices outside [0, len(a))
     land in a trash slot that is cut off."""

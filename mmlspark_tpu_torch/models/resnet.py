@@ -28,19 +28,22 @@ at ``pool`` never runs the head. Parameters stay f32 (cast per call, as
 flax casts them); ``from_flax_variables``/``to_flax_variables`` convert
 between flax's ``{"params", "batch_stats"}`` tree (HWIO conv kernels,
 (in, out) dense kernels, flax's module names) and this module's state.
-``init_flax_variables`` draws a fresh seeded init from a
-``torch.Generator``: flax's distributions (truncated-normal fan-in, the last
-batch norm of each block scaled by 0), not flax's numbers.
+``init_flax_variables`` reproduces flax's seeded init (the JAX package's
+``init_resnet(seed)``): the same keys, Threefry draws and truncated normal,
+within 2 ulp.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mmlspark_tpu_torch.models.gbdt import sampling
 
 LAYER_NAMES = ("logits", "pool", "layer4", "layer3", "layer2", "layer1", "stem")
 BN_EPS = 1e-5  # flax.linen.BatchNorm's default epsilon
@@ -329,18 +332,85 @@ def load_flax_variables(module: ResNet, variables: dict) -> ResNet:
     return module
 
 
-def init_flax_variables(module: ResNet, seed: int = 0) -> dict:
-    """A seeded init of ``module`` in flax layout, drawn from
-    ``torch.Generator(seed)`` with flax's distributions: conv and dense
-    kernels truncated normal in [-2, 2] standard deviations, scaled to
-    variance 1/fan_in (``lecun_normal``); biases and batch-norm shifts 0;
-    batch-norm scales 1, the last of each block 0; statistics mean 0, var 1.
-    The numbers are the port's own, not flax's."""
-    g = torch.Generator().manual_seed(seed)
-    # lecun_normal's stddev correction for the [-2, 2] truncation
-    trunc = 0.87962566103423978
+# jax.random.truncated_normal(-2, 2) draws uniform(erf(-2/sqrt2), erf(2/sqrt2)):
+# the bounds as XLA rounds them in f32 (-0.9544997)
+_ERF_SQRT2 = 0.95449972152709961
+# XLA's f32 erf_inv (Giles' single-precision approximation): coefficients
+# for w = -log1p(-x^2) < 5 and >= 5, highest power first
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as XLA's CPU backend fuses it: the
+    f32 product is exact in f64, and the f64 sum rounds to the f32 result."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` with fused Horner steps. ``log1p`` is taken in
+    f64 and rounded once to f32, so the card and the CPU agree; XLA's own
+    f32 ``log1p`` rounds differently in ~9% of inputs, so results differ
+    from ``jax.lax.erf_inv`` by at most 2 ulp (equal in ~99%)."""
+    w = -torch.log1p((-x * x).double()).float()
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i: int) -> torch.Tensor:
+        return torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i])
+
+    p = coef(0).expand_as(x)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = _fma32(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
+
+
+def _flax_key(seed: int, path: tuple, counter: int = 1) -> tuple:
+    """The key flax's ``make_rng("params")`` gives the ``counter``-th
+    parameter of the module at ``path`` (flax.core.scope ``LazyRng`` /
+    ``_fold_in_static``): the first 4 bytes of a SHA-1 of the path's names
+    and the counter (big-endian), folded into ``PRNGKey(seed)``."""
+    m = hashlib.sha1()
+    for part in (*path, counter):
+        m.update(part.encode() if isinstance(part, str)
+                 else part.to_bytes((part.bit_length() + 7) // 8, "big"))
+    return sampling.fold_in((0, int(seed) & 0xFFFFFFFF), int.from_bytes(m.digest()[:4], "big"))
+
+
+def lecun_normal(key: tuple, shape: tuple, fan_in: int,
+                 device: "str | torch.device" = "cpu") -> torch.Tensor:
+    """``flax.linen.initializers.lecun_normal()(key, shape)`` in f32: a
+    truncated normal in (-2, 2) (``jax.random.truncated_normal``: the
+    Threefry uniform in (erf(-sqrt2), erf(sqrt2)) with its fused scale and
+    shift, sqrt(2) * erf_inv, clipped to the open interval) times
+    sqrt(1/fan_in) / 0.87962566103423978, every step rounded to f32 as
+    XLA does."""
+    n = int(np.prod(shape))
+    lo = torch.tensor(-_ERF_SQRT2, dtype=torch.float32, device=device)
+    hi = torch.tensor(_ERF_SQRT2, dtype=torch.float32, device=device)
+    unit = sampling.bits_to_unit(sampling.random_bits(key, n, device))
+    u = torch.maximum(lo, _fma32(unit, hi - lo, lo))
+    out = torch.tensor(np.sqrt(2), dtype=torch.float32, device=device) * _erfinv32(u)
+    bound = float(np.nextafter(np.float32(2.0), np.float32(0.0)))
+    out = out.clamp(-bound, bound)
+    std = np.float32(np.sqrt(np.float32(1.0 / fan_in))) / np.float32(0.87962566103423978)
+    return (out * torch.tensor(std, device=device)).reshape(shape)
+
+
+def init_flax_variables(module: ResNet, seed: int = 0,
+                        device: "str | torch.device" = "cpu") -> dict:
+    """flax's seeded init of ``module`` (``model.init(PRNGKey(seed))`` of
+    the JAX package's ResNet), in flax layout: every conv and dense kernel
+    is ``lecun_normal`` under its module path's key (:func:`_flax_key`:
+    each kernel is its scope's first parameter); biases and batch-norm
+    shifts 0; batch-norm scales 1, the last of each block 0; statistics
+    mean 0, var 1. Equal to flax's numbers within 4 ulp, 99% of them
+    bitwise (XLA's f32 ``log1p`` rounds differently); ``device`` is where
+    the draws are computed."""
     with torch.no_grad():
-        for _, m, kind in _flax_modules(module):
+        for path, m, kind in _flax_modules(module):
             if kind == "bn":
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -348,11 +418,14 @@ def init_flax_variables(module: ResNet, seed: int = 0) -> dict:
                 m.running_var.fill_(1.0)
                 continue
             w = m.weight
-            fan_in = w[0].numel()
-            std = (1.0 / fan_in) ** 0.5 / trunc
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-            if kind == "dense":
+            if kind == "dense":   # (out, in) here, (in, out) in flax
+                shape, fan_in = (w.shape[1], w.shape[0]), w.shape[1]
+                m.weight.copy_(lecun_normal(_flax_key(seed, path), shape, fan_in, device).T)
                 m.bias.zero_()
+            else:                 # OIHW here, HWIO in flax
+                o, i, kh, kw = w.shape
+                k = lecun_normal(_flax_key(seed, path), (kh, kw, i, o), kh * kw * i, device)
+                m.weight.copy_(k.permute(3, 2, 0, 1))
         for blk in module.blocks:
             blk.bns[-1].weight.zero_()
     return to_flax_variables(module)

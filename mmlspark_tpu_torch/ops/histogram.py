@@ -32,7 +32,10 @@ The plain versions sum in f32, so kernel and plain agree to f32 rounding,
 and counts exactly.
 
 Every launch adds one to ``launches[<kernel>]``; ``chip_smoke.py`` resets
-the counts before it drives the main path and reads them after.
+the counts before it drives the main path and reads them after. A call
+made while the stream is being captured into a CUDA graph launches
+nothing and is not counted; the graph's replays launch the captured
+kernels without calling a wrapper, so they show only in a device trace.
 """
 
 from __future__ import annotations
@@ -264,7 +267,8 @@ def plane_hist(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(code, "plane_hist", num_bins)
-    launches["plane_hist"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches["plane_hist"] += 1
     return out
 
 
@@ -295,7 +299,8 @@ def multi_plane_hist(
         _sm_count(dev.index or 0), torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(code, "multi_plane_hist", num_bins)
-    launches["multi_plane_hist"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches["multi_plane_hist"] += 1
     return out
 
 

@@ -579,3 +579,264 @@ def test_image_stages_on_the_card_track_the_cpu(cuda_device):
         oc = "unrolled" if isinstance(make("cpu"), UnrollImage) else "image"
         for g, w in zip(got[oc], want[oc]):
             assert float(np.abs(np.asarray(g) - np.asarray(w)).max()) <= 1e-4 * 255
+
+
+# -- device binning, CSR, fused rounds as CUDA graphs, the partitioned grower,
+# the seeded init (slice 6) -----------------------------------------------------
+#
+# Tolerances: binning bitwise (bounds as f64 bit patterns, bins as values)
+# against the port's own CPU binning; graph-replayed fits byte-identical to
+# the same round run eagerly; the partitioned grower within the reference's
+# tolerances of the masked grower (split leaves and features exact, leaf
+# values 1e-5, gains rtol 1e-3), its thresholds equal or tied across bins
+# without a weighted row, so the weighted rows' partition exact; the seeded
+# init within 4 ulp of the CPU's (both within 4 ulp of flax's,
+# test_torch_port_zoo.py).
+
+
+def _binning_data(kind: str, dtype=np.float32):
+    rng = np.random.default_rng(11)
+    if kind == "wide":
+        return rng.normal(size=(200_000, 16)).astype(dtype)
+    x = rng.normal(size=(6000, 8))
+    x[::7, 0] = np.nan
+    x[::11, 1] = np.inf
+    x[::13, 1] = -np.inf
+    x[:, 2] = np.round(x[:, 2] * 3)
+    x[:, 3] = 1.5
+    x[:, 4] = np.nan
+    x[:, 5] = np.where(rng.random(6000) < 0.5, 0.0, rng.lognormal(size=6000))
+    x[:, 6] = np.repeat(rng.normal(size=600), 10)
+    x[:, 7] = np.where(rng.random(6000) < 0.3, -0.0, x[:, 7])
+    return x.astype(dtype)
+
+
+def _same_mapper(a, b):
+    assert len(a.uppers) == len(b.uppers)
+    for u, v in zip(a.uppers, b.uppers):
+        assert u.shape == v.shape and np.array_equal(u.view(np.uint64), v.view(np.uint64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,max_bin", [
+    ("special", np.float32, 2), ("special", np.float32, 63), ("special", np.float32, 255),
+    ("special", np.float64, 63), ("special", np.float64, 255), ("wide", np.float32, 255),
+    ("wide", np.float32, 63),
+])
+def test_device_binning_bitwise_equals_the_cpu(cuda_device, kind, dtype, max_bin):
+    from mmlspark_tpu_torch.models.gbdt import BinMapper
+
+    x = _binning_data(kind, dtype)
+    cpu = BinMapper.fit(x, max_bin=max_bin, seed=3, device="cpu")
+    card = BinMapper.fit(x, max_bin=max_bin, seed=3, device=cuda_device)
+    _same_mapper(card, cpu)
+    bins = card.bin_tensor(x, cuda_device)
+    assert bins.device.type == "cuda" and bins.dtype == torch.uint8
+    assert torch.equal(bins.cpu(), cpu.bin_tensor(x, "cpu"))
+
+
+def _csr(n=4000, dim=512, seed=0):
+    """12 stored normal values a row in random columns; positive when a
+    row stores one of columns 0-7 (a presence a tree carves out)."""
+    import scipy.sparse as sp
+
+    r = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 12)
+    cols = r.integers(0, dim, size=rows.size)
+    x = sp.csr_matrix((r.normal(size=rows.size), (rows, cols)), shape=(n, dim))
+    x.sum_duplicates()
+    y = (np.bincount(rows, weights=cols < 8, minlength=n) > 0).astype(np.float64)
+    return x, y
+
+
+@pytest.mark.cuda
+def test_csr_on_the_card(cuda_device):
+    from mmlspark_tpu_torch.models.gbdt import BinMapper
+    from mmlspark_tpu_torch.models.gbdt.binning import densify_missing
+
+    x, y = _csr()
+    cpu = BinMapper.fit(x, max_bin=63, sample=2000, seed=1, device="cpu")
+    card = BinMapper.fit(x, max_bin=63, sample=2000, seed=1, device=cuda_device)
+    _same_mapper(card, cpu)
+    assert torch.equal(card.bin_tensor(x, cuda_device).cpu(), cpu.bin_tensor(x, "cpu"))
+    cfg = TrainConfig(num_iterations=10, num_leaves=15, min_data_in_leaf=10, seed=0)
+    b = train(x[:3000], y[:3000], cfg, device=cuda_device)
+    p = b.predict(densify_missing(x[3000:]), device=cuda_device)
+    assert binary_auc(y[3000:], p) > 0.95
+
+
+def _fused_case(name):
+    rng = np.random.default_rng(5)
+    n = 20_000
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float64)
+    kw, fit_kw = {}, {}
+    if name == "depthwise":
+        kw = dict(growth_policy="depthwise")
+    elif name == "goss":
+        kw = dict(boosting_type="goss")
+    elif name == "rf":
+        kw = dict(boosting_type="rf")
+    elif name == "bagged":
+        kw = dict(bagging_fraction=0.7, bagging_freq=2, feature_fraction=0.7)
+    elif name == "multiclass":
+        y = np.digitize(x[:, 0], [-0.5, 0.5]).astype(np.float64)
+        kw = dict(objective="multiclass", num_class=3)
+    elif name == "categorical":
+        x[:, 11] = rng.integers(0, 40, n)
+        y = ((x[:, 11] % 3 == 0) ^ (x[:, 0] > 0)).astype(np.float64)
+        kw = dict(categorical_features=(11,))
+    elif name == "early_stopped":
+        y = np.where(rng.random(n) < 0.15, 1 - y, y)
+        valid = np.arange(n) >= n - 4000
+        kw = dict(early_stopping_round=3, learning_rate=0.5)
+        fit_kw = dict(valid_mask=valid)
+    elif name == "quantile":
+        y = x[:, 0] * 2.0 + rng.normal(size=n)
+        kw = dict(objective="quantile", alpha=0.3, bagging_fraction=0.8, bagging_freq=1)
+    elif name == "partitioned":
+        kw = dict(boosting_type="goss")
+    return x, y, dict(num_iterations=30, num_leaves=31, min_data_in_leaf=20, seed=2, **kw), fit_kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gbdt", "depthwise", "goss", "rf", "bagged", "multiclass",
+                                  "categorical", "early_stopped", "quantile", "partitioned"])
+def test_graph_and_eager_model_strings_byte_equal(cuda_device, name, monkeypatch):
+    import importlib
+
+    T = importlib.import_module("mmlspark_tpu_torch.models.gbdt.train")
+    if name == "partitioned":
+        monkeypatch.setenv("MMLSPARK_TPU_GBDT_PARTITION", "1")
+    x, y, kw, fit_kw = _fused_case(name)
+    cfg = TrainConfig(**kw)
+    graph = train(x, y, cfg, device=cuda_device, **fit_kw)
+    assert T.fused["captures"] == 1 and T.fused["replays"] > 0
+    chunked = train(x, y, cfg, device=cuda_device, fused_rounds=4, **fit_kw)
+    eager = train(x, y, cfg, device=cuda_device, fused_rounds=1, **fit_kw)
+    assert T.fused == {"chunks": 0, "captures": 0, "replays": 0}
+    assert graph.to_model_string() == eager.to_model_string() == chunked.to_model_string()
+    if name == "early_stopped":
+        assert 0 < graph.best_iteration < 30
+
+
+@pytest.mark.cuda
+def test_graph_checkpoint_and_resume_byte_identical(cuda_device, tmp_path):
+    x, y, kw, _ = _fused_case("bagged")
+    cfg = TrainConfig(**kw)
+    full = train(x, y, cfg, device=cuda_device, fused_rounds=1).to_model_string()
+    d = str(tmp_path / "ck")
+    short = TrainConfig(**{**kw, "num_iterations": 20})
+    train(x, y, short, device=cuda_device, checkpoint_dir=d, checkpoint_every=5)
+    resumed = train(x, y, cfg, device=cuda_device, checkpoint_dir=d, checkpoint_every=5,
+                    resume_from=d)
+    assert resumed.to_model_string() == full
+
+
+def _threshold_ties(bins, weight, a, b):
+    """Each split at which ``a`` and ``b`` chose different thresholds, with
+    the weighted rows of its leaf between the two (replaying ``a``'s
+    records): 0 means both thresholds part the weighted rows alike."""
+    bins, w = bins.cpu().numpy(), weight.cpu().numpy() > 0
+    rl, rf, ra = (t.cpu().numpy() for t in (a.rec_leaf, a.rec_feature, a.rec_active))
+    ab, bb = a.rec_bin.cpu().numpy(), b.rec_bin.cpu().numpy()
+    leaf = np.zeros(len(bins), np.int64)
+    out = []
+    for k in np.flatnonzero(ra):
+        col, in_leaf = bins[:, rf[k]], leaf == rl[k]
+        if ab[k] != bb[k]:
+            lo, hi = sorted((ab[k], bb[k]))
+            out.append(int((in_leaf & w & (col > lo) & (col <= hi)).sum()))
+        leaf[in_leaf & (col > ab[k])] = k + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3, 4])
+def test_partitioned_grower_matches_the_masked_on_the_card(cuda_device, seed):
+    from mmlspark_tpu_torch.models.gbdt.treegrow import (
+        SplitParams,
+        grow_tree,
+        grow_tree_partitioned,
+    )
+
+    rng = np.random.default_rng(seed)
+    n, d = 50_000, 10
+    args = [torch.from_numpy(a).to(cuda_device) for a in (
+        rng.integers(0, 200, size=(n, d)).astype(np.uint8),
+        rng.normal(size=n).astype(np.float32),
+        (np.abs(rng.normal(size=n)) + 0.1).astype(np.float32),
+        (rng.random(n) > 0.1).astype(np.float32))]
+    sp = SplitParams.make(cuda_device, lambda_l2=1.0, lambda_l1=0.0, min_sum_hessian=1e-3,
+                          min_gain=0.0, learning_rate=0.1)
+    kw = dict(num_leaves=31, sp=sp, feature_mask=torch.ones(d, device=cuda_device),
+              min_data_in_leaf=20, num_bins=256)
+    a, b = grow_tree(*args, **kw), grow_tree_partitioned(*args, **kw)
+    # The records are not all equal. The growers derive different children
+    # by subtraction, and a derived plane carries f32 residues in bins its
+    # leaf holds no weighted row of, so a threshold may move across such
+    # bins (a tie in exact arithmetic; rows of weight 0 there then land
+    # elsewhere). Every differing threshold must be such a tie, and the
+    # weighted rows' leaves equal.
+    assert all(between == 0 for between in _threshold_ties(args[0], args[3], a, b))
+    weighted = args[3] > 0
+    assert torch.equal(a.row_leaf[weighted], b.row_leaf[weighted])
+    assert torch.equal(a.leaf_counts, b.leaf_counts)
+    assert torch.equal(a.rec_leaf, b.rec_leaf) and torch.equal(a.rec_feature, b.rec_feature)
+    assert torch.equal(a.rec_active, b.rec_active)
+    assert torch.allclose(a.leaf_values, b.leaf_values, atol=1e-5)
+    assert torch.allclose(a.rec_gain, b.rec_gain, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_device_round_key_on_the_card(cuda_device):
+    from mmlspark_tpu_torch.models.gbdt import sampling
+
+    its = torch.arange(1001, dtype=torch.int64, device=cuda_device)
+    for seed in (0, 7):
+        for stream in (sampling.BAGGING_STREAM, sampling.GOSS_STREAM):
+            k1, k2 = sampling.round_key(seed, its, stream)
+            want = np.array([sampling.round_key(seed, i, stream) for i in range(1001)])
+            assert np.array_equal(k1.cpu().numpy(), want[:, 0])
+            assert np.array_equal(k2.cpu().numpy(), want[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ResNet18", "ResNet50"])
+def test_seeded_init_on_the_card_equals_the_cpu(cuda_device, variant):
+    from mmlspark_tpu_torch.models import resnet as TR
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        else:
+            yield path, np.asarray(tree)
+
+    cpu = dict(leaves(TR.init_flax_variables(TR.RESNETS[variant](), seed=4)))
+    card = dict(leaves(TR.init_flax_variables(TR.RESNETS[variant](), seed=4,
+                                              device=cuda_device)))
+    assert list(cpu) == list(card)
+    for k, a in cpu.items():
+        b = card[k]
+        ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+        assert int(ulp.max()) <= 4, k
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A round that syncs cannot be captured: the fit raises, it does not
+    fall back to running the round eagerly."""
+    from mmlspark_tpu_torch.models.gbdt import objectives as O
+
+    real = O.binary_grad_hess
+
+    def syncing(s, y):
+        float(s.sum())          # a host read: illegal while capturing
+        return real(s, y)
+
+    monkeypatch.setattr(O, "binary_grad_hess", syncing)
+    x, y, kw, _ = _fused_case("gbdt")
+    with pytest.raises(RuntimeError):
+        train(x, y, TrainConfig(**kw), device=cuda_device)
+    torch.cuda.synchronize()   # (last in the file: a failed capture may leave state behind)

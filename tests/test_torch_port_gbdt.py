@@ -259,7 +259,7 @@ def _init_booster(x, y):
 def _csr_input(x, y):
     from scipy.sparse import csr_matrix
 
-    return _fit_with(csr_matrix(x), y)
+    return _fit_with(csr_matrix(x), y, dict(categorical_features=(0,)))
 
 
 def _estimator_num_batches(x, y):
@@ -277,7 +277,7 @@ def _categorical_csr(x, y):
 
 @pytest.mark.parametrize("run,exc,match", [
     (lambda x, y: _fit_with(x, y, dict(delegate=object())), TypeError, "LightGBMDelegate"),
-    (_csr_input, NotImplementedError, "CSR"),
+    (_csr_input, ValueError, "dense"),
     (lambda x, y: _fit_with(x, y, init_booster=_init_booster(x, y)), ValueError, "class count"),
     (_estimator_num_batches, ValueError, "num_batches"),
     (_categorical_csr, ValueError, "dense"),
@@ -285,27 +285,26 @@ def _categorical_csr(x, y):
      "voting"),
 ], ids=["delegate", "csr_input", "init_booster", "num_batches", "categorical", "voting"])
 def test_unported_options_raise(run, exc, match):
-    """What the port refuses raises, naming why: CSR input and
-    voting-parallel are not ported; the ported options refuse what the JAX
-    package cannot do either (a delegate without the hooks, continuing a
-    booster of another class count, checkpoints across ``num_batches``,
-    categorical columns of sparse input)."""
+    """What the port refuses raises, naming why: voting-parallel is not
+    ported; the ported options refuse what the JAX package cannot do either
+    (a delegate without the hooks, continuing a booster of another class
+    count, checkpoints across ``num_batches``, categorical columns of
+    sparse input, to ``BinMapper`` and to ``train``)."""
     x, y = load_xy("iris")
     with pytest.raises(exc, match=match):
         run(x, (y > 0).astype(float))
 
 
 def test_unported_estimator_params_raise():
-    """Every estimator param of the JAX package is ported (but its scan
-    fusion's chunk size: the port has no scan fusion); malformed values of
-    the new ones raise at ``fit``."""
+    """Every estimator param of the JAX package is ported (``fused_rounds``
+    too); malformed values of the new ones raise at ``fit``."""
     from mmlspark_tpu.models.gbdt import estimators as J
     from mmlspark_tpu_torch.models.gbdt import estimators as P
 
     for name in ("LightGBMClassifier", "LightGBMRegressor", "LightGBMRanker"):
         def params(cls):
             return {n for n in dir(cls) if type(getattr(cls, n)).__name__.endswith("Param")}
-        assert params(getattr(J, name)) - params(getattr(P, name)) == {"fused_rounds"}
+        assert params(getattr(J, name)) - params(getattr(P, name)) == set()
     x, y = load_xy("iris")
     df = DataFrame.from_dict({"features": x, "label": y})
     with pytest.raises(ValueError, match="num_batches"):

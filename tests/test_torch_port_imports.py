@@ -28,6 +28,9 @@ def test_import_with_jax_blocked(tmp_path):
         "import mmlspark_tpu_torch.models.gbdt.sampling, mmlspark_tpu_torch.models.gbdt.evaluation\n"
         "import mmlspark_tpu_torch.models.gbdt.lgbm_format, mmlspark_tpu_torch.models.gbdt.treeshap\n"
         "import mmlspark_tpu_torch.models.gbdt.checkpoint, mmlspark_tpu_torch.models.gbdt.delegate\n"
+        "import mmlspark_tpu_torch.models.gbdt.sketch, mmlspark_tpu_torch.models.gbdt.binning\n"
+        "from mmlspark_tpu_torch.models.gbdt import (BinnedDataset, QuantileSketch,\n"
+        "    TrainCheckpoint, load_checkpoint, save_checkpoint)\n"
         "import mmlspark_tpu_torch.ops.histogram, mmlspark_tpu_torch.ops.cuda_build\n"
         "import mmlspark_tpu_torch.models.image_featurizer, mmlspark_tpu_torch.image\n"
         "import mmlspark_tpu_torch.downloader, mmlspark_tpu_torch.downloader.flax_msgpack\n"
@@ -46,6 +49,16 @@ def test_import_with_jax_blocked(tmp_path):
     r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_gbdt_exports_every_name_of_the_jax_package():
+    """Every name in ``mmlspark_tpu.models.gbdt.__all__`` is in the port's
+    ``__all__`` and importable from it (no exceptions left)."""
+    import mmlspark_tpu.models.gbdt as J
+    import mmlspark_tpu_torch.models.gbdt as P
+
+    missing = [n for n in J.__all__ if n not in P.__all__ or not hasattr(P, n)]
+    assert missing == []
 
 
 def _imports(path: Path) -> list:
