@@ -40,7 +40,7 @@ categorical columns, their JSON and LightGBM-text round trips scored
 bitwise equal on the card, a categorical card-vs-CPU fit, continued
 training (``model_string``, ``num_batches``), a checkpointed GOSS and a
 bagged fit stopped at round 12 and resumed byte for byte, exact and
-approximate SHAP on 2,000 rows, and the card's Threefry draws against the
+approximate SHAP on 1,000 rows, and the card's Threefry draws against the
 CPU's bit for bit. Last, image featurization (no kernel of its own: its
 convolutions, resize and normalisation are PyTorch ops): a ResNet-50 at
 224 on the card in f32 (TF32 off) and bf16 against the port's CPU f32;
@@ -1188,11 +1188,14 @@ def checkpointed(x, y, x_test, y_test) -> dict:
     return out
 
 
+SHAP_ROWS = 1000   # host TreeSHAP (~50 ms a row); cut from 2,000 to keep the script near 500 s
+
+
 def shap(model, x_test) -> dict:
-    """Exact TreeSHAP and the approximate (Saabas) walk on 2,000 held-out
+    """Exact TreeSHAP and the approximate (Saabas) walk on 1,000 held-out
     rows of the categorical model: rows sum to ``predict_raw`` within 1e-4."""
     b = model.booster
-    rows = x_test[:2000]
+    rows = x_test[:SHAP_ROWS]
     raw = b.predict_raw(rows, device=DEV).astype(np.float64)
     rec = {"rows": len(rows), "trees": len(b.trees)}
     for name, approximate in (("exact", False), ("approximate", True)):
@@ -1446,18 +1449,359 @@ def bench_cell(repo: str, smi: str) -> dict:
     return rec
 
 
-def featurizer(smi: str) -> dict:
+def featurizer(smi: str, repo: str) -> dict:
     """The image featurization path: card vs CPU at full width, the trained
-    checkpoints, the bench cell. The zoo lives under build/ and is removed
-    after."""
-    repo = os.path.join(ROOT, "build", "chip_smoke_zoo")
-    shutil.rmtree(repo, ignore_errors=True)
+    checkpoints, the bench cell, with the zoo at ``repo``."""
     t0 = time.perf_counter()
     rec = {"seeded_init": seeded_init(), "card_vs_cpu": resnet50_card_vs_cpu(),
            "checkpoints": trained_checkpoints(repo),
            "bench": bench_cell(repo, smi)}
-    shutil.rmtree(repo, ignore_errors=True)
     phase("featurizer", part="total", seconds=time.perf_counter() - t0)
+    return rec
+
+
+# -- the pipeline compiler (fused segments as CUDA graphs) ----------------------
+
+PIPE_ROWS, PIPE_PARTS, PIPE_REPS = 16_384, 4, 7   # bench.py's pipeline cell (:1026-1095)
+P1B_SIZES = (0, 1, 2, 3, 5, 9, 17, 33, 65, 130, 400)
+P1B_CHUNKS = (100, 37, 200, 3, 160)
+PIPE_REF_ROWS, PIPE_REF_REL = 512, 1e-5   # card fused vs CPU staged: logits within 1e-5 max|.|
+
+
+def tanh_half(x: torch.Tensor) -> torch.Tensor:
+    """The cell's UDF: tanh(0.5 x), a function of tensors."""
+    return torch.tanh(x * 0.5)
+
+
+def _metric(name: str) -> float:
+    """The sum over its labels of one counter of the port's registry."""
+    from mmlspark_tpu_torch import obs
+
+    return sum(float(v) for v in re.findall(name + r"\{[^}]*\} (\S+)", obs.render()))
+
+
+def _fallbacks() -> int:
+    return int(_metric("mmlspark_compiler_fallback_total"))
+
+
+def _exact(a, b) -> bool:
+    return a.columns == b.columns and all(
+        a[c].dtype == b[c].dtype and np.array_equal(a[c], b[c], equal_nan=True)
+        for c in a.columns)
+
+
+def _p50(fn, df, col: str, reps: int = PIPE_REPS) -> "tuple[float, object]":
+    """Median wall seconds of ``fn(df)`` over ``reps`` runs (each reading
+    ``col``, which is on the host) and the last output."""
+    lat, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn(df)
+        out[col]
+        lat.append(time.perf_counter() - t0)
+    return sorted(lat)[len(lat) // 2], out
+
+
+def _frame(cols: dict, lo: int, hi: int):
+    return DataFrame.from_dict({c: v[lo:hi] for c, v in cols.items()})
+
+
+def _graph_counts(comp) -> list:
+    return [len(s._graphs) for s in comp.fused_segments]
+
+
+def _on_cpu(model):
+    """The same fitted stages, run on the CPU (the small-input reference)."""
+    from mmlspark_tpu_torch import PipelineModel
+
+    return PipelineModel(stages=[s.copy({"device": "cpu"}) if "device" in type(s).params()
+                                 else s for s in model.get("stages")])
+
+
+def _head_cost() -> dict:
+    """The row-independent logistic head (pairwise-order sum of the
+    feature products, row-wise softmax) against ``x @ W + b`` with
+    ``torch.softmax``/``argmax``, at the cell's 32 features x 4 classes:
+    milliseconds per call from CUDA events over 200 calls."""
+    from mmlspark_tpu_torch.models.linear import logistic_head
+
+    def plain(x, W, b):
+        logits = x @ W + b
+        return logits, torch.softmax(logits, 1), torch.argmax(logits, 1)
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    W = torch.randn((32, 4), device=DEV, generator=g)
+    b = torch.randn((4,), device=DEV, generator=g)
+    out = {}
+    for n in (1024, 4096):
+        x = torch.randn((n, 32), device=DEV, generator=g)
+        for name, fn in (("fixed_order", logistic_head), ("matmul", plain)):
+            with torch.inference_mode():
+                fn(x, W, b)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(200):
+                    fn(x, W, b)
+                end.record()
+                end.synchronize()
+            out[f"{name}_ms_n{n}"] = start.elapsed_time(end) / 200
+    return out
+
+
+def pipeline_p1() -> dict:
+    """P1, bench.py's pipeline cell at its accelerator size: 16,384 rows
+    from ``default_rng(7)`` (x0..x15 f64 N(0,1), vec (16,) f32, label in
+    0..3) in 4 partitions through Featurize -> UDFTransformer(tanh(0.5 x))
+    -> LogisticRegression(max_iter=30) on the card; staged against
+    ``compile()`` (max_bucket 1024: each 4,096-row partition runs as 4
+    graph replays). Fails unless compiled == staged bit for bit, no
+    segment fell back, every bucket holds a captured graph, and the card's
+    output agrees with the CPU's staged transform on 512 rows."""
+    from mmlspark_tpu_torch import Pipeline, obs
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.stages import UDFTransformer
+
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("cudnn.benchmark is on: staged and fused could pick different "
+                             "algorithms")
+    obs.reset()
+    rng = np.random.default_rng(7)
+    cols = {f"x{i}": rng.standard_normal(PIPE_ROWS) for i in range(16)}
+    cols["vec"] = rng.standard_normal((PIPE_ROWS, 16)).astype(np.float32)
+    cols["label"] = rng.integers(0, 4, PIPE_ROWS)
+    df = DataFrame.from_dict(cols, num_partitions=PIPE_PARTS)
+    t0 = time.perf_counter()
+    model = Pipeline([
+        Featurize(input_cols=[f"x{i}" for i in range(16)] + ["vec"], output_col="features"),
+        UDFTransformer(input_col="features", output_col="features_s", vector_udf=tanh_half,
+                       jit_compatible=True),
+        LogisticRegression(features_col="features_s", label_col="label", max_iter=30),
+    ]).fit(df)
+    fit_s = time.perf_counter() - t0
+    model.transform(df)  # staged warm-up
+    staged_s, staged = _p50(model.transform, df, "prediction")
+    comp = model.compile()
+    t0 = time.perf_counter()
+    fused = comp.transform(df)
+    fused["prediction"]
+    compile_s = time.perf_counter() - t0
+    fused_s, fused = _p50(comp.transform, df, "prediction")
+    seg = comp.fused_segments[0]
+    ref = _on_cpu(model).transform(_frame(cols, 0, PIPE_REF_ROWS))
+    lg, want = fused["raw_prediction"][:PIPE_REF_ROWS], ref["raw_prediction"]
+    tol = PIPE_REF_REL * float(np.abs(want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    pred_off = (fused["prediction"][:PIPE_REF_ROWS] != ref["prediction"]) & (
+        top2[:, 1] - top2[:, 0] > 2 * tol)
+    rec = {
+        "part": "P1", "rows": PIPE_ROWS, "partitions": PIPE_PARTS, "max_bucket": 1024,
+        "fit_s": fit_s,
+        "staged_p50_ms": staged_s * 1e3, "fused_p50_ms": fused_s * 1e3,
+        "staged_rows_per_s": PIPE_ROWS / staged_s, "fused_rows_per_s": PIPE_ROWS / fused_s,
+        "fused_over_staged": staged_s / fused_s, "compile_s": compile_s,
+        "pipeline_stages_fused": comp.num_fused_stages,
+        "pipeline_segments": len(comp.segments), "graphs_per_segment": _graph_counts(comp),
+        "graph_replays": int(_metric("mmlspark_compiler_graph_replays_total")),
+        "fallbacks": _fallbacks(), "exact_equal": _exact(staged, fused),
+        "cpu_ref_rows": PIPE_REF_ROWS,
+        "cpu_ref_max_logit_diff": float(np.abs(lg - want).max()), "cpu_ref_tol": tol,
+        "cpu_ref_prediction_off": int(pred_off.sum()),
+        "head": _head_cost(),
+    }
+    phase("pipeline", **rec)
+    if not rec["exact_equal"]:
+        raise AssertionError("P1: compiled transform differs from the staged one")
+    if rec["fallbacks"] or rec["pipeline_stages_fused"] != 3 or rec["pipeline_segments"] != 1:
+        raise AssertionError(f"P1: expected one fused segment of 3 stages, no fallback: {rec}")
+    if seg.device != DEV and DEV.type == "cuda" or len(seg._graphs) > 11 or (
+            DEV.type == "cuda" and any(g is None for g in seg._graphs.values())):
+        raise AssertionError(f"P1: graphs {seg._graphs}")
+    if rec["cpu_ref_max_logit_diff"] > tol or rec["cpu_ref_prediction_off"]:
+        raise AssertionError(f"P1: the card's output is off the CPU's: {rec}")
+    if not np.isfinite(fused["probability"]).all() or fused["prediction"].max() > 3:
+        raise AssertionError("P1: malformed output")
+    return {"cols": cols, "model": model, **rec}
+
+
+def pipeline_p1b(cols: dict, model) -> dict:
+    """P1b: the cell's model compiled with max_bucket=64, scored at batch
+    sizes 0, 1, 2, 3, 5, 9, 17, 33, 65, 130 and 400 and in chunks of 100,
+    37, 200, 3 and 160 rows against the whole 500-row frame: every output
+    bit for bit the staged one, at most log2(64)+1 = 7 graphs."""
+    comp = model.compile(max_bucket=64)
+    sizes = {}
+    for n in P1B_SIZES:
+        sizes[n] = _exact(model.transform(_frame(cols, 0, n)), comp.transform(_frame(cols, 0, n)))
+    whole = model.transform(_frame(cols, 0, sum(P1B_CHUNKS)))
+    outs, off = [], 0
+    for size in P1B_CHUNKS:
+        outs.append(comp.transform(_frame(cols, off, off + size)))
+        off += size
+    chunked = all(np.array_equal(np.concatenate([o[c] for o in outs]), whole[c])
+                  and outs[0][c].dtype == whole[c].dtype for c in whole.columns)
+    rec = {"part": "P1b", "max_bucket": 64, "sizes_exact": sizes, "chunks": P1B_CHUNKS,
+           "chunked_exact": chunked, "graphs_per_segment": _graph_counts(comp),
+           "graph_bound": 7, "fallbacks": _fallbacks()}
+    rec["exact_equal"] = all(sizes.values()) and chunked
+    phase("pipeline", **rec)
+    if not rec["exact_equal"] or max(rec["graphs_per_segment"]) > 7:
+        raise AssertionError(f"P1b failed: {rec}")
+    return rec
+
+
+def _predict_raw_f64(self, x, num_iteration=None, device=None):
+    """``Booster.predict_raw`` with the tree sum taken in f64 and rounded
+    once (the port's earlier order, not the JAX package's): timed against
+    numpy's pairwise f32 order."""
+    n, k = x.shape[0], self.num_class
+    base = np.asarray(self.base_score, np.float32)
+    per_tree = self._per_tree(x, num_iteration, device)
+    T = per_tree.shape[1]
+    denom = (T // k) if self.boosting_type == "rf" else 1
+    raw = (per_tree.double().view(n, T // k, k).sum(1) / denom).float().cpu().numpy()
+    return (raw[:, 0] if k == 1 else raw) + base
+
+
+def pipeline_p2(x, y, x_test, y_test) -> dict:
+    """P2: the trees/s cell's data (200,000 x 64, seed 3) as 64 columns
+    through Featurize -> LightGBMClassifier(20 rounds, 63 leaves): the fit
+    runs plane_hist (B2), counted by its wrapper (launch counts set to 0
+    just before the fit, read just after) and on the device by a
+    torch.profiler trace; the staged and compiled transforms of the 50,000
+    held-out rows must be bitwise equal and the AUC the plain estimator's.
+    Also times GBDT ``transform`` with numpy's pairwise tree sum against
+    the f64 sum, alternating, and counts the raw scores the two orders
+    round differently."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch import Pipeline, obs
+    from mmlspark_tpu_torch.featurize import Featurize
+
+    obs.reset()
+    names = [f"f{j}" for j in range(D)]
+    train_df = DataFrame.from_dict({**{c: x[:, j] for j, c in enumerate(names)}, "label": y})
+    test_cols = {c: x_test[:, j] for j, c in enumerate(names)}
+    test_df = DataFrame.from_dict(test_cols)
+    kw = dict(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0, device=DEV.type)
+    torch.cuda.synchronize()
+    H.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = Pipeline([Featurize(input_cols=names, output_col="features"),
+                          LightGBMClassifier(**kw)]).fit(train_df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches, traced = dict(H.launches), traced_launches(prof)
+    plain = LightGBMClassifier(**kw).fit(DataFrame.from_dict({"features": x, "label": y}))
+    model.transform(test_df)
+    staged_s, staged = _p50(model.transform, test_df, "prediction", reps=5)
+    comp = model.compile()
+    t0 = time.perf_counter()
+    fused = comp.transform(test_df)
+    compile_s = time.perf_counter() - t0
+    fused_s, fused = _p50(comp.transform, test_df, "prediction", reps=5)
+    auc = binary_auc(y_test, fused["probability"][:, 1])
+    auc_plain = binary_auc(y_test, plain.transform(
+        DataFrame.from_dict({"features": x_test}))["probability"][:, 1])
+
+    booster, feats = plain.booster, DataFrame.from_dict({"features": x_test})
+    order = {"pairwise": [], "f64": []}
+    new_raw = booster.predict_raw(x_test)
+    old_raw = _predict_raw_f64(booster, x_test)
+    real = Booster.predict_raw
+    try:
+        for _ in range(5):
+            for name, fn in (("pairwise", real), ("f64", _predict_raw_f64)):
+                Booster.predict_raw = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain.transform(feats)["prediction"]
+                order[name].append(time.perf_counter() - t0)
+    finally:
+        Booster.predict_raw = real
+    rec = {
+        "part": "P2", "rows": len(y), "test_rows": len(y_test), "columns": D, "trees": 20,
+        "fit_s": fit_s, "launches": launches, "traced_launches": traced,
+        "staged_p50_ms": staged_s * 1e3, "fused_p50_ms": fused_s * 1e3,
+        "staged_rows_per_s": len(y_test) / staged_s, "fused_rows_per_s": len(y_test) / fused_s,
+        "compile_s": compile_s, "pipeline_stages_fused": comp.num_fused_stages,
+        "pipeline_segments": len(comp.segments), "graphs_per_segment": _graph_counts(comp),
+        "fallbacks": _fallbacks(), "exact_equal": _exact(staged, fused),
+        "auc": auc, "auc_plain_estimator": auc_plain,
+        "gbdt_transform_ms": {k: sorted(v)[len(v) // 2] * 1e3 for k, v in order.items()},
+        "raw_rows_differing_f64_vs_pairwise": int((new_raw != old_raw).sum()),
+    }
+    phase("pipeline", **rec)
+    if launches["plane_hist"] == 0 or traced["plane_hist"] < launches["plane_hist"]:
+        raise AssertionError(f"P2: the fit did not run plane_hist: {launches} {traced}")
+    if not rec["exact_equal"] or rec["fallbacks"] or rec["pipeline_stages_fused"] != 2:
+        raise AssertionError(f"P2 failed: {rec}")
+    if auc != auc_plain or auc < 0.90:
+        raise AssertionError(f"P2: AUC {auc} != the plain estimator's {auc_plain}")
+    return rec
+
+
+def pipeline_p3(repo: str) -> dict:
+    """P3: the featurizer cell (2,048 uint8 224x224x3 images, ResNet50,
+    batch 256, pool features) through ImageFeaturizer -> LogisticRegression
+    (4 random classes, 30 GD steps). ``compile()`` plans the featurizer as
+    a host stage and equals staged bit for bit; ``compile(exact=False)``
+    fuses the backbone into the segment's CUDA graphs (two 1,024-image
+    replays) and its features are within FEAT_BF16_L2 of staged."""
+    from mmlspark_tpu_torch import Pipeline
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 255, size=(FEAT_ROWS, FEAT_SIZE, FEAT_SIZE, 3), dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs, "label": rng.integers(0, 4, FEAT_ROWS)})
+    model = Pipeline([
+        ImageFeaturizer(input_col="image", output_col="features", batch_size=FEAT_BATCH,
+                        model_name="ResNet50", cut_output_layers=1, image_size=FEAT_SIZE,
+                        repo_dir=repo),
+        LogisticRegression(features_col="features", label_col="label", max_iter=30),
+    ]).fit(df)
+    staged_s, staged = _p50(model.transform, df, "prediction", reps=3)
+    exact = model.compile()
+    exact.transform(df)
+    exact_s, exact_out = _p50(exact.transform, df, "prediction", reps=3)
+    loose = model.compile(exact=False)
+    t0 = time.perf_counter()
+    loose.transform(df)
+    compile_s = time.perf_counter() - t0
+    loose_s, loose_out = _p50(loose.transform, df, "prediction", reps=3)
+    rec = {
+        "part": "P3", "images": FEAT_ROWS, "model": "ResNet50", "batch": FEAT_BATCH,
+        "staged_images_per_s": FEAT_ROWS / staged_s,
+        "exact_images_per_s": FEAT_ROWS / exact_s,
+        "fused_images_per_s": FEAT_ROWS / loose_s, "fused_compile_s": compile_s,
+        "exact_segments": [type(s).__name__ for s in exact.segments],
+        "fused_stages": loose.num_fused_stages, "graphs_per_segment": _graph_counts(loose),
+        "exact_equal": _exact(staged, exact_out),
+        "fused_features_rel_l2": _rel_l2(loose_out["features"], staged["features"]),
+        "fused_prediction_agreement": float(
+            (loose_out["prediction"] == staged["prediction"]).mean()),
+        "tol": FEAT_BF16_L2, "fallbacks": _fallbacks(),
+    }
+    phase("pipeline", **rec)
+    if not rec["exact_equal"] or rec["exact_segments"] != ["HostSegment", "FusedSegment"]:
+        raise AssertionError(f"P3 exact mode failed: {rec}")
+    if rec["fused_stages"] != 2 or rec["fused_features_rel_l2"] > FEAT_BF16_L2:
+        raise AssertionError(f"P3 exact=False failed: {rec}")
+    if rec["fallbacks"] or not np.isfinite(loose_out["features"]).all():
+        raise AssertionError(f"P3: fallbacks or non-finite features: {rec}")
+    return rec
+
+
+def pipeline(x, y, x_test, y_test, repo: str) -> dict:
+    """The pipeline compiler's phase: P1, P1b, P2, P3."""
+    t0 = time.perf_counter()
+    p1 = pipeline_p1()
+    rec = {"P1": {k: v for k, v in p1.items() if k not in ("cols", "model")},
+           "P1b": pipeline_p1b(p1["cols"], p1["model"]),
+           "P2": pipeline_p2(x, y, x_test, y_test), "P3": pipeline_p3(repo)}
+    phase("pipeline", part="total", seconds=time.perf_counter() - t0)
     return rec
 
 
@@ -1524,7 +1868,12 @@ def main() -> None:
     checkpointed(x, y, x_test, y_test)
     shap(cat_model, xc_test)
     draws()
-    featurizer(smi)
+    # the zoo lives under build/ and is removed after
+    repo = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    shutil.rmtree(repo, ignore_errors=True)
+    featurizer(smi, repo)
+    pipeline(x, y, x_test, y_test, repo)
+    shutil.rmtree(repo, ignore_errors=True)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -130,10 +130,14 @@ class PipelineModel(Model):
         return df
 
     def compile(self, **options: Any) -> Any:
-        """The pipeline compiler (stage fusion) is not ported yet: see
-        ROADMAP.md, Queue A item 6 (``compiler/``)."""
-        raise NotImplementedError(
-            "PipelineModel.compile is not ported to mmlspark_tpu_torch yet "
-            "(ROADMAP.md Queue A item 6: compiler/); use transform()"
-        )
+        """Compile this fitted pipeline into a
+        :class:`~mmlspark_tpu_torch.compiler.CompiledPipeline` — a drop-in
+        Transformer that runs adjacent fusable stages as one program (one
+        CUDA graph per bucket on the card) and schedules independent
+        branches by critical path, with output element-wise equal to
+        staged execution. ``options`` forward to CompiledPipeline params
+        (``exact``, ``max_bucket``, ``partition_mode``,
+        ``parallel_hosts``, ``device``)."""
+        from mmlspark_tpu_torch.compiler import CompiledPipeline
 
+        return CompiledPipeline(stages=list(self.get("stages")), **options)

@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.compiler.kernels import pairwise_sum
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.gbdt import treegrow
 from mmlspark_tpu_torch.ops.histogram import NUM_BINS
@@ -255,15 +256,35 @@ class Booster:
         k = self.num_class
         base = np.asarray(self.base_score, np.float32)
         per_tree = self._per_tree(x, num_iteration, device)
-        T = per_tree.shape[1]
-        if T == 0:
+        if per_tree.shape[1] == 0:
             return np.broadcast_to(base, (n,) if k == 1 else (n, k)).astype(np.float32).copy()
-        # rf averages the forest; boosting sums it. The tree sum is taken in
-        # f64 and rounded once.
-        denom = (T // k) if self.boosting_type == "rf" else 1
-        per = per_tree.double().view(n, T // k, k).sum(1) / denom
-        raw = per.float().cpu().numpy()
-        return (raw[:, 0] if k == 1 else raw) + base
+        return self.raw_scores(per_tree).cpu().numpy()
+
+    def raw_scores(self, per_tree: torch.Tensor) -> torch.Tensor:
+        """(n, T) per-tree outputs -> raw scores on their device, (n,) or
+        (n, k): the JAX package's host ``predict_raw`` bit for bit. Each
+        class sums its columns ``c::k`` in numpy's pairwise f32 order (one
+        add per tree), rf divides the forest by its tree count, then
+        ``base_score`` is added, all in f32. The divisor is a device
+        tensor: the card divides by a Python scalar as a multiply by its
+        reciprocal. Capturable into a CUDA graph once called eagerly on
+        the device (the constants are placed then)."""
+        k = self.num_class
+        T = per_tree.shape[1]
+        key = ("consts", str(per_tree.device), T)
+        consts = self._stacked.get(key)
+        if consts is None:
+            dev = per_tree.device
+            denom = (torch.tensor(float(T // k), dtype=torch.float32, device=dev)
+                     if self.boosting_type == "rf" else None)
+            base = torch.from_numpy(np.asarray(self.base_score, np.float32)).to(dev)
+            consts = self._stacked[key] = (denom, base)
+        denom, base = consts
+        sums = [pairwise_sum(per_tree[:, c::k]) for c in range(k)]
+        if denom is not None:  # rf averages the forest; boosting sums it
+            sums = [s / denom for s in sums]
+        raw = sums[0] if k == 1 else torch.stack(sums, 1)
+        return raw + base
 
     def predict(self, x: Any, num_iteration: Optional[int] = None,
                 device: "str | torch.device | None" = None) -> np.ndarray:

@@ -13,8 +13,12 @@ and delegates included. Every model reads and writes LightGBM's own text
 format (``save_native_model``, ``load_native_model_from_string`` /
 ``_file``) and explains itself (``features_shap``, ``predict_leaf``,
 ``get_feature_importances``). ``parallelism="voting_parallel"`` raises
-``NotImplementedError`` (ROADMAP.md, Queue A item 3), and the
-pipeline-compiler hook ``fusable_kernel`` is not ported (Queue A item 6).
+``NotImplementedError`` (ROADMAP.md, Queue A item 3). The classification
+and regression models are fusable by the pipeline compiler
+(``fusable_kernel``): the tree traversal, the leaf-value gather and the
+numpy-order tree sum run in the fused segment on the device, and the
+staged path's numpy epilogue (sigmoid/softmax/argmax, ``exp`` of the
+log-link objectives, the float64 casts) runs on the host as ``finalize``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from mmlspark_tpu_torch.core.dataframe import DataFrame, Partition
 from mmlspark_tpu_torch.core.params import (
@@ -39,7 +44,7 @@ from mmlspark_tpu_torch.core.params import (
     Params,
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
-from mmlspark_tpu_torch.models.gbdt import objectives
+from mmlspark_tpu_torch.models.gbdt import objectives, treegrow
 from mmlspark_tpu_torch.models.gbdt.booster import Booster
 from mmlspark_tpu_torch.models.gbdt.train import TrainConfig, train
 
@@ -334,28 +339,85 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
         return m
 
 
+def _booster_raw_device_fn(booster: Booster, features_col: str, raw_key: str) -> Any:
+    """``cols -> {raw_key: predict_raw(x)}`` on the segment's device,
+    bit-matching :meth:`Booster.predict_raw` for the pipeline compiler: the
+    same traversal (``treegrow.predict_scores``: integer leaf indices and a
+    gather, exact under any batch shape) and the same numpy-order tree sum
+    (:meth:`Booster.raw_scores`, elementwise adds), so each row's score is
+    the staged one at any bucket. Returns None for an empty booster (the
+    staged path covers the broadcast-base case)."""
+    n_trees = len(booster._trees(None))
+    if not n_trees:
+        return None
+
+    def fn(cols: dict) -> dict:
+        x = cols[features_col].to(torch.float32)
+        leaf, feat, thr, active, values, dleft, is_cat, catmask = booster._device_trees(
+            n_trees, x.device)
+        per_tree = treegrow.predict_scores(x, leaf, feat, thr, active, values, dleft,
+                                           is_cat, catmask)
+        return {raw_key: booster.raw_scores(per_tree)}
+
+    return fn
+
+
+def _classifier_outputs(booster: Booster, raw: np.ndarray) -> tuple:
+    """The staged classifier's host epilogue: (raw, probabilities,
+    prediction) as float64 from the f32 raw scores."""
+    if booster.num_class == 1:
+        probs1 = objectives.sigmoid(booster.sigmoid * raw)
+        probs = np.stack([1 - probs1, probs1], axis=1)
+        raw2 = np.stack([-raw, raw], axis=1)
+    else:
+        probs = objectives.softmax(raw)
+        raw2 = raw
+    return (raw2.astype(np.float64), probs.astype(np.float64),
+            probs.argmax(axis=1).astype(np.float64))
+
+
 class LightGBMClassificationModel(
     _BoosterModel, HasPredictionCol, HasProbabilityCol, HasRawPredictionCol
 ):
     def transform(self, df: DataFrame) -> DataFrame:
         booster = self.booster
+        cols = (self.get("raw_prediction_col"), self.get("probability_col"),
+                self.get("prediction_col"))
 
         def fn(p: Partition) -> Partition:
-            raw = self._raw(p)
             q = dict(p)
-            if booster.num_class == 1:
-                probs1 = objectives.sigmoid(booster.sigmoid * raw)
-                probs = np.stack([1 - probs1, probs1], axis=1)
-                raw2 = np.stack([-raw, raw], axis=1)
-            else:
-                probs = objectives.softmax(raw)
-                raw2 = raw
-            q[self.get("raw_prediction_col")] = raw2.astype(np.float64)
-            q[self.get("probability_col")] = probs.astype(np.float64)
-            q[self.get("prediction_col")] = probs.argmax(axis=1).astype(np.float64)
+            q.update(zip(cols, _classifier_outputs(booster, self._raw(p))))
             return q
 
         return df.map_partitions(fn, parallel=False)
+
+    def fusable_kernel(self) -> Any:
+        """Device traversal + gather + numpy-order summed scores in the
+        fused segment; the sigmoid/softmax/argmax/float64 epilogue replays
+        the staged numpy code as a host ``finalize``."""
+        from mmlspark_tpu_torch.compiler.kernels import StageKernel, guard_f32_safe
+
+        booster = self.booster
+        writes = (self.get("raw_prediction_col"), self.get("probability_col"),
+                  self.get("prediction_col"))
+        raw_key = f"__device_raw__{writes[0]}"
+        fn = _booster_raw_device_fn(booster, self.get("features_col"), raw_key)
+        if fn is None:
+            return None
+
+        def finalize(host: dict) -> dict:
+            return dict(zip(writes, _classifier_outputs(booster, host[raw_key])))
+
+        return StageKernel(
+            reads=(self.get("features_col"),),
+            writes=writes,
+            fn=fn,
+            guard=guard_f32_safe,
+            finalize=finalize,
+            device_writes=(raw_key,),
+            cost_hint=1.0 + len(booster.trees) / 100.0,
+            device=self.get("device"),
+        )
 
 
 class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
@@ -401,6 +463,36 @@ class LightGBMRegressionModel(_BoosterModel, HasPredictionCol):
             lambda p: booster.predict(
                 np.asarray(p[fc], np.float32), device=self.get("device")
             ).astype(np.float64),
+        )
+
+    def fusable_kernel(self) -> Any:
+        """Like the classifier's kernel: scores on the device, the
+        objective's output transform (log-link ``np.exp``) and the float64
+        cast on the host."""
+        from mmlspark_tpu_torch.compiler.kernels import StageKernel, guard_f32_safe
+
+        booster = self.booster
+        pred_c = self.get("prediction_col")
+        raw_key = f"__device_raw__{pred_c}"
+        fn = _booster_raw_device_fn(booster, self.get("features_col"), raw_key)
+        if fn is None:
+            return None
+
+        def finalize(host: dict) -> dict:
+            raw = host[raw_key]
+            if booster.objective in objectives.LOG_LINK_KINDS:
+                raw = np.exp(raw)
+            return {pred_c: raw.astype(np.float64)}
+
+        return StageKernel(
+            reads=(self.get("features_col"),),
+            writes=(pred_c,),
+            fn=fn,
+            guard=guard_f32_safe,
+            finalize=finalize,
+            device_writes=(raw_key,),
+            cost_hint=1.0 + len(booster.trees) / 100.0,
+            device=self.get("device"),
         )
 
 

@@ -53,6 +53,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.compiler.kernels import pairwise_sum
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.models.gbdt import checkpoint as ckpt
 from mmlspark_tpu_torch.models.gbdt import evaluation, objectives, sampling
@@ -263,31 +264,6 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _pairwise_sum(cols: list) -> torch.Tensor:
-    """Sum of f32 columns in numpy's pairwise order (``np.sum`` over a
-    contiguous axis), so dart's dropped-tree contributions round as the
-    reference's host sum does."""
-    n = len(cols)
-    if n < 8:
-        res = torch.zeros_like(cols[0])
-        for c in cols:
-            res = res + c
-        return res
-    if n <= 128:
-        r = list(cols[:8])
-        i = 8
-        while i < n - n % 8:
-            r = [r[j] + cols[i + j] for j in range(8)]
-            i += 8
-        res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
-        for c in cols[i:]:
-            res = res + c
-        return res
-    half = n // 2
-    half -= half % 8
-    return _pairwise_sum(cols[:half]) + _pairwise_sum(cols[half:])
-
-
 class _DartTrees:
     """Dart's trees on the device: records, f32 thresholds and leaf values
     of every tree grown so far, so the dropped trees' contribution is a
@@ -353,7 +329,7 @@ class _DartTrees:
         )
         cols = list(per.unbind(1))
         if k == 1:
-            return _pairwise_sum(cols)
+            return pairwise_sum(cols)
         out = []
         for c in range(k):
             acc = torch.zeros_like(cols[0])
@@ -366,20 +342,14 @@ class _DartTrees:
         self.values[idx] = self.values[idx] * factor
 
 
-def _init_scores(booster: Booster, x: np.ndarray, k: int, dev: torch.device) -> torch.Tensor:
+def _init_scores(booster: Booster, x: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A continued fit's starting scores: every tree of ``booster`` (not
     its best-iteration prefix: ``merge`` keeps them all) replayed on the
     device and summed as the JAX package's ``predict_raw`` sums them
     (numpy's pairwise f32 order per class, / the rf tree count, +
     base_score), so both packages start from the same scores."""
-    T = len(booster.trees)
-    per = booster._per_tree(x, T // booster.num_class, dev)
-    denom = float(T // k) if booster.boosting_type == "rf" else 1.0
-    cols = list(per.unbind(1))
-    raw = torch.stack([_pairwise_sum(cols[c::k]) / denom for c in range(k)], 1)
-    base = torch.from_numpy(np.asarray(booster.base_score, np.float32)).to(dev)
-    raw = raw + base
-    return raw[:, 0] if k == 1 else raw
+    per = booster._per_tree(x, len(booster.trees) // booster.num_class, dev)
+    return booster.raw_scores(per)
 
 
 def _rank_pads(group_ids: np.ndarray, keep: Optional[np.ndarray],
@@ -557,7 +527,7 @@ def train(
             "continued training needs the same class count"
         )
     if continued:
-        scores = scores + _init_scores(init_booster, _densify(x), k, dev)
+        scores = scores + _init_scores(init_booster, _densify(x), dev)
     if k > 1:
         y_enc = torch.from_numpy(np.eye(k, dtype=np.float32)[y.astype(np.int64)]).to(dev)
     else:

@@ -11,7 +11,9 @@ fixed batches, with uint8 pixels on the wire and the cast on the card.
 ``cut_output_layers=k`` selects the k-th entry of the schema's
 ``layer_names`` (0 = logits, 1 = pooled features), and the backbone stops
 at that output (``ResNet.forward(until=...)``), so the head past it never
-runs. The backbone computes in bf16, as the JAX package's does.
+runs. The backbone computes in bf16, as the JAX package's does. The
+pipeline compiler fuses the stage only with ``compile(exact=False)``
+(``fusable_kernel``).
 """
 
 from __future__ import annotations
@@ -35,12 +37,6 @@ from mmlspark_tpu_torch.core.schema import image_row_to_array
 from mmlspark_tpu_torch.downloader.zoo import ModelDownloader
 from mmlspark_tpu_torch.models.torch_model import TorchModel
 from mmlspark_tpu_torch.ops import image as image_ops
-
-FUSION_TODO = (
-    "ImageFeaturizer.fusable_kernel needs the port's pipeline compiler "
-    "(ROADMAP Queue A item 6)"
-)
-
 
 class FeaturizerNet(nn.Module):
     """Raw pixels (N, H, W, C), 0..255, any dtype -> the named output of
@@ -193,7 +189,39 @@ class ImageFeaturizer(Model, HasInputCol, HasOutputCol, HasBatchSize):
         return not self.get("drop_na")
 
     def fusable_kernel(self) -> Any:
-        raise NotImplementedError(FUSION_TODO)
+        """Fusable for dense (N,H,W,C) pixel batches: the whole
+        preprocess+backbone module (the staged path's ``TorchModel``
+        runner) runs in the fused segment, captured into its CUDA graph,
+        with bf16 outputs widened to f32 as the staged path widens them.
+        Object columns (bytes/structs needing host decode) and unrolled
+        2-D layouts guard-fall back to the staged path.
+
+        ``exact_capable=False``: convolution algorithms are picked by batch
+        shape, so exact-mode compilation (the default) keeps this stage
+        host-bound; ``compile(exact=False)`` fuses the backbone into the
+        segment at allclose-level equality."""
+        from mmlspark_tpu_torch.compiler.kernels import StageKernel
+
+        ic = self.get_or_fail("input_col")
+        oc = self.get_or_fail("output_col")
+        inner = self._build()
+
+        def fn(cols: dict) -> dict:
+            x = cols[ic]
+            y = inner._select(inner._runner(x.device)(x))
+            return {oc: y.float() if y.dtype == torch.bfloat16 else y}
+
+        def guard(cols: dict) -> Any:
+            a = np.asarray(cols.get(ic))
+            if a.dtype == object:
+                return "object image column (host decode path)"
+            if a.ndim != 4:
+                return f"image column ndim={a.ndim} (unrolled host path)"
+            return None
+
+        return StageKernel(reads=(ic,), writes=(oc,), fn=fn, guard=guard,
+                           cost_hint=20.0, exact_capable=False,
+                           device=self.get("device"))
 
     def transform(self, df: DataFrame) -> DataFrame:
         ic = self.get_or_fail("input_col")

@@ -116,11 +116,21 @@ def normalize(
     std: Sequence[float] = (0.229, 0.224, 0.225),
     scale: float = 1.0 / 255.0,
 ) -> torch.Tensor:
-    """Standard model-input normalization (scale then per-channel z-score)."""
+    """Standard model-input normalization (scale then per-channel z-score).
+    The mean and std tensors are made once per device and kept, so a call
+    on the card can be captured into a CUDA graph (after one eager call)."""
     x = images.float() * scale
-    m = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    s = torch.tensor(std, dtype=torch.float32, device=images.device)
+    key = (tuple(map(float, mean)), tuple(map(float, std)), str(images.device))
+    consts = _NORM_CONSTS.get(key)
+    if consts is None:
+        consts = _NORM_CONSTS[key] = tuple(
+            torch.tensor(v, dtype=torch.float32, device=images.device) for v in key[:2])
+    m, s = consts
     return (x - m) / s
+
+
+# (mean, std, device) -> the two constant tensors of ``normalize``
+_NORM_CONSTS: dict = {}
 
 
 def decode_image(data: bytes) -> Optional[np.ndarray]:

@@ -271,8 +271,7 @@ def test_predict_leaves_equals_jax_on_unusual_categories(reference_device_grower
     port = Booster.from_model_string(ref.to_model_string())
     rows = np.concatenate([x[:50], _unusual_rows(x)])
     np.testing.assert_array_equal(port.predict_leaf(rows, device="cpu"), ref.predict_leaf(rows))
-    np.testing.assert_allclose(port.predict_raw(rows, device="cpu"), ref.predict_raw(rows),
-                               rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(port.predict_raw(rows, device="cpu"), ref.predict_raw(rows))
 
 
 def test_unseen_category_routes_right():
@@ -307,7 +306,7 @@ def test_json_model_strings_cross_load(reference_device_grower, jax_gradients, d
         got, want = back.predict_raw(rows), src.predict_raw(rows, device="cpu")
     assert '"cat_splits"' in src.to_model_string()
     assert back.to_model_string() == src.to_model_string()
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_booster_from_reference_carries_catmasks(reference_device_grower):
@@ -327,8 +326,7 @@ def test_booster_from_reference_carries_catmasks(reference_device_grower):
                                   num_features=x.shape[1], base_score=ref.base_score)
     assert port.to_model_string() == ref.to_model_string()
     rows = np.concatenate([x, _unusual_rows(x)])
-    np.testing.assert_allclose(port.predict_raw(rows, device="cpu"), ref.predict_raw(rows),
-                               rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(port.predict_raw(rows, device="cpu"), ref.predict_raw(rows))
 
 
 # -- the JAX package's categorical cases, on the port ------------------------------

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and GBDT on the card.
+"""The port's CUDA kernels, GBDT and the pipeline compiler on the card.
 
 Every test here is marked ``cuda`` and skips, inside a fixture, without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
@@ -17,6 +17,7 @@ PyTorch emulation (``*_emulated``: the same int64 arithmetic) bit for bit.
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -821,6 +822,180 @@ def test_seeded_init_on_the_card_equals_the_cpu(cuda_device, variant):
         b = card[k]
         ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
         assert int(ulp.max()) <= 4, k
+
+
+# -- the pipeline compiler on the card ------------------------------------------------------
+
+P1B_SIZES = (0, 1, 2, 3, 5, 9, 17, 33, 65, 130, 400)
+
+
+def _pipeline_cell(n, seed=7, classes=4):
+    """The bench's pipeline cell, fitted on the card: Featurize ->
+    UDFTransformer(tanh(0.5 x)) -> LogisticRegression(max_iter=30)."""
+    from mmlspark_tpu_torch import DataFrame, Pipeline
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.stages import UDFTransformer
+
+    rng = np.random.default_rng(seed)
+    cols = {f"x{i}": rng.standard_normal(n) for i in range(16)}
+    cols["vec"] = rng.standard_normal((n, 16)).astype(np.float32)
+    cols["label"] = rng.integers(0, classes, n)
+    model = Pipeline([
+        Featurize(input_cols=[f"x{i}" for i in range(16)] + ["vec"], output_col="features"),
+        UDFTransformer(input_col="features", output_col="features_s", jit_compatible=True,
+                       vector_udf=lambda x: torch.tanh(x * 0.5)),
+        LogisticRegression(features_col="features_s", label_col="label", max_iter=30),
+    ]).fit(DataFrame.from_dict(cols, num_partitions=1))
+    return cols, model
+
+
+def _assert_exact(staged, fused):
+    assert staged.columns == fused.columns
+    for c in staged.columns:
+        assert staged[c].dtype == fused[c].dtype, c
+        assert np.array_equal(staged[c], fused[c], equal_nan=True), c
+
+
+@pytest.mark.cuda
+def test_fused_equals_staged_bitwise_at_every_batch_size_on_the_card(cuda_device):
+    from mmlspark_tpu_torch import DataFrame
+
+    cols, model = _pipeline_cell(400)
+    comp = model.compile(max_bucket=64)
+    for n in P1B_SIZES:
+        sub = DataFrame.from_dict({c: v[:n] for c, v in cols.items()})
+        _assert_exact(model.transform(sub), comp.transform(sub))
+    seg = comp.fused_segments[0]
+    assert seg.device.type == "cuda"
+    assert all(g is not None for g in seg._graphs.values())   # captured graphs
+    assert len(seg._graphs) <= 7                                # log2(64) + 1
+    # chunks of 100/37/200/3/160 rows against the whole frame
+    whole = DataFrame.from_dict(cols)
+    staged, outs, off = model.transform(whole), [], 0
+    for size in (100, 37, 200, 3, 160):
+        outs.append(comp.transform(DataFrame.from_dict(
+            {c: v[off:off + size] for c, v in cols.items()})))
+        off += size
+    for c in staged.columns:
+        assert np.array_equal(np.concatenate([o[c] for o in outs]), staged[c]), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bucket", [1, 16, 1024])
+def test_graph_count_is_bounded_by_the_buckets(cuda_device, max_bucket):
+    from mmlspark_tpu_torch import DataFrame
+
+    cols, model = _pipeline_cell(700, seed=3)
+    comp = model.compile(max_bucket=max_bucket)
+    for n in (1, 7, 100, 700, 33, 2):
+        sub = DataFrame.from_dict({c: v[:n] for c, v in cols.items()})
+        _assert_exact(model.transform(sub), comp.transform(sub))
+    graphs = comp.fused_segments[0]._graphs
+    assert len(graphs) <= int(np.log2(max_bucket)) + 1
+    assert max(k[0] for k in graphs) <= max_bucket
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["binary", "multiclass", "regression", "rf"])
+def test_predict_raw_card_equals_cpu_bitwise(cuda_device, kind):
+    from mmlspark_tpu_torch.models.gbdt import Booster
+
+    x = np.random.default_rng(0).standard_normal((4000, 8)).astype(np.float32)
+    cfg = {"binary": dict(objective="binary"),
+           "multiclass": dict(objective="multiclass", num_class=3),
+           "regression": dict(objective="regression"),
+           "rf": dict(objective="binary", boosting_type="rf", bagging_fraction=0.8,
+                      bagging_freq=1, feature_fraction=0.8)}[kind]
+    y = (np.digitize(x[:, 0], [-0.5, 0.5]) if kind == "multiclass"
+         else 2 * x[:, 0] + np.sin(x[:, 1]) if kind == "regression"
+         else (x[:, 0] + x[:, 1] * x[:, 2] > 0)).astype(np.float64)
+    b = Booster.from_model_string(
+        train(x, y, TrainConfig(num_iterations=60, num_leaves=15, **cfg), device="cpu",
+              base_score=0.3).to_model_string())
+    np.testing.assert_array_equal(b.predict_raw(x, device=cuda_device),
+                                  b.predict_raw(x, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["classifier", "poisson"])
+def test_gbdt_pipeline_fused_equals_staged_on_the_card(cuda_device, case):
+    from mmlspark_tpu_torch import DataFrame, Pipeline
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassifier, LightGBMRegressor
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3000, 12)).astype(np.float32)
+    if case == "classifier":
+        y = (x[:, 0] + x[:, 1] * x[:, 2] > 0).astype(np.float64)
+        est = LightGBMClassifier(features_col="features", label_col="y", num_iterations=10,
+                                 num_leaves=15)
+    else:
+        y = np.exp(0.3 * x[:, 0])
+        est = LightGBMRegressor(features_col="features", label_col="y", objective="poisson",
+                                num_iterations=10, num_leaves=15)
+    df = DataFrame.from_dict({"x": x, "y": y}, num_partitions=3)
+    model = Pipeline([Featurize(input_cols=["x"], output_col="features"), est]).fit(df)
+    comp = model.compile(max_bucket=256)
+    assert comp.num_fused_stages == 2
+    _assert_exact(model.transform(df), comp.transform(df))
+    for n in (1, 5, 300):
+        sub = DataFrame.from_dict({"x": x[:n], "y": y[:n]})
+        _assert_exact(model.transform(sub), comp.transform(sub))
+
+
+@pytest.mark.cuda
+def test_image_stage_fuses_only_without_exact_on_the_card(cuda_device, tmp_path):
+    from mmlspark_tpu_torch import DataFrame, PipelineModel
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+    from mmlspark_tpu_torch.models.linear import LogisticRegressionModel
+
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 255, size=(40, 28, 28, 3), dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs}, num_partitions=2)
+    feat = ImageFeaturizer(input_col="image", output_col="features", repo_dir=str(tmp_path),
+                           model_name="ResNet8_Digits", cut_output_layers=1)
+    d = feat.transform(df)["features"].shape[1]
+    lr = LogisticRegressionModel(features_col="features", num_classes=3)
+    lr.set(weights=rng.standard_normal((d, 3)).astype(np.float32),
+           bias=rng.standard_normal(3).astype(np.float32))
+    model = PipelineModel(stages=[feat, lr])
+    staged = model.transform(df)
+    comp = model.compile()
+    assert [type(s).__name__ for s in comp.segments] == ["HostSegment", "FusedSegment"]
+    _assert_exact(staged, comp.transform(df))
+    comp2 = model.compile(exact=False)
+    assert comp2.num_fused_stages == 2
+    out = comp2.transform(df)
+    f, g = staged["features"].astype(np.float64), out["features"].astype(np.float64)
+    assert np.linalg.norm(f - g) <= 1e-2 * np.linalg.norm(f)
+
+
+@pytest.mark.cuda
+def test_failed_segment_capture_raises(cuda_device):
+    """A kernel that reads the host cannot be captured: the compiled
+    transform raises, it does not run the stages staged or on the CPU."""
+    from mmlspark_tpu_torch import DataFrame, obs
+    from mmlspark_tpu_torch.compiler import CompiledPipeline, StageKernel
+
+    class Syncing:
+        def fusable_kernel(self):
+            def fn(cols):
+                x = cols["a"]
+                return {"c": x * float(x.sum())}   # a host read: illegal while capturing
+
+            return StageKernel(reads=("a",), writes=("c",), fn=fn)
+
+        def transform(self, df):
+            return df.with_column("c", lambda p: p["a"] * p["a"].sum())
+
+    obs.reset()
+    comp = CompiledPipeline(stages=[Syncing()])
+    with pytest.raises(RuntimeError):
+        comp.transform(DataFrame.from_dict({"a": np.arange(8, dtype=np.float32)}))
+    torch.cuda.synchronize()
+    assert all(v == "0" for v in re.findall(
+        r"mmlspark_compiler_fallback_total\{[^}]*\} (\d+)", obs.render()))
 
 
 @pytest.mark.cuda

@@ -556,8 +556,10 @@ def test_featurizer_bad_cut_and_fusion(tmp_path):
                         cut_output_layers=6, device="cpu")
     with pytest.raises(ValueError, match="cut_output_layers"):
         f.transform(DataFrame.from_dict({"image": np.zeros((1, 32, 32, 3), np.uint8)}))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ImageFeaturizer(input_col="image", output_col="f").fusable_kernel()
+    k = ImageFeaturizer(input_col="image", output_col="f", repo_dir=str(tmp_path),
+                        device="cpu").fusable_kernel()
+    assert (k.reads, k.writes, k.exact_capable) == (("image",), ("f",), False)
+    assert k.guard({"image": np.zeros((2, 8), np.uint8)}) is not None  # unrolled: host path
     assert ImageFeaturizer(input_col="a", output_col="b").pipeline_io() == (("a",), ("b",))
 
 
