@@ -49,7 +49,19 @@ on the card against the CPU (digits accuracy > 0.95); and bench.py's
 featurizer cell (2,048 images, ResNet50, batch 256; flax's seeded init,
 drawn on the card and held within 4 ulp of the CPU's) with its images/s,
 device-resident images/s, host-to-device MB/s, peak memory and share of
-the card's bf16 peak.
+the card's bf16 peak. Then phase ``pipeline`` (the pipeline compiler:
+P1-P3), and last phase ``vw``, text learning: VowpalWabbit's SGD kernels
+(``vw_grad``, ``vw_apply``, ``vw_margin``) against the plain version on
+the CPU bit for bit (squared, quantile and hinge losses; logistic and
+poisson, and the plain version's atomics on the card, within a tolerance;
+chunked calls equal one call), bench.py's vw cell as written (V1: 100,000
+rows, rows/s and resident rows/s at batch 1,024 and 64), the same texts
+split into tokens with learnable labels (V2: a UnicodeNormalize ->
+ValueIndexer -> VowpalWabbitFeaturizer -> VowpalWabbitClassifier ->
+IndexToValue pipeline on the card and on the CPU, held-out AUC; a
+squared-loss regressor whose card weights equal the CPU's bit for bit; a
+contextual bandit against the uniform policy; the native murmur3 library
+must load), each kernel's time, and where a fit's time goes.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -355,9 +367,11 @@ def time_ms(fn, iters: int = 20) -> "tuple[float, float]":
 
 
 def _timed(kernel, plain, library, nbytes: int, ops: int) -> dict:
+    """ms and device_ms of the kernel, its plain version and one library
+    call (None where no PyTorch call computes the same function)."""
     rec = {"bytes": nbytes, "ops": ops}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        rec[f"{key}ms"], rec[f"{key}device_ms"] = time_ms(fn)
+        rec[f"{key}ms"], rec[f"{key}device_ms"] = (None, None) if fn is None else time_ms(fn)
     rec.update(_bound(nbytes, ops))
     return rec
 
@@ -1805,6 +1819,452 @@ def pipeline(x, y, x_test, y_test, repo: str) -> dict:
     return rec
 
 
+# -- VowpalWabbit: text -> hashed features -> the SGD kernels ---------------------
+
+VW_ROWS, VW_VOCAB, VW_WORDS, VW_HOLDOUT, VW_BITS = 100_000, 2_000, 12, 20_000, 18
+VW_PASSES = 8                       # bench.py's resident rate: an 8-pass fit
+VW_EXP_TOL = 1e-5                   # logistic/poisson: |dw| <= tol * max|w|
+VW_ATOMIC_TOL = 1e-5                # the plain version's atomic scatters on the card (order
+                                    # changes from run to run): |dw| <= tol * max|w|
+VW_AUC_FLOOR = 0.85                 # V2 held-out AUC; random labels or a wrong kernel give ~0.5
+VW_AUC_TOL = 1e-3                   # card against the CPU, the same pipeline
+VW_SOURCE = "mmlspark_tpu_torch/ops/csrc/sgd.cu"
+VW_TPU = "mmlspark_tpu/vw/learner.py"
+
+
+def vw_texts(n: int = VW_ROWS):
+    """bench.py's vw cell (:478-484): ``default_rng(5)``, 12 words a row
+    from a 2,000-word vocabulary, random 0/1 labels. (Drawing from the
+    vocabulary as an array takes the same draws as bench.py's list.)"""
+    rng = np.random.default_rng(5)
+    vocab = np.array([f"w{i}" for i in range(VW_VOCAB)], dtype=object)
+    texts = np.array([" ".join(rng.choice(vocab, size=VW_WORDS)) for _ in range(n)],
+                     dtype=object)
+    return texts, rng.integers(0, 2, size=n).astype(np.float64)
+
+
+def vw_planted(texts) -> np.ndarray:
+    """V2's learnable target: a planted linear score over the vocabulary
+    (``default_rng(6)``), summed over each row's words."""
+    u = np.random.default_rng(6).normal(size=VW_VOCAB)
+    return np.array([sum(u[int(t[1:])] for t in s.split()) for s in texts])
+
+
+def _vw_rows(n, k, bits, seed, loss):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, min(1 << bits, 2_000), size=(n, k)).astype(np.int64)
+    val = (rng.normal(size=(n, k)) * (rng.random((n, k)) < 0.8)).astype(np.float32)
+    idx[:, -1], val[:, -1] = 7, 1.0
+    y = rng.normal(size=n).astype(np.float32)
+    if loss in ("logistic", "hinge"):
+        y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    if loss == "poisson":
+        y = rng.poisson(2.0, size=n).astype(np.float32)
+        val *= np.float32(0.1)
+    return idx, val, y, (rng.random(n) + 0.5).astype(np.float32)
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def vw_kernel_checks() -> dict:
+    """The three kernels against the plain version run on the CPU: bitwise
+    for squared, quantile and hinge (adaptive and not, l2 0 and 0.01, batch
+    64 and 1,024, K = 9 and 17: the main path's widths), twice bitwise on
+    the card; logistic and poisson within VW_EXP_TOL, and the plain version
+    on the card (its atomic index_add_) within VW_ATOMIC_TOL; chunked calls
+    equal one call."""
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.vw import learner as VL
+
+    bits, n = 14, 6_000
+    cases = 0
+    for loss in ("squared", "quantile", "hinge"):
+        for adaptive in (True, False):
+            for l2 in (0.0, 0.01):
+                for batch, k in ((64, 9), (64, 17), (1024, 9), (1024, 17)):
+                    idx, val, y, wt = _vw_rows(n, k, bits, batch + k, loss)
+                    kw = dict(loss=loss, adaptive=adaptive, l2=l2, batch=batch, num_passes=2,
+                              lr=0.5 if adaptive else 0.05, quantile_tau=0.3)
+                    card = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+                    again = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+                    cpu = VL.train_sparse_sgd(idx, val, y, wt, bits, device="cpu", **kw)
+                    if not (_bits_equal(card, cpu) and _bits_equal(card, again)):
+                        raise AssertionError(f"vw kernels differ from the CPU: {kw}, K={k}")
+                    cases += 1
+    exp_rel = {}
+    for loss in ("logistic", "poisson"):
+        for adaptive in (True, False):
+            idx, val, y, wt = _vw_rows(n, 17, bits, 3, loss)
+            kw = dict(loss=loss, adaptive=adaptive, batch=1024, num_passes=2,
+                      lr=0.5 if adaptive else 0.05)
+            card = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+            again = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+            cpu = VL.train_sparse_sgd(idx, val, y, wt, bits, device="cpu", **kw)
+            rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+            if rel > VW_EXP_TOL or not _bits_equal(card, again):
+                raise AssertionError(f"vw {loss} adaptive={adaptive}: rel {rel}")
+            exp_rel[f"{loss}_{'adaptive' if adaptive else 'power_t'}"] = rel
+    # the plain version on the card: the same arithmetic, atomic scatters
+    idx, val, y, wt = _vw_rows(n, 17, bits, 4, "squared")
+    t = [torch.from_numpy(a).to(DEV) for a in (idx.astype(np.int32), val, y, wt)]
+    pad = (-n) % 1024
+    t = [torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))]) for a in t]
+    w = torch.zeros(1 << bits, device=DEV)
+    g2 = torch.zeros_like(w)
+    sgd.sgd_pass_plain(*t, w, g2, None, loss="squared", batch=1024, tau=0.5, lr=0.5, l2=0.0,
+                       eps=1e-6, adaptive=True)
+    cpu = VL.train_sparse_sgd(idx, val, y, wt, bits, device="cpu", loss="squared", batch=1024)
+    atomic_rel = float(np.abs(w.cpu().numpy() - cpu).max() / np.abs(cpu).max())
+    if atomic_rel > VW_ATOMIC_TOL:
+        raise AssertionError(f"the plain version on the card: rel {atomic_rel}")
+    # chunked train_sparse_sgd_state == one call (the step counter carries)
+    chunked = {}
+    for adaptive in (True, False):
+        kw = dict(loss="squared", adaptive=adaptive, batch=1024, device=DEV,
+                  lr=0.5 if adaptive else 0.05)
+        one = VL.train_sparse_sgd_state(idx[:5120], val[:5120], y[:5120], wt[:5120], bits, **kw)
+        st = None
+        for lo, hi in ((0, 2048), (2048, 3072), (3072, 5120)):
+            st = VL.train_sparse_sgd_state(idx[lo:hi], val[lo:hi], y[lo:hi], wt[lo:hi], bits,
+                                           st, **kw)
+        ok = (float(st.t) == float(one.t) == 5.0 and torch.equal(st.w, one.w)
+              and torch.equal(st.g2, one.g2))
+        if not ok:
+            raise AssertionError(f"chunked != one call (adaptive={adaptive})")
+        chunked["adaptive" if adaptive else "power_t"] = True
+    # vw_margin at the main path's widths
+    for k in (9, 17):
+        idx, val, _, _ = _vw_rows(20_000, k, bits, k, "squared")
+        wv = np.random.default_rng(k).normal(size=1 << bits).astype(np.float32)
+        if not _bits_equal(VL.predict_margin(idx, val, wv, device=DEV),
+                           VL.predict_margin(idx, val, wv, device="cpu")):
+            raise AssertionError(f"vw_margin differs from the CPU at K={k}")
+    rec = {"bitwise_cases": cases, "exp_loss_rel": exp_rel,
+           "plain_on_card_atomic_rel": atomic_rel, "chunked_equal": chunked,
+           "margin_bitwise_k": [9, 17]}
+    phase("vw", part="kernel checks", tol=VW_EXP_TOL, atomic_tol=VW_ATOMIC_TOL, **rec)
+    return rec
+
+
+def _vw_fit_s(est, df) -> float:
+    t0 = time.perf_counter()
+    est.fit(df)
+    return time.perf_counter() - t0
+
+
+def vw_v1(texts, y) -> dict:
+    """V1, bench.py's vw cell as written (:473-510): ``input_cols=["text"]``
+    hashes each sentence as one categorical feature (K = 9 with the
+    Constant), random labels. rows/s of a 1-pass fit after a warm-up fit,
+    and the resident rows/s from an 8-pass fit by bench.py's formula, at
+    the card's automatic batch (1,024) and at 64."""
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier, VowpalWabbitFeaturizer
+
+    df = DataFrame.from_dict({"text": texts, "label": y})
+    t0 = time.perf_counter()
+    fdf = VowpalWabbitFeaturizer(input_cols=["text"], output_col="features").transform(df)
+    rec = {"rows": len(y), "featurize_s": time.perf_counter() - t0}
+    for batch in (0, 64):
+        clf = VowpalWabbitClassifier(num_passes=1, batch_size=batch)
+        clf_p = VowpalWabbitClassifier(num_passes=VW_PASSES, batch_size=batch)
+        _vw_fit_s(clf, fdf)
+        dt = _vw_fit_s(clf, fdf)
+        _vw_fit_s(clf_p, fdf)
+        dtp = _vw_fit_s(clf_p, fdf)
+        cell = {"fit_s": dt, "rows_per_sec": len(y) / dt, "fit_8pass_s": dtp}
+        if dtp > dt * 1.05:
+            cell["rows_per_sec_resident"] = len(y) / ((dtp - dt) / (VW_PASSES - 1))
+        rec["batch_auto_1024" if batch == 0 else "batch_64"] = cell
+    phase("vw", part="V1 bench.py cell", **rec)
+    return rec
+
+
+def _cb_frame(n: int, seed: int):
+    """Contextual bandit log: 10 contexts, 4 actions logged uniformly
+    (p = 1/4); one cheap action per context (cost 0, else 1, plus noise)."""
+    from mmlspark_tpu_torch.vw import make_sparse
+
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(0, 10, n)
+    chosen = rng.integers(1, 5, n)
+    best = 1 + (np.arange(10) * 7) % 4
+    acts = np.empty(n, dtype=object)
+    shared = np.empty(n, dtype=object)
+    for i in range(n):
+        acts[i] = [make_sparse([100 + a, 1000 + 4 * ctx[i] + a], [1.0, 1.0]) for a in range(4)]
+        shared[i] = make_sparse([10 + ctx[i]], [1.0])
+    cost = (chosen != best[ctx]).astype(np.float64) + rng.normal(size=n) * 0.1
+    return DataFrame.from_dict({"shared": shared, "features": acts, "chosen_action": chosen,
+                                "probability": np.full(n, 0.25), "label": cost})
+
+
+def vw_bandit() -> dict:
+    """A VowpalWabbitContextualBandit fit on 20,000 logged rows; its greedy
+    policy's IPS cost on 5,000 held-out rows must beat the uniform logging
+    policy's."""
+    from mmlspark_tpu_torch.vw import ContextualBanditMetrics, VowpalWabbitContextualBandit
+
+    train_df, test_df = _cb_frame(20_000, 1), _cb_frame(5_000, 2)
+    model = VowpalWabbitContextualBandit(num_bits=12, num_passes=2).fit(train_df)
+    pred = model.transform(test_df)["prediction"]
+    learned, uniform = ContextualBanditMetrics(), ContextualBanditMetrics()
+    for a, p, c, act in zip(test_df["chosen_action"], test_df["probability"],
+                            test_df["label"], pred):
+        learned.add(1.0 if act == a else 0.0, p, c)
+        uniform.add(0.25, p, c)
+    rec = {"ips_learned": learned.get_ips_estimate(), "ips_uniform": uniform.get_ips_estimate(),
+           "snips_learned": learned.get_snips_estimate()}
+    if not rec["ips_learned"] < rec["ips_uniform"]:
+        raise AssertionError(f"the bandit policy does not beat uniform: {rec}")
+    return rec
+
+
+def vw_v2(texts) -> dict:
+    """V2, the same texts split into tokens (K = 17 with padding and the
+    Constant) with learnable labels, 20,000 rows held out: UnicodeNormalize
+    -> ValueIndexer (string labels) -> VowpalWabbitFeaturizer ->
+    VowpalWabbitClassifier(num_passes=3) -> IndexToValue, fitted on the card
+    and on the CPU (the same pipeline, batch 1,024 in both): held-out AUCs
+    within VW_AUC_TOL and above VW_AUC_FLOOR. The squared-loss regressor on
+    the planted score: card weights bitwise the CPU's. This fit and
+    transform are the slice's main path: the kernels' launch counts are
+    read around them."""
+    from mmlspark_tpu_torch import Pipeline
+    from mmlspark_tpu_torch.featurize import IndexToValue, ValueIndexer
+    from mmlspark_tpu_torch.ops import native_loader, sgd
+    from mmlspark_tpu_torch.stages import UnicodeNormalize
+    from mmlspark_tpu_torch.vw import (VowpalWabbitClassifier, VowpalWabbitFeaturizer,
+                                       VowpalWabbitRegressor)
+
+    native = native_loader.try_load() is not None
+    if not native:
+        raise AssertionError("the native murmur3 library did not load")
+    score = vw_planted(texts)
+    noise = np.random.default_rng(7).normal(size=len(texts)) * 1.0
+    labels = np.where(score + noise > 0, "pos", "neg").astype(object)
+    n_fit = len(texts) - VW_HOLDOUT
+    full = DataFrame.from_dict({"text": texts, "label_str": labels, "score": score})
+    train_df = DataFrame.from_dict({"text": texts[:n_fit], "label_str": labels[:n_fit]})
+    test_df = DataFrame.from_dict({"text": texts[n_fit:], "label_str": labels[n_fit:]})
+    t0 = time.perf_counter()
+    feat = VowpalWabbitFeaturizer(input_cols=[], string_split_input_cols=["norm"],
+                                  num_bits=VW_BITS)
+    fdf = feat.transform(UnicodeNormalize(input_col="text", output_col="norm").transform(full))
+    featurize_s = time.perf_counter() - t0
+
+    def pipe(device):
+        return Pipeline(stages=[
+            UnicodeNormalize(input_col="text", output_col="norm"),
+            ValueIndexer(input_col="label_str", output_col="label"),
+            VowpalWabbitFeaturizer(input_cols=[], string_split_input_cols=["norm"],
+                                   num_bits=VW_BITS),
+            VowpalWabbitClassifier(num_passes=3, batch_size=1024, device=device),
+            IndexToValue(input_col="label", output_col="label_back"),
+        ])
+
+    sgd.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = pipe("cuda").fit(train_df)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(test_df)
+    prob = out["probability"]
+    transform_s = time.perf_counter() - t0
+    launches = dict(sgd.launches)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path did not launch: {launches}")
+    y_test = (labels[n_fit:] == "pos").astype(np.float64)
+    auc = binary_auc(y_test, prob)
+    cpu_out = pipe("cpu").fit(train_df).transform(test_df)
+    auc_cpu = binary_auc(y_test, cpu_out["probability"])
+    if not (auc >= VW_AUC_FLOOR and abs(auc - auc_cpu) <= VW_AUC_TOL):
+        raise AssertionError(f"V2 AUC card {auc} cpu {auc_cpu}")
+    if not np.array_equal(out["label_back"], test_df["label_str"]):
+        raise AssertionError("IndexToValue did not give the labels back")
+    reg = {d: VowpalWabbitRegressor(label_col="score", num_passes=2, batch_size=1024,
+                                    device=d).fit(fdf.select("features", "score"))
+           for d in ("cuda", "cpu")}
+    wc, wp = (np.asarray(reg[d].get("weights")) for d in ("cuda", "cpu"))
+    if not _bits_equal(wc, wp):
+        raise AssertionError("the regressor's card weights differ from the CPU's")
+    rmse = float(np.sqrt(np.mean((reg["cuda"].transform(fdf)["prediction"] - score) ** 2)))
+    rec = {"rows_fit": n_fit, "rows_test": VW_HOLDOUT, "native_murmur3": native,
+           "featurize_rows_per_sec": len(texts) / featurize_s,
+           "fit_s": fit_s, "fit_rows_per_sec": n_fit / fit_s,
+           "transform_s": transform_s, "transform_rows_per_sec": VW_HOLDOUT / transform_s,
+           "auc": auc, "auc_cpu": auc_cpu, "auc_floor": VW_AUC_FLOOR,
+           "launches": launches, "regressor_weights_bitwise": True,
+           "regressor_rmse": rmse, "score_std": float(score.std()),
+           "bandit": vw_bandit()}
+    phase("vw", part="V2 split text", **rec)
+    return {**rec, "fdf": fdf}
+
+
+def vw_times(fdf) -> dict:
+    """Each kernel at the main path's shapes (V2: a minibatch of 1,024 rows
+    x 17 slots; scoring 20,000 rows): its max |card - CPU plain version| on
+    the same inputs, and its time against its plain version and one
+    PyTorch call (``index_add_`` for vw_apply's scatter, ``embedding_bag``
+    for vw_margin's sparse dot; vw_grad has none). Bounds count the bytes
+    this data moves: each input read once, each output written once, the
+    weights only where gathered or updated."""
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.vw.estimators import _append_constant
+    from mmlspark_tpu_torch.vw.sparse import pad_sparse_batch
+
+    idx, val = pad_sparse_batch(fdf["features"])
+    idx, val = _append_constant(idx, val, VW_BITS)
+    d = 1 << VW_BITS
+    b, k = 1024, idx.shape[1]
+    ib = torch.from_numpy(idx[:b].astype(np.int32)).to(DEV)
+    vb = torch.from_numpy(val[:b]).to(DEV)
+    y = torch.from_numpy(np.where(np.arange(b) % 2, 1.0, -1.0).astype(np.float32)).to(DEV)
+    wt = torch.ones(b, device=DEV)
+    w = torch.from_numpy(np.random.default_rng(0).normal(size=d).astype(np.float32) * 0.01).to(DEV)
+    g2 = torch.ones(d, device=DEV)
+    grad_kw = dict(loss="logistic", tau=0.5, l2=0.0)
+    g = sgd.vw_grad_step(ib, vb, y, wt, w, **grad_kw)
+    plan = sgd.sgd_plan(ib, vb, b, d)
+    e, r = int(plan.run_start[-1]), int(plan.mb_runs[-1])
+    flat, u = ib.long().reshape(-1), g.reshape(-1)
+    ws, g2s = w.clone(), g2.clone()
+    apply_kw = dict(lr=0.5, eps=1e-6, adaptive=True)
+    n_m = VW_HOLDOUT
+    im = torch.from_numpy(idx[-n_m:].astype(np.int32)).to(DEV)
+    vm = torch.from_numpy(val[-n_m:]).to(DEV)
+    im64, w1 = im.long(), w[:, None]
+    out = {
+        "vw_grad": _timed(lambda: sgd.vw_grad_step(ib, vb, y, wt, w, **grad_kw),
+                          lambda: sgd.grad_plain(ib, vb, y, wt, w, **grad_kw), None,
+                          b * k * 16 + b * 8, b * k * 4),
+        "vw_apply": _timed(lambda: sgd.vw_apply_step(ib, g, ws, g2s, None, plan, **apply_kw),
+                           lambda: sgd.apply_plain(ib, g, ws, g2s, None, **apply_kw),
+                           lambda: ws.index_add_(0, flat, u),
+                           e * 8 + r * 24, e * 5),
+        "vw_margin": _timed(lambda: sgd.vw_margin(im, vm, w),
+                            lambda: sgd.margin_plain(im, vm, w),
+                            lambda: torch.nn.functional.embedding_bag(
+                                im64, w1, per_sample_weights=vm, mode="sum"),
+                            n_m * k * 12 + n_m * 4, n_m * k * 2),
+    }
+    out["vw_apply"].update(entries=e, runs=r, longest_run=int(
+        (plan.run_start[1:] - plan.run_start[:-1]).max()))
+    # max |card - CPU plain| of each kernel on these inputs: vw_grad within
+    # VW_EXP_TOL * max |g| (logistic calls expf), vw_apply and vw_margin bitwise
+    host = [a.cpu() for a in (ib, vb, y, wt, w, g2, g, im, vm)]
+    g_cpu = sgd.grad_plain(*host[:5], **grad_kw)
+    wa, g2a, wc, g2c = w.clone(), g2.clone(), host[4].clone(), host[5].clone()
+    sgd.vw_apply_step(ib, g, wa, g2a, None, plan, **apply_kw)
+    sgd.apply_plain(host[0], host[6], wc, g2c, None, **apply_kw)
+    errs = {
+        "vw_grad": float((g.cpu() - g_cpu).abs().max()),
+        "vw_apply": max(float((wa.cpu() - wc).abs().max()), float((g2a.cpu() - g2c).abs().max())),
+        "vw_margin": float((sgd.vw_margin(im, vm, w).cpu()
+                            - sgd.margin_plain(host[7], host[8], host[4])).abs().max()),
+    }
+    if (errs["vw_grad"] > VW_EXP_TOL * float(g_cpu.abs().max())
+            or errs["vw_apply"] or errs["vw_margin"]):
+        raise AssertionError(f"vw kernels at the main path's shapes differ from the CPU: {errs}")
+    for name, err in errs.items():
+        out[name]["max_abs_err"] = err
+    phase("vw", part="times", batch=b, k=k, **out)
+    return out
+
+
+def vw_breakdown(fdf, batch: int, passes: int, name: str) -> dict:
+    """Where one VowpalWabbitClassifier fit's time goes, step by step as
+    ``vw/learner.py`` runs it: the host gather (namespaces combined, rows
+    padded, the Constant appended), the upload, the one-time sort of the
+    runs (``sgd_plan``), and each pass (wall, and device ms from CUDA
+    events); the device's idle share of the fit; the bytes a pass moves and
+    its launch-latency floor (2 launches a minibatch, each at the measured
+    device time of a near-empty launch issued back to back from C)."""
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    clf = VowpalWabbitClassifier(num_passes=passes, batch_size=batch)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter()
+    t0 = time.perf_counter()
+    idx, val, y, wt, bits = clf._gather(fdf)
+    y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    n, k = idx.shape
+    n_pad = -(-n // batch) * batch
+    pad = n_pad - n
+    idx = np.concatenate([idx, np.zeros((pad, k), idx.dtype)]).astype(np.int32)
+    val = np.concatenate([val, np.zeros((pad, k), np.float32)])
+    y = np.concatenate([y, np.zeros(pad, np.float32)])
+    wt = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    gather_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it, vt, yt, wtt = (torch.from_numpy(a).to(DEV) for a in (idx, val, y, wt))
+    w = torch.zeros(1 << bits, device=DEV)
+    g2 = torch.zeros_like(w)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = sgd.sgd_plan(it, vt, batch, 1 << bits)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    pass_wall, pass_dev = [], []
+    for _ in range(passes):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        sgd.sgd_pass(it, vt, yt, wtt, w, g2, None, plan, loss="logistic", batch=batch,
+                     tau=0.5, lr=0.5, l2=0.0, eps=1e-6, adaptive=True)
+        end.record()
+        end.synchronize()
+        pass_wall.append(time.perf_counter() - t0)
+        pass_dev.append(start.elapsed_time(end))
+    w.cpu()
+    fit_s = time.perf_counter() - t_fit
+    nb = n_pad // batch
+    e, r = int(plan.run_start[-1]), int(plan.mb_runs[-1])
+    pass_bytes = n_pad * k * 20 + n_pad * 8 + e * 12 + r * 24
+    # the launch floor: a pass of 2,000 one-row, one-slot minibatches whose
+    # only slot is padding launches 2,000 near-empty vw_grad back to back
+    # from C (no runs, so no vw_apply)
+    probe = 2_000
+    zi = torch.zeros((probe, 1), dtype=torch.int32, device=DEV)
+    zv = torch.zeros((probe, 1), device=DEV)
+    zy = torch.zeros(probe, device=DEV)
+    zplan = sgd.sgd_plan(zi, zv, 1, 1 << bits)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    sgd.vw_pass(zi, zv, zy, zy, w, g2, None, zplan, loss="squared", batch=1, tau=0.5,
+                lr=0.5, l2=0.0, eps=1e-6, adaptive=True)
+    end.record()
+    end.synchronize()
+    launch_ms = start.elapsed_time(end) / probe
+    rec = {"batch": batch, "passes": passes, "rows": n, "k": k, "minibatches": nb,
+           "entries": e, "runs": r, "gather_s": gather_s, "upload_s": upload_s,
+           "sort_s": plan_s, "pass_wall_s": pass_wall, "pass_device_ms": pass_dev,
+           "fit_s": fit_s, "device_busy_share": sum(pass_dev) / 1e3 / fit_s,
+           "pass_bytes": pass_bytes, "pass_bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
+           "empty_launch_ms": launch_ms, "pass_launch_floor_ms": 2 * nb * launch_ms}
+    phase("vw", part=f"breakdown {name}", **rec)
+    return rec
+
+
+def vw(smi: str) -> dict:
+    t0 = time.perf_counter()
+    checks = vw_kernel_checks()
+    texts, y = vw_texts()
+    v1 = vw_v1(texts, y)
+    v2 = vw_v2(texts)
+    fdf = v2.pop("fdf")
+    times = vw_times(fdf)
+    train = fdf.select("features", "score").with_column(
+        "label", lambda p: (p["score"] > 0).astype(np.float64))
+    breakdown = {f"V2_b{b}": vw_breakdown(train, b, 3, f"V2 b{b}") for b in (1024, 64)}
+    phase("vw", part="total", seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    return {"checks": checks, "V1": v1, "V2": v2, "times": times, "breakdown": breakdown}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -1874,6 +2334,7 @@ def main() -> None:
     featurizer(smi, repo)
     pipeline(x, y, x_test, y_test, repo)
     shutil.rmtree(repo, ignore_errors=True)
+    vw_rec = vw(smi)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -1892,6 +2353,19 @@ def main() -> None:
         entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
               runs["depthwise"], "multi_plane_hist", errs["multi"], t_multi16),
     ]
+    for name, replaces in (
+            ("vw_grad", "120-123 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)"),
+            ("vw_apply", "124-134 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)"),
+            ("vw_margin", "337-346 (_predict_margin, compiled by XLA; no pallas_call)")):
+        t = vw_rec["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": VW_SOURCE,
+            "replaces": f"{VW_TPU}:{replaces}",
+            "launches": vw_rec["V2"]["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

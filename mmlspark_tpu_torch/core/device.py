@@ -9,6 +9,19 @@ from __future__ import annotations
 
 import torch
 
+from mmlspark_tpu_torch.core.params import Param, Params
+
+
+class HasDevice(Params):
+    """The ``device`` param of the estimators and models that train or score
+    on the card by default."""
+
+    device = Param(
+        "torch device to train/score on: 'cuda' (default; raises without a "
+        "card) or 'cpu'", default="cuda", type_=str,
+        validator=lambda v: v.split(":")[0] in ("cuda", "cpu"),
+    )
+
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.dataframe import DataFrame
-from mmlspark_tpu_torch.core.device import resolve_device
-from mmlspark_tpu_torch.core.params import HasInputCol, HasOutputCol, Param, Params
+from mmlspark_tpu_torch.core.device import HasDevice, resolve_device
+from mmlspark_tpu_torch.core.params import HasInputCol, HasOutputCol, Param
 from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.ops import image as ops
 
@@ -61,16 +61,7 @@ def _apply_grouped(images: np.ndarray, fn: Callable, dev: torch.device) -> np.nd
     return out
 
 
-class _HasDevice(Params):
-    device = Param(
-        "torch device: 'cuda' (default; raises without a card) or 'cpu'", type_=str
-    )
-
-    def _device(self) -> torch.device:
-        return resolve_device(self.get("device"))
-
-
-class ImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice):
+class ImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
     """Ordered list of image ops applied on the device (see module docstring)."""
 
     stages = Param("ordered op descriptors", default=[])
@@ -149,7 +140,7 @@ class ImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice):
 
     def transform(self, df: DataFrame) -> DataFrame:
         fns = [self._stage_fn(s) for s in self.get("stages")]
-        dev = self._device()
+        dev = resolve_device(self.get("device"))
 
         def pipeline(batch: torch.Tensor) -> torch.Tensor:
             for f in fns:
@@ -166,7 +157,7 @@ class ImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice):
         return df.map_partitions(fn, parallel=False)
 
 
-class ResizeImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice):
+class ResizeImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
     """Standalone resize (image/ResizeImageTransformer.scala:105 analogue)."""
 
     height = Param("target height", type_=int)
@@ -181,7 +172,7 @@ class ResizeImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice)
 
     def transform(self, df: DataFrame) -> DataFrame:
         h, w = self.get_or_fail("height"), self.get_or_fail("width")
-        dev = self._device()
+        dev = resolve_device(self.get("device"))
 
         def fn(p: dict) -> dict:
             q = dict(p)
@@ -195,7 +186,7 @@ class ResizeImageTransformer(Transformer, HasInputCol, HasOutputCol, _HasDevice)
         return df.map_partitions(fn, parallel=False)
 
 
-class UnrollImage(Transformer, HasInputCol, HasOutputCol, _HasDevice):
+class UnrollImage(Transformer, HasInputCol, HasOutputCol, HasDevice):
     """Image -> flat CHW/BGR vector (image/UnrollImage.scala:40-51)."""
 
     bgr = Param("convert RGB input to BGR plane order like the reference", default=True, type_=bool)
@@ -208,7 +199,7 @@ class UnrollImage(Transformer, HasInputCol, HasOutputCol, _HasDevice):
             self.set(output_col="unrolled")
 
     def transform(self, df: DataFrame) -> DataFrame:
-        dev = self._device()
+        dev = resolve_device(self.get("device"))
 
         def fn(p: dict) -> dict:
             q = dict(p)
@@ -244,7 +235,7 @@ class UnrollBinaryImage(UnrollImage):
         return super().transform(df.map_partitions(decode, parallel=False))
 
 
-class ImageSetAugmenter(Transformer, HasInputCol, HasOutputCol, _HasDevice):
+class ImageSetAugmenter(Transformer, HasInputCol, HasOutputCol, HasDevice):
     """Emit augmented copies of every image (image/ImageSetAugmenter.scala:73):
     original + optional horizontal/vertical flips, multiplying row count."""
 
@@ -260,7 +251,7 @@ class ImageSetAugmenter(Transformer, HasInputCol, HasOutputCol, _HasDevice):
 
     def transform(self, df: DataFrame) -> DataFrame:
         ic, oc = self.get("input_col"), self.get("output_col")
-        dev = self._device()
+        dev = resolve_device(self.get("device"))
 
         def fn(p: dict) -> dict:
             variants: list[np.ndarray] = [p[ic]]

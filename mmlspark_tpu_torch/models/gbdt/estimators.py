@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.dataframe import DataFrame, Partition
+from mmlspark_tpu_torch.core.device import HasDevice
 from mmlspark_tpu_torch.core.params import (
     ComplexParam,
     HasFeaturesCol,
@@ -41,20 +42,11 @@ from mmlspark_tpu_torch.core.params import (
     HasValidationIndicatorCol,
     HasWeightCol,
     Param,
-    Params,
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 from mmlspark_tpu_torch.models.gbdt import objectives, treegrow
 from mmlspark_tpu_torch.models.gbdt.booster import Booster
 from mmlspark_tpu_torch.models.gbdt.train import TrainConfig, train
-
-
-class HasDevice(Params):
-    device = Param(
-        "torch device to train/score on: 'cuda' (default; raises without a "
-        "card) or 'cpu'", default="cuda", type_=str,
-        validator=lambda v: v.split(":")[0] in ("cuda", "cpu"),
-    )
 
 
 class _LightGBMParams(

@@ -29,7 +29,7 @@ import torch
 
 from mmlspark_tpu_torch.compiler.kernels import pairwise_sum
 from mmlspark_tpu_torch.core.dataframe import DataFrame
-from mmlspark_tpu_torch.core.device import resolve_device
+from mmlspark_tpu_torch.core.device import HasDevice, resolve_device
 from mmlspark_tpu_torch.core.params import (
     ComplexParam,
     HasFeaturesCol,
@@ -39,16 +39,16 @@ from mmlspark_tpu_torch.core.params import (
     HasRawPredictionCol,
     HasWeightCol,
     Param,
-    Params,
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 
 
-class _HasDevice(Params):
-    device = Param(
-        "torch device to fit/score on: 'cuda' (default; raises without a "
-        "card) or 'cpu'", type_=str,
-    )
+class _HasDevice(HasDevice):
+    """``HasDevice`` without a default: a model that names no device runs
+    its fused kernel where the ``CompiledPipeline`` runs (``fit`` and
+    ``transform`` resolve None to the card)."""
+
+    device = Param(HasDevice.device.doc, type_=str, validator=HasDevice.device.validator)
 
 
 def _device_fit_logistic(

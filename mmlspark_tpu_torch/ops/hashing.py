@@ -1,9 +1,10 @@
 """Feature hashing — vectorized MurmurHash3 (x86_32).
 
-The PyTorch port's copy of ``mmlspark_tpu.ops.hashing``. Hashing is host
-numpy in both packages; the port hashes on the numpy path only (the JAX
-package's native C++ murmur3 comes to the port with its native loader,
-ROADMAP.md Queue A item 8), which gives the same bits.
+The PyTorch port's copy of ``mmlspark_tpu.ops.hashing``. Hashing runs on the
+host in both packages: ``hash_strings`` calls the native C++ murmur3
+(``ops/native_loader.py``, the port's own build) and falls back to the numpy
+path where no ``g++`` is at hand, as the JAX package does; both give the
+same bits.
 
 The reference reimplements VW's murmur hash in-JVM for speed
 (vw/VowpalWabbitMurmurWithPrefix.scala:77) and hashes text n-grams via
@@ -67,8 +68,14 @@ def murmur3_bytes(data: bytes, seed: int = 0) -> int:
 
 
 def hash_strings(tokens: Iterable[str], seed: int = 0) -> np.ndarray:
-    """Hash a batch of strings -> uint32 array."""
+    """Hash a batch of strings -> uint32 array (tries the native kernel,
+    falls back to the numpy path)."""
+    from mmlspark_tpu_torch.ops import native_loader
+
     toks = [str(t).encode("utf-8") for t in tokens]
+    native = native_loader.try_load()
+    if native is not None:
+        return native.murmur3_batch(toks, seed)
     return np.array([murmur3_bytes(t, seed) for t in toks], dtype=np.uint32)
 
 

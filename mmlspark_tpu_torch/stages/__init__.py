@@ -1,10 +1,12 @@
-"""Generic dataflow stages: the port of ``mmlspark_tpu.stages``.
+"""Generic dataflow stages: the port of ``mmlspark_tpu.stages``, with every
+name of its ``__all__``."""
 
-Only ``stages/basic.py`` is ported so far; ``adapters``, ``balance``,
-``batching``, ``summarize`` and ``text`` follow (ROADMAP.md, Queue A item
-6), so this package exports basic's names only.
-"""
-
+from mmlspark_tpu_torch.stages.adapters import (
+    FastVectorAssembler,
+    MultiColumnAdapter,
+    MultiColumnAdapterModel,
+    VectorZipper,
+)
 from mmlspark_tpu_torch.stages.basic import (
     Cacher,
     DropColumns,
@@ -18,8 +20,26 @@ from mmlspark_tpu_torch.stages.basic import (
     get_value_at,
     to_vector,
 )
+from mmlspark_tpu_torch.stages.batching import (
+    DynamicMiniBatchTransformer,
+    FixedMiniBatchTransformer,
+    FlattenBatch,
+    TimeIntervalMiniBatchTransformer,
+)
+from mmlspark_tpu_torch.stages.balance import (
+    ClassBalancer,
+    ClassBalancerModel,
+    EnsembleByKey,
+    StratifiedRepartition,
+)
+from mmlspark_tpu_torch.stages.summarize import SummarizeData
+from mmlspark_tpu_torch.stages.text import TextPreprocessor, UnicodeNormalize
 
 __all__ = [
+    "VectorZipper",
+    "MultiColumnAdapterModel",
+    "MultiColumnAdapter",
+    "FastVectorAssembler",
     "DropColumns",
     "SelectColumns",
     "RenameColumn",
@@ -31,4 +51,15 @@ __all__ = [
     "Timer",
     "get_value_at",
     "to_vector",
+    "FixedMiniBatchTransformer",
+    "DynamicMiniBatchTransformer",
+    "TimeIntervalMiniBatchTransformer",
+    "FlattenBatch",
+    "StratifiedRepartition",
+    "ClassBalancer",
+    "ClassBalancerModel",
+    "EnsembleByKey",
+    "SummarizeData",
+    "TextPreprocessor",
+    "UnicodeNormalize",
 ]

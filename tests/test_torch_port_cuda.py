@@ -1015,3 +1015,172 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         train(x, y, TrainConfig(**kw), device=cuda_device)
     torch.cuda.synchronize()   # (last in the file: a failed capture may leave state behind)
+
+
+# -- VowpalWabbit's SGD kernels (ops/sgd.py, ops/csrc/sgd.cu) ----------------
+#
+# Tolerance: vw_grad, vw_apply and vw_margin equal the plain version run on
+# the CPU bit for bit for the squared, quantile and hinge losses (the same
+# rounding points, no atomics). Logistic and poisson call exp, which the card
+# rounds differently from the CPU: weights within VW_EXP_TOL * max |w|. The
+# plain version on the card scatters with atomics, in an order that changes
+# from run to run: within VW_ATOMIC_TOL * max |w|.
+
+VW_EXP_TOL = 1e-5
+VW_ATOMIC_TOL = 1e-5
+
+
+def _vw_rows(n, k, bits, seed, loss="squared"):
+    """Hashed-text-like rows: k - 1 random slots (some padding zeros, some
+    repeated indices across rows) and a Constant slot of value 1."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, min(1 << bits, 300), size=(n, k)).astype(np.int64)
+    val = (rng.normal(size=(n, k)) * (rng.random((n, k)) < 0.8)).astype(np.float32)
+    idx[:, -1], val[:, -1] = 7, 1.0
+    y = rng.normal(size=n).astype(np.float32)
+    if loss in ("logistic", "hinge"):
+        y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    if loss == "poisson":
+        y = rng.poisson(2.0, size=n).astype(np.float32)
+        val *= np.float32(0.1)
+    wt = (rng.random(n) + 0.5).astype(np.float32)
+    return idx, val, y, wt
+
+
+def _vw_fit(device, rows, bits, **kw):
+    from mmlspark_tpu_torch.vw import learner as VL
+
+    idx, val, y, wt = rows
+    return VL.train_sparse_sgd(idx, val, y, wt, bits, device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["squared", "quantile", "hinge"])
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("l2", [0.0, 0.01])
+@pytest.mark.parametrize("batch,k", [(64, 9), (64, 17), (1024, 9), (1024, 17)])
+def test_vw_kernels_equal_cpu_plain_bitwise(cuda_device, loss, adaptive, l2, batch, k):
+    from mmlspark_tpu_torch.ops import sgd
+
+    rows = _vw_rows(3000, k, 12, seed=k + batch, loss=loss)
+    kw = dict(loss=loss, adaptive=adaptive, l2=l2, batch=batch, num_passes=2,
+              lr=0.5 if adaptive else 0.05)
+    sgd.reset_launch_counts()
+    card = _vw_fit(cuda_device, rows, 12, **kw)
+    assert sgd.launches["vw_grad"] == sgd.launches["vw_apply"] == 2 * (-(-3000 // batch))
+    again = _vw_fit(cuda_device, rows, 12, **kw)
+    cpu = _vw_fit("cpu", rows, 12, **kw)
+    assert np.array_equal(card.view(np.int32), again.view(np.int32))
+    assert np.array_equal(card.view(np.int32), cpu.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["logistic", "poisson"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_vw_exp_losses_within_tolerance(cuda_device, loss, adaptive):
+    rows = _vw_rows(3000, 17, 12, seed=5, loss=loss)
+    kw = dict(loss=loss, adaptive=adaptive, batch=64, num_passes=2, lr=0.5 if adaptive else 0.05)
+    card = _vw_fit(cuda_device, rows, 12, **kw)
+    again = _vw_fit(cuda_device, rows, 12, **kw)
+    cpu = _vw_fit("cpu", rows, 12, **kw)
+    assert np.array_equal(card.view(np.int32), again.view(np.int32))
+    assert np.abs(card - cpu).max() <= VW_EXP_TOL * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+def test_vw_plain_on_the_card_within_tolerance(cuda_device):
+    """The plain version on CUDA tensors (atomic index_add_) is close."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    idx, val, y, wt = _vw_rows(4096, 17, 12, seed=9)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (idx.astype(np.int32), val, y, wt)]
+    w = torch.zeros(1 << 12, device=cuda_device)
+    g2 = torch.zeros_like(w)
+    kw = dict(loss="squared", batch=64, tau=0.5, lr=0.5, l2=0.0, eps=1e-6, adaptive=True)
+    sgd.sgd_pass_plain(*t, w, g2, None, **kw)
+    cpu = _vw_fit("cpu", (idx, val, y, wt), 12, loss="squared", batch=64)
+    assert np.abs(w.cpu().numpy() - cpu).max() <= VW_ATOMIC_TOL * np.abs(cpu).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_vw_chunked_state_equals_one_call_on_the_card(cuda_device, adaptive):
+    """Two calls of train_sparse_sgd_state over chunks of whole minibatches
+    equal one call bit for bit; the non-adaptive case checks that the step
+    table's counter carries across calls."""
+    from mmlspark_tpu_torch.vw import learner as VL
+
+    idx, val, y, wt = _vw_rows(2048, 9, 12, seed=3)
+    kw = dict(loss="squared", adaptive=adaptive, batch=64, lr=0.5 if adaptive else 0.05,
+              device=cuda_device)
+    one = VL.train_sparse_sgd_state(idx, val, y, wt, 12, **kw)
+    s = VL.train_sparse_sgd_state(idx[:1024], val[:1024], y[:1024], wt[:1024], 12, **kw)
+    s = VL.train_sparse_sgd_state(idx[1024:], val[1024:], y[1024:], wt[1024:], 12, s, **kw)
+    assert float(s.t) == float(one.t) == 32.0
+    for a, b in ((s.w, one.w), (s.g2, one.g2)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 17, 25])
+def test_vw_margin_equals_cpu_plain_bitwise(cuda_device, k):
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.vw import learner as VL
+
+    idx, val, _, _ = _vw_rows(5000, k, 12, seed=k)
+    w = np.random.default_rng(k).normal(size=1 << 12).astype(np.float32)
+    sgd.reset_launch_counts()
+    card = VL.predict_margin(idx, val, w, device=cuda_device)
+    assert sgd.launches["vw_margin"] == 1
+    cpu = VL.predict_margin(idx, val, w, device="cpu")
+    assert np.array_equal(card.view(np.int32), cpu.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_vw_regressor_card_equals_cpu(cuda_device):
+    """The estimator on the card: weights and predictions equal the CPU's."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.vw import VowpalWabbitFeaturizer, VowpalWabbitRegressor
+
+    rng = np.random.default_rng(0)
+    vocab = np.array([f"w{i}" for i in range(200)], dtype=object)
+    texts = np.array([" ".join(rng.choice(vocab, 12)) for _ in range(3000)], dtype=object)
+    score = np.array([sum(int(t[1:]) % 7 for t in s.split()) for s in texts], np.float64)
+    df = DataFrame.from_dict({"text": texts, "label": score / 10.0})
+    fdf = VowpalWabbitFeaturizer(input_cols=[], string_split_input_cols=["text"],
+                                 num_bits=14).transform(df)
+    models = {d: VowpalWabbitRegressor(num_passes=2, batch_size=256, device=d).fit(fdf)
+              for d in ("cuda", "cpu")}
+    wc, wp = (np.asarray(models[d].get("weights")) for d in ("cuda", "cpu"))
+    assert np.array_equal(wc.view(np.int32), wp.view(np.int32))
+    pc, pp = (models[d].transform(fdf)["prediction"] for d in ("cuda", "cpu"))
+    assert np.array_equal(pc, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["squared", "hinge", "logistic"])
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_vw_step_kernels_equal_plain_parts(cuda_device, loss, adaptive):
+    """vw_grad and vw_apply alone, on one minibatch, against grad_plain and
+    apply_plain on the CPU (logistic's g within the exp tolerance)."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    idx, val, y, wt = _vw_rows(1024, 17, 12, seed=2, loss=loss)
+    cpu = [torch.from_numpy(a) for a in (idx.astype(np.int32), val, y, wt)]
+    card = [t.to(cuda_device) for t in cpu]
+    w = torch.from_numpy(np.random.default_rng(1).normal(size=1 << 12).astype(np.float32))
+    g2 = torch.rand(1 << 12, generator=torch.Generator().manual_seed(3))
+    kw = dict(loss=loss, tau=0.5, l2=0.01)
+    g_card = sgd.vw_grad_step(*card, w.to(cuda_device), **kw)
+    g_cpu = sgd.grad_plain(*cpu, w, **kw)
+    if loss == "logistic":
+        assert float((g_card.cpu() - g_cpu).abs().max()) <= VW_EXP_TOL * float(g_cpu.abs().max())
+    else:
+        assert torch.equal(_bits(g_card), _bits(g_cpu))
+    step = torch.tensor([0.01])
+    wc, g2c = w.to(cuda_device), g2.to(cuda_device)
+    plan = sgd.sgd_plan(card[0], card[1], 1024, 1 << 12)
+    sgd.vw_apply_step(card[0], g_cpu.to(cuda_device), wc, g2c, step.to(cuda_device), plan,
+                      lr=0.5, eps=1e-6, adaptive=adaptive)
+    sgd.apply_plain(cpu[0], g_cpu, w, g2, step[0], lr=0.5, eps=1e-6, adaptive=adaptive)
+    assert torch.equal(_bits(wc), _bits(w)) and torch.equal(_bits(g2c), _bits(g2))

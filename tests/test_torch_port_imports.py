@@ -45,6 +45,13 @@ def test_import_with_jax_blocked(tmp_path):
         "from mmlspark_tpu_torch.compiler import CompiledPipeline, pairwise_sum\n"
         "from mmlspark_tpu_torch.featurize import Featurize, FeaturizeModel\n"
         "from mmlspark_tpu_torch.stages import UDFTransformer\n"
+        "import mmlspark_tpu_torch.vw, mmlspark_tpu_torch.vw.learner, mmlspark_tpu_torch.ops.sgd\n"
+        "import mmlspark_tpu_torch.ops.native_loader, mmlspark_tpu_torch.featurize.text\n"
+        "from mmlspark_tpu_torch.vw import VowpalWabbitClassifier, VowpalWabbitContextualBandit\n"
+        "from mmlspark_tpu_torch.stages import SummarizeData, FlattenBatch, VectorZipper\n"
+        "from mmlspark_tpu_torch.featurize import CleanMissingData, ValueIndexer, TextFeaturizer\n"
+        "from mmlspark_tpu_torch.ops.native_loader import try_load\n"
+        "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -67,37 +74,22 @@ def test_gbdt_exports_every_name_of_the_jax_package():
     assert missing == []
 
 
-# names of the JAX package's ``__all__`` the port does not export yet: the
-# rest of ROADMAP.md Queue A item 6 (stages/{adapters,balance,batching,
-# summarize,text}, featurize/{clean,indexers,text})
-A6_REMAINDER = {
-    "stages": {
-        "VectorZipper", "MultiColumnAdapterModel", "MultiColumnAdapter", "FastVectorAssembler",
-        "FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
-        "TimeIntervalMiniBatchTransformer", "FlattenBatch", "StratifiedRepartition",
-        "ClassBalancer", "ClassBalancerModel", "EnsembleByKey", "SummarizeData",
-        "TextPreprocessor", "UnicodeNormalize",
-    },
-    "featurize": {
-        "CleanMissingData", "CleanMissingDataModel", "DataConversion", "ValueIndexer",
-        "ValueIndexerModel", "IndexToValue", "TextFeaturizer", "TextFeaturizerModel",
-        "MultiNGram", "PageSplitter",
-    },
-    "compiler": set(),
-    "obs": set(),
-}
+# names of the JAX package's ``__all__`` the port does not export yet: none
+# (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported)
+A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
+                "obs": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
-def test_pipeline_slice_exports_every_name_but_the_a6_remainder(package):
-    """Each name of the JAX package's ``__all__`` is exported by the port,
-    or listed above as A6 remainder (and then not exported)."""
+def test_pipeline_slice_exports_every_name(package):
+    """Each name of the JAX package's ``__all__`` is exported by the port
+    (``A6_REMAINDER`` lists none)."""
     import importlib
 
     J = importlib.import_module(f"mmlspark_tpu.{package}")
     P = importlib.import_module(f"mmlspark_tpu_torch.{package}")
     missing = {n for n in J.__all__ if n not in P.__all__ or not hasattr(P, n)}
-    assert missing == A6_REMAINDER[package]
+    assert missing == A6_REMAINDER[package] == set()
 
 
 def _imports(path: Path) -> list:
