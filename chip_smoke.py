@@ -51,17 +51,22 @@ drawn on the card and held within 4 ulp of the CPU's) with its images/s,
 device-resident images/s, host-to-device MB/s, peak memory and share of
 the card's bf16 peak. Then phase ``pipeline`` (the pipeline compiler:
 P1-P3), and last phase ``vw``, text learning: VowpalWabbit's SGD kernels
-(``vw_grad``, ``vw_apply``, ``vw_margin``) against the plain version on
-the CPU bit for bit (squared, quantile and hinge losses; logistic and
+(``vw_pass``, one launch a pass, with its grad and apply phases alone as
+``vw_grad`` and ``vw_apply``; ``vw_margin``) against the plain version on
+the CPU bit for bit (squared, quantile and hinge losses at the main path's
+shapes, batch 64 to 4,096, K 1 to 64 and runs a warp applies; logistic and
 poisson, and the plain version's atomics on the card, within a tolerance;
 chunked calls equal one call), bench.py's vw cell as written (V1: 100,000
-rows, rows/s and resident rows/s at batch 1,024 and 64), the same texts
+rows, rows/s and resident rows/s at batch 1,024 and 64, the latter also
+from the passes' device time), the same texts
 split into tokens with learnable labels (V2: a UnicodeNormalize ->
 ValueIndexer -> VowpalWabbitFeaturizer -> VowpalWabbitClassifier ->
 IndexToValue pipeline on the card and on the CPU, held-out AUC; a
 squared-loss regressor whose card weights equal the CPU's bit for bit; a
 contextual bandit against the uniform policy; the native murmur3 library
-must load), each kernel's time, and where a fit's time goes.
+must load), each kernel's time (eager and in a CUDA graph, the library
+calls alike) beside its byte bound and chain floor, and where a fit's time
+goes (launches a pass, the pass's device ms).
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -366,12 +371,12 @@ def time_ms(fn, iters: int = 20) -> "tuple[float, float]":
     return eager, device
 
 
-def _timed(kernel, plain, library, nbytes: int, ops: int) -> dict:
+def _timed(kernel, plain, library, nbytes: int, ops: int, iters: int = 20) -> dict:
     """ms and device_ms of the kernel, its plain version and one library
     call (None where no PyTorch call computes the same function)."""
     rec = {"bytes": nbytes, "ops": ops}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        rec[f"{key}ms"], rec[f"{key}device_ms"] = (None, None) if fn is None else time_ms(fn)
+        rec[f"{key}ms"], rec[f"{key}device_ms"] = (None, None) if fn is None else time_ms(fn, iters)
     rec.update(_bound(nbytes, ops))
     return rec
 
@@ -1830,6 +1835,16 @@ VW_AUC_FLOOR = 0.85                 # V2 held-out AUC; random labels or a wrong 
 VW_AUC_TOL = 1e-3                   # card against the CPU, the same pipeline
 VW_SOURCE = "mmlspark_tpu_torch/ops/csrc/sgd.cu"
 VW_TPU = "mmlspark_tpu/vw/learner.py"
+FADD_CYCLES = 4                     # a dependent f32 add's latency on the SM (assumed), for the
+                                    # chain floor: the longest run's fadds, one after another
+# the pass kernel's shapes beyond the main path's: (batch, K); g lives in device memory
+# at 4,096 x 64 (and 4,096 x 17), in shared memory elsewhere
+VW_PASS_SHAPES = ((1000, 17), (4096, 9), (4096, 64), (1024, 1), (64, 64))
+# runs applied by a warp: (K, batch, rows, seed, which rows take one index)
+VW_LONG_RUN_SHAPES = {"k1_every_row_one_index": (1, 256, 700, 21, "rows"),
+                      "row_on_one_index": (32, 64, 300, 22, "row"),
+                      "batch_1000": (17, 1000, 2500, 23, None),
+                      "batch_4096": (9, 4096, 5000, 24, None)}
 
 
 def vw_texts(n: int = VW_ROWS):
@@ -1869,31 +1884,65 @@ def _bits_equal(a, b) -> bool:
     return a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
 
 
+def _vw_long_run_rows(case, bits, loss):
+    """Rows whose runs a warp applies: K = 1 with every row on one index (one
+    run the size of the minibatch), or one row of each minibatch holding a
+    single index in all of its slots; else the Constant's run."""
+    k, batch, n, seed, one = VW_LONG_RUN_SHAPES[case]
+    idx, val, y, wt = _vw_rows(n, k, bits, seed, loss)
+    if one == "rows":
+        idx[:] = 7
+        val[:] = np.where(val == 0, np.float32(0.5), val)
+    elif one == "row":
+        idx[5::batch] = 3
+        val[5::batch] = np.where(val[5::batch] == 0, np.float32(-0.25), val[5::batch])
+    return (idx, val, y, wt), batch
+
+
 def vw_kernel_checks() -> dict:
-    """The three kernels against the plain version run on the CPU: bitwise
-    for squared, quantile and hinge (adaptive and not, l2 0 and 0.01, batch
-    64 and 1,024, K = 9 and 17: the main path's widths), twice bitwise on
-    the card; logistic and poisson within VW_EXP_TOL, and the plain version
-    on the card (its atomic index_add_) within VW_ATOMIC_TOL; chunked calls
+    """The kernels against the plain version run on the CPU: bitwise for
+    squared, quantile and hinge (adaptive and not, l2 0 and 0.01, batch 64
+    and 1,024, K = 9 and 17: the main path's widths; the pass kernel's other
+    shapes, VW_PASS_SHAPES, and its long runs, VW_LONG_RUN_SHAPES), twice
+    bitwise on the card, one ``vw_pass`` launch a pass and no per-minibatch
+    launch; logistic and poisson within VW_EXP_TOL, and the plain version on
+    the card (its atomic index_add_) within VW_ATOMIC_TOL; chunked calls
     equal one call."""
     from mmlspark_tpu_torch.ops import sgd
     from mmlspark_tpu_torch.vw import learner as VL
 
     bits, n = 14, 6_000
     cases = 0
+
+    def bitwise(data, k, **kw):
+        idx, val, y, wt = data
+        sgd.reset_launch_counts()
+        card = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+        launched = dict(sgd.launches)
+        again = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
+        cpu = VL.train_sparse_sgd(idx, val, y, wt, bits, device="cpu", **kw)
+        if not (_bits_equal(card, cpu) and _bits_equal(card, again)):
+            raise AssertionError(f"vw kernels differ from the CPU: {kw}, K={k}")
+        if launched["vw_pass"] != kw["num_passes"] or launched["vw_grad"] or launched["vw_apply"]:
+            raise AssertionError(f"a pass is not one vw_pass launch: {launched}, {kw}")
+
     for loss in ("squared", "quantile", "hinge"):
         for adaptive in (True, False):
+            common = dict(loss=loss, adaptive=adaptive, num_passes=2,
+                          lr=0.5 if adaptive else 0.05, quantile_tau=0.3)
             for l2 in (0.0, 0.01):
                 for batch, k in ((64, 9), (64, 17), (1024, 9), (1024, 17)):
-                    idx, val, y, wt = _vw_rows(n, k, bits, batch + k, loss)
-                    kw = dict(loss=loss, adaptive=adaptive, l2=l2, batch=batch, num_passes=2,
-                              lr=0.5 if adaptive else 0.05, quantile_tau=0.3)
-                    card = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
-                    again = VL.train_sparse_sgd(idx, val, y, wt, bits, device=DEV, **kw)
-                    cpu = VL.train_sparse_sgd(idx, val, y, wt, bits, device="cpu", **kw)
-                    if not (_bits_equal(card, cpu) and _bits_equal(card, again)):
-                        raise AssertionError(f"vw kernels differ from the CPU: {kw}, K={k}")
+                    bitwise(_vw_rows(n, k, bits, batch + k, loss), k, l2=l2, batch=batch,
+                            **common)
                     cases += 1
+            for batch, k in VW_PASS_SHAPES:
+                bitwise(_vw_rows(batch + batch // 2 + 3, k, bits, batch + k, loss), k, l2=0.01,
+                        batch=batch, **common)
+                cases += 1
+            for case in VW_LONG_RUN_SHAPES:
+                data, batch = _vw_long_run_rows(case, bits, loss)
+                bitwise(data, data[0].shape[1], batch=batch, **common)
+                cases += 1
     exp_rel = {}
     for loss in ("logistic", "poisson"):
         for adaptive in (True, False):
@@ -1942,7 +1991,8 @@ def vw_kernel_checks() -> dict:
         if not _bits_equal(VL.predict_margin(idx, val, wv, device=DEV),
                            VL.predict_margin(idx, val, wv, device="cpu")):
             raise AssertionError(f"vw_margin differs from the CPU at K={k}")
-    rec = {"bitwise_cases": cases, "exp_loss_rel": exp_rel,
+    rec = {"bitwise_cases": cases, "pass_shapes": [list(x) for x in VW_PASS_SHAPES],
+           "long_run_shapes": sorted(VW_LONG_RUN_SHAPES), "exp_loss_rel": exp_rel,
            "plain_on_card_atomic_rel": atomic_rel, "chunked_equal": chunked,
            "margin_bitwise_k": [9, 17]}
     phase("vw", part="kernel checks", tol=VW_EXP_TOL, atomic_tol=VW_ATOMIC_TOL, **rec)
@@ -1955,12 +2005,35 @@ def _vw_fit_s(est, df) -> float:
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _pass_events(sgd):
+    """Wraps ``sgd.sgd_pass`` to record two CUDA events around each pass;
+    yields the list of (start, end) pairs."""
+    real, pairs = sgd.sgd_pass, []
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(*args, **kw)
+        end.record()
+        pairs.append((start, end))
+
+    sgd.sgd_pass = timed
+    try:
+        yield pairs
+    finally:
+        sgd.sgd_pass = real
+
+
 def vw_v1(texts, y) -> dict:
     """V1, bench.py's vw cell as written (:473-510): ``input_cols=["text"]``
     hashes each sentence as one categorical feature (K = 9 with the
     Constant), random labels. rows/s of a 1-pass fit after a warm-up fit,
     and the resident rows/s from an 8-pass fit by bench.py's formula, at
-    the card's automatic batch (1,024) and at 64."""
+    the card's automatic batch (1,024) and at 64; beside it the resident
+    rows/s from the passes' own device time (CUDA events around each pass of
+    the 8-pass fit), which host noise in the fits does not hide."""
+    from mmlspark_tpu_torch.ops import sgd
     from mmlspark_tpu_torch.vw import VowpalWabbitClassifier, VowpalWabbitFeaturizer
 
     df = DataFrame.from_dict({"text": texts, "label": y})
@@ -1973,8 +2046,13 @@ def vw_v1(texts, y) -> dict:
         _vw_fit_s(clf, fdf)
         dt = _vw_fit_s(clf, fdf)
         _vw_fit_s(clf_p, fdf)
-        dtp = _vw_fit_s(clf_p, fdf)
-        cell = {"fit_s": dt, "rows_per_sec": len(y) / dt, "fit_8pass_s": dtp}
+        with _pass_events(sgd) as pairs:
+            dtp = _vw_fit_s(clf_p, fdf)
+        torch.cuda.synchronize()
+        pass_ms = [a.elapsed_time(b) for a, b in pairs]
+        cell = {"fit_s": dt, "rows_per_sec": len(y) / dt, "fit_8pass_s": dtp,
+                "pass_device_ms": pass_ms,
+                "rows_per_sec_resident_device": len(y) / (sum(pass_ms) / len(pass_ms) / 1e3)}
         if dtp > dt * 1.05:
             cell["rows_per_sec_resident"] = len(y) / ((dtp - dt) / (VW_PASSES - 1))
         rec["batch_auto_1024" if batch == 0 else "batch_64"] = cell
@@ -2074,8 +2152,11 @@ def vw_v2(texts) -> dict:
     prob = out["probability"]
     transform_s = time.perf_counter() - t0
     launches = dict(sgd.launches)
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path did not launch: {launches}")
+    # the main path's kernels: vw_pass (one a pass) and vw_margin; the stand-alone
+    # entries never launch there (no per-minibatch launches)
+    if (min(launches["vw_pass"], launches["vw_margin"]) == 0
+            or launches["vw_grad"] or launches["vw_apply"]):
+        raise AssertionError(f"the main path's launches are wrong: {launches}")
     y_test = (labels[n_fit:] == "pos").astype(np.float64)
     auc = binary_auc(y_test, prob)
     cpu_out = pipe("cpu").fit(train_df).transform(test_df)
@@ -2103,23 +2184,69 @@ def vw_v2(texts) -> dict:
     return {**rec, "fdf": fdf}
 
 
-def vw_times(fdf) -> dict:
-    """Each kernel at the main path's shapes (V2: a minibatch of 1,024 rows
-    x 17 slots; scoring 20,000 rows): its max |card - CPU plain version| on
-    the same inputs, and its time against its plain version and one
-    PyTorch call (``index_add_`` for vw_apply's scatter, ``embedding_bag``
-    for vw_margin's sparse dot; vw_grad has none). Bounds count the bytes
-    this data moves: each input read once, each output written once, the
-    weights only where gathered or updated."""
-    from mmlspark_tpu_torch.ops import sgd
-    from mmlspark_tpu_torch.vw.estimators import _append_constant
-    from mmlspark_tpu_torch.vw.sparse import pad_sparse_batch
+def _sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
 
-    idx, val = pad_sparse_batch(fdf["features"])
-    idx, val = _append_constant(idx, val, VW_BITS)
-    d = 1 << VW_BITS
+
+def _vw_chain_floor_ms(plan, adaptive: bool, clock_hz: float) -> float:
+    """The least time the bits allow: each minibatch's longest run, its
+    fadds one after another (two chains when adaptive, g2's then w's), at
+    FADD_CYCLES a fadd and the SM's top clock."""
+    lengths = (plan.run_start[1:] - plan.run_start[:-1]).long()
+    nb = plan.mb_runs.numel() - 1
+    mb = torch.searchsorted(plan.mb_runs.long(), torch.arange(lengths.numel(),
+                            device=lengths.device), right=True) - 1
+    longest = torch.zeros(nb, dtype=torch.long, device=lengths.device).scatter_reduce_(
+        0, mb, lengths, "amax")
+    return float(longest.sum()) * (2 if adaptive else 1) * FADD_CYCLES / clock_hz * 1e3
+
+
+def _vw_pass_bytes(n_pad: int, k: int, plan) -> int:
+    """What a pass must move: each row's idx, val, y and weight read once,
+    the plan read once (order, run_start, run_index), and each weight it
+    touches read and written once with its AdaGrad sum (16 bytes)."""
+    e, r = int(plan.run_start[-1]), int(plan.mb_runs[-1])
+    return n_pad * (8 * k + 8) + e * 4 + r * 8 + 16 * int(plan.run_index.unique().numel())
+
+
+def _vw_padded(train, batch: int):
+    """A VowpalWabbitClassifier's rows of ``train`` as the learner uploads
+    them: gathered, labels to +-1, padded to whole minibatches of ``batch``
+    (weight 0). Returns (idx, val, y, wt, bits, n) as numpy."""
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+
+    idx, val, y, _, bits = VowpalWabbitClassifier()._gather(train)
+    y = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    n, k = idx.shape
+    pad = -(-n // batch) * batch - n
+    return (np.concatenate([idx, np.zeros((pad, k), idx.dtype)]).astype(np.int32),
+            np.concatenate([val, np.zeros((pad, k), np.float32)]),
+            np.concatenate([y, np.zeros(pad, np.float32)]),
+            np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)]), bits, n)
+
+
+def vw_times(train) -> dict:
+    """Each kernel at the main path's shapes (V2: a minibatch of 1,024 rows
+    x 17 slots, through the stand-alone grad and apply phases of the pass
+    kernel; a whole pass over V2's 100,000 rows at batch 1,024; scoring
+    20,000 rows): its max |card - CPU plain version| on the same inputs, and
+    its time, eager and in a CUDA graph, against its plain version and one
+    PyTorch call, timed the same two ways (``index_add_`` for the apply
+    phase's scatter, ``embedding_bag`` for vw_margin's sparse dot; the grad
+    phase and the pass have none). Bounds count the bytes this data moves:
+    each input read once, each output written once, the weights only where
+    gathered or updated; beside them the chain floor, the least time that
+    keeps the bits (``_vw_chain_floor_ms``)."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    clock = _sm_clock_hz()
+    idx, val, yall, wtall, bits, n = _vw_padded(train, 1024)
+    d = 1 << bits
     b, k = 1024, idx.shape[1]
-    ib = torch.from_numpy(idx[:b].astype(np.int32)).to(DEV)
+    ib = torch.from_numpy(idx[:b]).to(DEV)
     vb = torch.from_numpy(val[:b]).to(DEV)
     y = torch.from_numpy(np.where(np.arange(b) % 2, 1.0, -1.0).astype(np.float32)).to(DEV)
     wt = torch.ones(b, device=DEV)
@@ -2133,9 +2260,14 @@ def vw_times(fdf) -> dict:
     ws, g2s = w.clone(), g2.clone()
     apply_kw = dict(lr=0.5, eps=1e-6, adaptive=True)
     n_m = VW_HOLDOUT
-    im = torch.from_numpy(idx[-n_m:].astype(np.int32)).to(DEV)
-    vm = torch.from_numpy(val[-n_m:]).to(DEV)
+    im = torch.from_numpy(idx[n - n_m:n]).to(DEV)
+    vm = torch.from_numpy(val[n - n_m:n]).to(DEV)
     im64, w1 = im.long(), w[:, None]
+    # the whole pass, at V2's 100,000 rows in minibatches of 1,024
+    it, vt, yt, wtt = (torch.from_numpy(a).to(DEV) for a in (idx, val, yall, wtall))
+    pplan = sgd.sgd_plan(it, vt, b, d)
+    pass_kw = dict(loss="logistic", batch=b, tau=0.5, lr=0.5, l2=0.0, eps=1e-6, adaptive=True)
+    wp, g2p, wq, g2q = (torch.zeros(d, device=DEV) for _ in range(4))
     out = {
         "vw_grad": _timed(lambda: sgd.vw_grad_step(ib, vb, y, wt, w, **grad_kw),
                           lambda: sgd.grad_plain(ib, vb, y, wt, w, **grad_kw), None,
@@ -2144,6 +2276,10 @@ def vw_times(fdf) -> dict:
                            lambda: sgd.apply_plain(ib, g, ws, g2s, None, **apply_kw),
                            lambda: ws.index_add_(0, flat, u),
                            e * 8 + r * 24, e * 5),
+        "vw_pass": _timed(lambda: sgd.vw_pass(it, vt, yt, wtt, wp, g2p, None, pplan, **pass_kw),
+                          lambda: sgd.sgd_pass_plain(it, vt, yt, wtt, wq, g2q, None, **pass_kw),
+                          None, _vw_pass_bytes(len(idx), k, pplan),
+                          len(idx) * k * 6 + int(pplan.run_start[-1]) * 5, iters=3),
         "vw_margin": _timed(lambda: sgd.vw_margin(im, vm, w),
                             lambda: sgd.margin_plain(im, vm, w),
                             lambda: torch.nn.functional.embedding_bag(
@@ -2151,26 +2287,37 @@ def vw_times(fdf) -> dict:
                             n_m * k * 12 + n_m * 4, n_m * k * 2),
     }
     out["vw_apply"].update(entries=e, runs=r, longest_run=int(
-        (plan.run_start[1:] - plan.run_start[:-1]).max()))
-    # max |card - CPU plain| of each kernel on these inputs: vw_grad within
-    # VW_EXP_TOL * max |g| (logistic calls expf), vw_apply and vw_margin bitwise
+        (plan.run_start[1:] - plan.run_start[:-1]).max()),
+        chain_floor_ms=_vw_chain_floor_ms(plan, True, clock))
+    out["vw_pass"].update(rows=len(idx), minibatches=len(idx) // b,
+                          chain_floor_ms=_vw_chain_floor_ms(pplan, True, clock))
+    # max |card - CPU plain| of each kernel on these inputs: vw_grad and the
+    # pass within VW_EXP_TOL * max |g| or |w| (logistic calls expf), vw_apply
+    # and vw_margin bitwise
     host = [a.cpu() for a in (ib, vb, y, wt, w, g2, g, im, vm)]
     g_cpu = sgd.grad_plain(*host[:5], **grad_kw)
     wa, g2a, wc, g2c = w.clone(), g2.clone(), host[4].clone(), host[5].clone()
     sgd.vw_apply_step(ib, g, wa, g2a, None, plan, **apply_kw)
     sgd.apply_plain(host[0], host[6], wc, g2c, None, **apply_kw)
+    wp.zero_(), g2p.zero_()
+    sgd.vw_pass(it, vt, yt, wtt, wp, g2p, None, pplan, **pass_kw)
+    wpc, g2pc = torch.zeros(d), torch.zeros(d)
+    sgd.sgd_pass_plain(*(torch.from_numpy(a) for a in (idx, val, yall, wtall)), wpc, g2pc, None,
+                       **pass_kw)
     errs = {
         "vw_grad": float((g.cpu() - g_cpu).abs().max()),
         "vw_apply": max(float((wa.cpu() - wc).abs().max()), float((g2a.cpu() - g2c).abs().max())),
+        "vw_pass": float((wp.cpu() - wpc).abs().max()),
         "vw_margin": float((sgd.vw_margin(im, vm, w).cpu()
                             - sgd.margin_plain(host[7], host[8], host[4])).abs().max()),
     }
     if (errs["vw_grad"] > VW_EXP_TOL * float(g_cpu.abs().max())
+            or errs["vw_pass"] > VW_EXP_TOL * float(wpc.abs().max())
             or errs["vw_apply"] or errs["vw_margin"]):
         raise AssertionError(f"vw kernels at the main path's shapes differ from the CPU: {errs}")
     for name, err in errs.items():
         out[name]["max_abs_err"] = err
-    phase("vw", part="times", batch=b, k=k, **out)
+    phase("vw", part="times", batch=b, k=k, sm_clock_hz=clock, fadd_cycles=FADD_CYCLES, **out)
     return out
 
 
@@ -2179,9 +2326,8 @@ def vw_breakdown(fdf, batch: int, passes: int, name: str) -> dict:
     ``vw/learner.py`` runs it: the host gather (namespaces combined, rows
     padded, the Constant appended), the upload, the one-time sort of the
     runs (``sgd_plan``), and each pass (wall, and device ms from CUDA
-    events); the device's idle share of the fit; the bytes a pass moves and
-    its launch-latency floor (2 launches a minibatch, each at the measured
-    device time of a near-empty launch issued back to back from C)."""
+    events) with its launches; the device's idle share of the fit; the bytes
+    a pass moves and its chain floor."""
     from mmlspark_tpu_torch.ops import sgd
     from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
 
@@ -2210,6 +2356,7 @@ def vw_breakdown(fdf, batch: int, passes: int, name: str) -> dict:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     pass_wall, pass_dev = [], []
+    sgd.reset_launch_counts()
     for _ in range(passes):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -2220,32 +2367,20 @@ def vw_breakdown(fdf, batch: int, passes: int, name: str) -> dict:
         end.synchronize()
         pass_wall.append(time.perf_counter() - t0)
         pass_dev.append(start.elapsed_time(end))
+    launched = dict(sgd.launches)
     w.cpu()
     fit_s = time.perf_counter() - t_fit
     nb = n_pad // batch
     e, r = int(plan.run_start[-1]), int(plan.mb_runs[-1])
-    pass_bytes = n_pad * k * 20 + n_pad * 8 + e * 12 + r * 24
-    # the launch floor: a pass of 2,000 one-row, one-slot minibatches whose
-    # only slot is padding launches 2,000 near-empty vw_grad back to back
-    # from C (no runs, so no vw_apply)
-    probe = 2_000
-    zi = torch.zeros((probe, 1), dtype=torch.int32, device=DEV)
-    zv = torch.zeros((probe, 1), device=DEV)
-    zy = torch.zeros(probe, device=DEV)
-    zplan = sgd.sgd_plan(zi, zv, 1, 1 << bits)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    sgd.vw_pass(zi, zv, zy, zy, w, g2, None, zplan, loss="squared", batch=1, tau=0.5,
-                lr=0.5, l2=0.0, eps=1e-6, adaptive=True)
-    end.record()
-    end.synchronize()
-    launch_ms = start.elapsed_time(end) / probe
+    pass_bytes = _vw_pass_bytes(n_pad, k, plan)
     rec = {"batch": batch, "passes": passes, "rows": n, "k": k, "minibatches": nb,
-           "entries": e, "runs": r, "gather_s": gather_s, "upload_s": upload_s,
+           "entries": e, "runs": r, "long_runs": int(plan.long_runs.numel()),
+           "gather_s": gather_s, "upload_s": upload_s,
            "sort_s": plan_s, "pass_wall_s": pass_wall, "pass_device_ms": pass_dev,
+           "launches_per_pass": sum(launched.values()) / passes, "launches": launched,
            "fit_s": fit_s, "device_busy_share": sum(pass_dev) / 1e3 / fit_s,
            "pass_bytes": pass_bytes, "pass_bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
-           "empty_launch_ms": launch_ms, "pass_launch_floor_ms": 2 * nb * launch_ms}
+           "pass_chain_floor_ms": _vw_chain_floor_ms(plan, True, _sm_clock_hz())}
     phase("vw", part=f"breakdown {name}", **rec)
     return rec
 
@@ -2257,9 +2392,9 @@ def vw(smi: str) -> dict:
     v1 = vw_v1(texts, y)
     v2 = vw_v2(texts)
     fdf = v2.pop("fdf")
-    times = vw_times(fdf)
     train = fdf.select("features", "score").with_column(
         "label", lambda p: (p["score"] > 0).astype(np.float64))
+    times = vw_times(train)
     breakdown = {f"V2_b{b}": vw_breakdown(train, b, 3, f"V2 b{b}") for b in (1024, 64)}
     phase("vw", part="total", seconds=time.perf_counter() - t0, nvidia_smi=smi)
     return {"checks": checks, "V1": v1, "V2": v2, "times": times, "breakdown": breakdown}
@@ -2353,19 +2488,32 @@ def main() -> None:
         entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
               runs["depthwise"], "multi_plane_hist", errs["multi"], t_multi16),
     ]
-    for name, replaces in (
-            ("vw_grad", "120-123 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)"),
-            ("vw_apply", "124-134 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)"),
-            ("vw_margin", "337-346 (_predict_margin, compiled by XLA; no pallas_call)")):
+    # the grad and apply phases run inside vw_pass on the main path: their
+    # launches there are vw_pass's, their stand-alone launches (0) beside them
+    v2_launches = vw_rec["V2"]["launches"]
+    for name, replaces, counted in (
+            ("vw_pass", "117-134 (_shard_train's lax.scan over minibatches, compiled by XLA; "
+                        "no pallas_call)", "vw_pass"),
+            ("vw_grad", "120-123 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)",
+             "vw_pass"),
+            ("vw_apply", "124-134 (_shard_train's lax.scan body, compiled by XLA; no pallas_call)",
+             "vw_pass"),
+            ("vw_margin", "337-346 (_predict_margin, compiled by XLA; no pallas_call)",
+             "vw_margin")):
         t = vw_rec["times"][name]
-        kernels.append({
+        rec = {
             "name": name, "route": "cuda", "source": VW_SOURCE,
             "replaces": f"{VW_TPU}:{replaces}",
-            "launches": vw_rec["V2"]["launches"][name],
+            "launches": v2_launches[counted],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"]}
+        if name in ("vw_grad", "vw_apply"):
+            rec.update(runs_inside="vw_pass", standalone_launches=v2_launches[name])
+        if "chain_floor_ms" in t:
+            rec["chain_floor_ms"] = t["chain_floor_ms"]
+        kernels.append(rec)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

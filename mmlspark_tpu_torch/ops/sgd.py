@@ -2,16 +2,31 @@
 
 The JAX package has no Pallas kernel here: XLA compiles the minibatch body
 of ``mmlspark_tpu.vw.learner._shard_train`` (a ``lax.scan`` of sparse
-gathers and scatter-adds) into one program. The port runs it as kernels
-written by hand for Hopper (``ops/csrc/sgd.cu``):
+gathers and scatter-adds) into one program. The port runs a whole pass as
+one launch of a kernel written by hand for Hopper (``ops/csrc/sgd.cu``):
+``vw_pass``, one block (or, from 256 rows a minibatch, a cluster of up to
+8 blocks) that walks the minibatches in order, each a grad phase and an
+apply phase between barriers:
 
-- ``vw_grad``, one thread per row: the margin as a serial FMA chain over the
-  row's K slots, the loss's derivative times the row's weight, and each
-  slot's gradient ``fma(dl, v, (l2 * w) * (v != 0))``;
-- ``vw_apply``, one thread per run of equal indices in the minibatch: the
-  AdaGrad accumulator and the weight updated serially over the run in
-  (row, slot) order, or ``w += -step * g`` with the power_t schedule;
+- grad: the weights of the minibatch's slots gathered in flat order, then
+  one thread per row: the margin as a serial FMA chain over the row's K
+  slots, the loss's derivative times the row's weight, and each slot's
+  gradient ``fma(dl, v, (l2 * w) * (v != 0))``. In a cluster each block
+  forms its share of the rows and copies it into block 0;
+- apply, on one block, over the runs of equal indices in the minibatch
+  (``sgd_plan``): the AdaGrad accumulator and the weight updated serially
+  over the run in (row, slot) order, or ``w += -step * g`` with the
+  power_t schedule. A run of fewer than ``LONG_RUN`` entries is one
+  thread's; a longer one (the Constant slot's) is one warp's, which forms
+  the products and quotients 128 at a time and keeps both serial chains in
+  order;
 - ``vw_margin``, one thread per row: the same chain, for scoring.
+
+``pass_layout`` decides from the shapes where a minibatch lives (g and the
+plan's slices in shared memory where they fit) and the cluster.
+``vw_grad_step`` and ``vw_apply_step`` run one phase of the same kernel on
+one minibatch with the pass's layout at their shape, so what they time is
+what a pass runs.
 
 Each wrapper has two bodies: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs the plain PyTorch version beside it
@@ -31,9 +46,10 @@ PyTorch and on the card; tests/test_torch_port_vw.py states their
 tolerance. The plain version on a CUDA tensor scatters with atomics (its
 order changes from run to run); ``chip_smoke.py`` holds it to a tolerance.
 
-Every launch adds one to ``launches[<kernel>]`` (a pass launches ``vw_grad``
-and ``vw_apply`` once per minibatch); a call made while the stream is being
-captured into a CUDA graph is not counted.
+Every launch adds one to ``launches[<entry>]``: ``vw_pass`` once a pass,
+``vw_grad`` and ``vw_apply`` once a stand-alone call, ``vw_margin`` once a
+scoring call; a call made while the stream is being captured into a CUDA
+graph is not counted.
 """
 
 from __future__ import annotations
@@ -48,7 +64,7 @@ import torch
 
 LOSS_CODES = {"logistic": 0, "squared": 1, "quantile": 2, "hinge": 3, "poisson": 4}
 
-launches = {"vw_grad": 0, "vw_apply": 0, "vw_margin": 0}
+launches = {"vw_pass": 0, "vw_grad": 0, "vw_apply": 0, "vw_margin": 0}
 
 _T_MAX = float(2 ** 24)  # an f32 counter stops at 2^24: t + 1 rounds back to it
 
@@ -165,19 +181,44 @@ def sgd_pass_plain(
 
 # -- the CUDA kernels -------------------------------------------------------
 
+LONG_RUN = 32  # a run of at least this many entries is applied by a warp, not a thread
+
+SMEM_BYTES = 232_448  # the shared memory an H100 block may opt in to (227 KB)
+MAX_THREADS = 1024
+MAX_CTAS = 8        # the most blocks of a portable cluster
+CLUSTER_ROWS = 128  # the fewest rows a block of a cluster forms
+# the kernel's fixed shared memory: two 8-byte mbarriers, then two windows of
+# 128 floats for each of the 8 warps that take long runs
+SMEM_FIXED = 16 + 8 * 2 * 128 * 4
+SLACK = 16  # a staged array's room past its bytes: copies move 16-byte aligned windows
+GRAD, APPLY = 1, 2  # the kernel's phases
+
 
 class SGDPlan(NamedTuple):
     """The runs of equal indices of every minibatch, from one stable sort of
     the nonzero slots by (minibatch, index): ``order`` holds each slot's
     position (row * K + k) in its minibatch, runs in (row, k) order inside;
-    run r spans ``order[run_start[r]:run_start[r + 1]]``; minibatch b owns
-    runs ``mb_runs[b]:mb_runs[b + 1]``. ``max_runs``: the most runs of any
-    minibatch (the ``vw_apply`` grid)."""
+    run r spans ``order[run_start[r]:run_start[r + 1]]`` and updates weight
+    ``run_index[r]``; minibatch b owns runs ``mb_runs[b]:mb_runs[b + 1]``.
+    ``long_runs``: the ids of the runs of at least ``LONG_RUN`` entries, in
+    order; minibatch b's are ``long_runs[mb_long[b]:mb_long[b + 1]]``.
+    ``packed``: minibatch b's slices of ``order``, ``run_start`` (one more
+    than its runs) and ``run_index`` back to back, so the kernel copies
+    them in as one. ``meta``: (nb + 1, 4) int32 rows (first run, first entry
+    of ``order``, first long run, start in ``packed``) of each minibatch, as
+    the kernel reads them. ``max_runs``, ``max_entries``: the most runs and
+    entries of any minibatch (the kernel's block and plan buffer)."""
 
     order: torch.Tensor
     run_start: torch.Tensor
+    run_index: torch.Tensor
     mb_runs: torch.Tensor
+    long_runs: torch.Tensor
+    mb_long: torch.Tensor
+    packed: torch.Tensor
+    meta: torch.Tensor
     max_runs: int
+    max_entries: int
 
 
 def sgd_plan(idx: torch.Tensor, val: torch.Tensor, batch: int, dim: int) -> SGDPlan:
@@ -197,11 +238,82 @@ def sgd_plan(idx: torch.Tensor, val: torch.Tensor, batch: int, dim: int) -> SGDP
     new = torch.ones(key.numel(), dtype=torch.bool, device=dev)
     new[1:] = key[1:] != key[:-1]
     starts = torch.nonzero(new).squeeze(1)
-    run_start = torch.cat([starts, torch.tensor([key.numel()], device=dev)]).int()
-    mb_runs = torch.searchsorted(
-        key[starts] // dim, torch.arange(nb + 1, device=dev)).int()
+    run_start = torch.cat([starts, torch.tensor([key.numel()], device=dev)])
+    mb_runs = torch.searchsorted(key[starts] // dim, torch.arange(nb + 1, device=dev))
+    long_runs = torch.nonzero(run_start[1:] - run_start[:-1] >= LONG_RUN).squeeze(1)
+    mb_long = torch.searchsorted(long_runs, mb_runs)
+    mb_entries = run_start[mb_runs]
+    run_index = (key[starts] % dim).int()
+    # packed: minibatch b's order slice from e0 + 2 r0 + b, then its run
+    # starts, then its run indices (e0, r0: its first entry and run)
+    runs = torch.arange(starts.numel(), device=dev)
+    b_run = torch.searchsorted(mb_runs, runs, right=True) - 1
+    b_entry = b_run[torch.cumsum(new, 0) - 1]
+    bs = torch.arange(nb, device=dev)
+    packed = torch.empty(key.numel() + 2 * starts.numel() + nb, dtype=torch.int32, device=dev)
+    packed[torch.arange(key.numel(), device=dev) + 2 * mb_runs[b_entry] + b_entry] = order
+    after_order = mb_entries[b_run + 1] + mb_runs[b_run] + b_run  # + r: its run start
+    packed[after_order + runs] = run_start[:-1].int()
+    packed[mb_entries[bs + 1] + mb_runs[bs] + bs + mb_runs[bs + 1]] = mb_entries[bs + 1].int()
+    packed[after_order + mb_runs[b_run + 1] - mb_runs[b_run] + 1 + runs] = run_index
+    mb_packed = mb_entries + 2 * mb_runs + torch.arange(nb + 1, device=dev)
+    meta = torch.stack([mb_runs, mb_entries, mb_long, mb_packed], 1)
     max_runs = int((mb_runs[1:] - mb_runs[:-1]).max()) if nb else 0
-    return SGDPlan(order, run_start, mb_runs, max_runs)
+    max_entries = int((mb_entries[1:] - mb_entries[:-1]).max()) if nb else 0
+    return SGDPlan(order, run_start.int(), run_index, mb_runs.int(), long_runs.int(),
+                   mb_long.int(), packed, meta.int().contiguous(), max_runs, max_entries)
+
+
+class Layout(NamedTuple):
+    """The pass kernel's launch: ``ctas`` blocks in one cluster (1: one
+    block), ``threads`` a block; byte offsets of g and of the staged plan
+    slices (-1 where they live in device memory instead); ``smem_bytes`` in
+    all."""
+
+    ctas: int
+    threads: int
+    g_off: int
+    plan_off: int
+    smem_bytes: int
+
+
+def _a16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _staged(nbytes: int) -> int:
+    return _a16(nbytes) + SLACK
+
+
+STAGING = ("g", "plan")  # what pass_layout places in shared memory, in order
+
+
+def pass_layout(batch: int, k: int, max_runs: int, max_entries: int) -> Layout:
+    """Where ``vw_pass`` keeps a minibatch, from the shapes alone: g in
+    shared memory where its ``batch * k * 4`` bytes fit beside the fixed
+    ``SMEM_FIXED`` bytes (the mbarriers and the chains' windows), then the
+    minibatch's packed plan slices (order, run_start, run_index;
+    ``max_entries`` and ``max_runs`` of them at most) where they fit:
+    ``STAGING``'s order. (The rows are read where they lie, each value
+    once: staging them cost more than it saved, PERF.md.)
+    One thread a row or a run, a multiple of 32, at most 1,024. Where g is in
+    shared memory and the minibatch has 256 rows or more, a cluster of
+    blocks on as many SMs (a power of two, at most 8, at least 128 rows
+    each) forms the gradients and block 0 applies them: one SM's gathers
+    would set the pace. The stand-alone entries take the layout of the pass
+    at their shape."""
+    threads = min(MAX_THREADS, max(32, -(-max(batch, max_runs) // 32) * 32))
+    sizes = {"g": _a16(batch * k * 4), "plan": _staged((max_entries + 2 * max_runs + 1) * 4)}
+    used = SMEM_FIXED
+    offs = dict.fromkeys(sizes, -1)
+    for name in STAGING:
+        if used + sizes[name] <= SMEM_BYTES:
+            offs[name] = used
+            used += sizes[name]
+    ctas = 1
+    while offs["g"] >= 0 and ctas < MAX_CTAS and batch // (2 * ctas) >= CLUSTER_ROWS:
+        ctas *= 2
+    return Layout(ctas, threads, offs["g"], offs["plan"], used)
 
 
 def _lib() -> ctypes.CDLL:
@@ -210,11 +322,9 @@ def _lib() -> ctypes.CDLL:
     lib = library("sgd.cu")
     if not getattr(lib, "_mmlspark_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mmlspark_vw_grad.argtypes = [p] * 6 + [i] * 3 + [f] * 3 + [p]
-        lib.mmlspark_vw_apply.argtypes = [p] * 8 + [f, f, i, i, p]
-        lib.mmlspark_vw_pass.argtypes = [p] * 11 + [i] * 4 + [f] * 5 + [i, i, p]
+        lib.mmlspark_vw_pass.argtypes = [p] * 11 + [i] * 4 + [f] * 5 + [i] * 8 + [p]
         lib.mmlspark_vw_margin.argtypes = [p, p, p, p, i, i, p]
-        for fn in ("grad", "apply", "pass", "margin"):
+        for fn in ("pass", "margin"):
             getattr(lib, f"mmlspark_vw_{fn}").restype = i
         lib._mmlspark_typed = True
     return lib
@@ -230,6 +340,18 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_plan(plan: SGDPlan, nb: int, device: torch.device) -> None:
+    if plan.mb_runs.numel() != nb + 1:
+        raise ValueError(f"the plan holds {plan.mb_runs.numel() - 1} minibatches, not {nb}")
+    runs, entries = plan.run_index.numel(), plan.order.numel()
+    for name, shape in (("order", (entries,)), ("run_start", (runs + 1,)),
+                        ("run_index", (runs,)), ("long_runs", (plan.long_runs.numel(),)),
+                        ("packed", (entries + 2 * runs + nb,)), ("meta", (nb + 1, 4))):
+        _check(f"plan.{name}", getattr(plan, name), shape, torch.int32, device)
+    if plan.meta.data_ptr() % 16:
+        raise ValueError("plan.meta must be 16-byte aligned (the kernel reads int4 rows)")
 
 
 def _raise_on(code: int, kernel: str) -> None:
@@ -249,12 +371,41 @@ def _count(kernel: str, n: int) -> None:
         launches[kernel] += n
 
 
+def _launch(kernel: str, phases: int, idx: torch.Tensor, val: "torch.Tensor | None",
+            y: "torch.Tensor | None", wt: "torch.Tensor | None", w: torch.Tensor,
+            g2: torch.Tensor, g: torch.Tensor, plan: "SGDPlan | None",
+            steps: "torch.Tensor | None", nb: int, batch: int, *, loss: str = "squared",
+            tau: float = 0.5, lr: float = 0.0, l2: float = 0.0, eps: float = 0.0,
+            adaptive: bool = True) -> None:
+    """One launch of the pass kernel over ``nb`` minibatches of ``batch``
+    rows, running ``phases`` of each; ``g``: the (batch * K) scratch, or the
+    stand-alone grad's output, or the stand-alone apply's input."""
+    k = idx.shape[1]
+    runs, entries = (plan.max_runs, plan.max_entries) if plan is not None else (0, 0)
+    lay = pass_layout(batch, k, runs, entries)
+    none = None
+    code = _lib().mmlspark_vw_pass(
+        idx.data_ptr(), none if val is None else val.data_ptr(),
+        none if y is None else y.data_ptr(), none if wt is None else wt.data_ptr(),
+        w.data_ptr(), g2.data_ptr(), g.data_ptr(),
+        *((none,) * 3 if plan is None else
+          (plan.packed.data_ptr(), plan.meta.data_ptr(), plan.long_runs.data_ptr())),
+        None if adaptive else steps.data_ptr(), nb, batch, k, LOSS_CODES[loss],
+        *_tau_pair(tau), float(np.float32(-lr)), float(np.float32(l2)),
+        float(np.float32(eps)), int(adaptive), phases, LONG_RUN, lay.threads, lay.g_off,
+        lay.plan_off, lay.ctas, lay.smem_bytes,
+        torch.cuda.current_stream(idx.device).cuda_stream)
+    _raise_on(code, kernel)
+    _count(kernel, 1)
+
+
 def vw_grad_step(
     idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor, wt: torch.Tensor,
     w: torch.Tensor, *, loss: str, tau: float, l2: float,
 ) -> torch.Tensor:
-    """The ``vw_grad`` kernel on one minibatch of CUDA tensors: int32 (B, K)
-    idx, f32 (B, K) val, f32 (B,) y and wt, f32 (D,) w -> f32 (B, K) g."""
+    """The grad phase of ``vw_pass`` alone, on one minibatch of CUDA tensors:
+    int32 (B, K) idx, f32 (B, K) val, f32 (B,) y and wt, f32 (D,) w -> f32
+    (B, K) g."""
     dev = idx.device
     if dev.type != "cuda" or idx.dim() != 2:
         raise ValueError(f"vw_grad runs on (B, K) CUDA tensors, got {dev} {tuple(idx.shape)}")
@@ -264,15 +415,12 @@ def vw_grad_step(
     _check("y", y, (b,), torch.float32, dev)
     _check("wt", wt, (b,), torch.float32, dev)
     _check("w", w, (w.numel(),), torch.float32, dev)
+    if loss not in LOSS_CODES:
+        raise ValueError(f"unknown loss {loss!r}")
     g = torch.empty((b, k), dtype=torch.float32, device=dev)
-    if b == 0:
-        return g
-    code = _lib().mmlspark_vw_grad(
-        idx.data_ptr(), val.data_ptr(), y.data_ptr(), wt.data_ptr(), w.data_ptr(),
-        g.data_ptr(), b, k, LOSS_CODES[loss], *_tau_pair(tau), float(np.float32(l2)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "vw_grad")
-    _count("vw_grad", 1)
+    if b:
+        _launch("vw_grad", GRAD, idx, val, y, wt, w, w, g, None, None, 1, b,
+                loss=loss, tau=tau, l2=l2)
     return g
 
 
@@ -280,10 +428,10 @@ def vw_apply_step(
     idx: torch.Tensor, g: torch.Tensor, w: torch.Tensor, g2: torch.Tensor,
     step: "torch.Tensor | None", plan: SGDPlan, *, lr: float, eps: float, adaptive: bool,
 ) -> None:
-    """The ``vw_apply`` kernel on one minibatch: int32 (B, K) idx and f32
-    (B, K) g of the minibatch whose runs are the whole of ``plan`` (a plan
-    of this one minibatch); w and g2 updated in place; ``step``: f32 (1,)
-    when not adaptive."""
+    """The apply phase of ``vw_pass`` alone, on one minibatch: int32 (B, K)
+    idx and f32 (B, K) g of the minibatch whose runs are the whole of
+    ``plan`` (a plan of this one minibatch); w and g2 updated in place;
+    ``step``: f32 (1,) when not adaptive."""
     dev = idx.device
     if dev.type != "cuda" or idx.dim() != 2:
         raise ValueError(f"vw_apply runs on (B, K) CUDA tensors, got {dev} {tuple(idx.shape)}")
@@ -291,20 +439,18 @@ def vw_apply_step(
     _check("g", g, tuple(idx.shape), torch.float32, dev)
     _check("w", w, (w.numel(),), torch.float32, dev)
     _check("g2", g2, (w.numel(),), torch.float32, dev)
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned (the kernel copies it in whole)")
     if plan.mb_runs.numel() != 2:
         raise ValueError("vw_apply_step takes the plan of one minibatch")
+    _check_plan(plan, 1, dev)
     if not adaptive:
         if step is None:
             raise ValueError("the non-adaptive update needs its step size")
         _check("step", step, (1,), torch.float32, dev)
-    code = _lib().mmlspark_vw_apply(
-        idx.data_ptr(), g.data_ptr(), plan.order.data_ptr(), plan.run_start.data_ptr(),
-        plan.mb_runs.data_ptr(), w.data_ptr(), g2.data_ptr(),
-        None if adaptive else step.data_ptr(), float(np.float32(-lr)),
-        float(np.float32(eps)), int(adaptive), plan.max_runs,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "vw_apply")
-    _count("vw_apply", 1 if plan.max_runs else 0)
+    if plan.max_runs:
+        _launch("vw_apply", APPLY, idx, None, None, None, w, g2, g, plan, step, 1,
+                idx.shape[0], lr=lr, eps=eps, adaptive=adaptive)
 
 
 def vw_pass(
@@ -312,10 +458,10 @@ def vw_pass(
     w: torch.Tensor, g2: torch.Tensor, steps: "torch.Tensor | None", plan: SGDPlan, *,
     loss: str, batch: int, tau: float, lr: float, l2: float, eps: float, adaptive: bool,
 ) -> None:
-    """One pass of ``vw_grad`` + ``vw_apply`` per minibatch on CUDA tensors:
-    int32 (n, K) idx, f32 (n, K) val, f32 (n,) y and wt, f32 (D,) w and g2
-    updated in place; ``steps``: f32 (nb,) step sizes when not adaptive.
-    ``plan`` from ``sgd_plan`` over the same rows."""
+    """One pass in one launch of the pass kernel on CUDA tensors: int32 (n,
+    K) idx, f32 (n, K) val, f32 (n,) y and wt, f32 (D,) w and g2 updated in
+    place; ``steps``: f32 (nb,) step sizes when not adaptive. ``plan`` from
+    ``sgd_plan`` over the same rows."""
     dev = idx.device
     if dev.type != "cuda":
         raise ValueError(f"vw_pass runs on CUDA tensors, got {dev}")
@@ -335,23 +481,12 @@ def vw_pass(
         _check("steps", steps, (nb,), torch.float32, dev)
     if loss not in LOSS_CODES:
         raise ValueError(f"unknown loss {loss!r}")
-    if plan.mb_runs.numel() != nb + 1:
-        raise ValueError(f"the plan holds {plan.mb_runs.numel() - 1} minibatches, not {nb}")
+    _check_plan(plan, nb, dev)
     if nb == 0:
         return
     gbuf = torch.empty(batch * k, dtype=torch.float32, device=dev)
-    code = _lib().mmlspark_vw_pass(
-        idx.data_ptr(), val.data_ptr(), y.data_ptr(), wt.data_ptr(), w.data_ptr(),
-        g2.data_ptr(), gbuf.data_ptr(), plan.order.data_ptr(), plan.run_start.data_ptr(),
-        plan.mb_runs.data_ptr(),
-        None if adaptive else steps.data_ptr(), nb, batch, k, LOSS_CODES[loss],
-        *_tau_pair(tau), float(np.float32(-lr)),
-        float(np.float32(l2)), float(np.float32(eps)), int(adaptive), plan.max_runs,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(code, "vw_pass")
-    _count("vw_grad", nb)
-    _count("vw_apply", nb if plan.max_runs else 0)
+    _launch("vw_pass", GRAD | APPLY, idx, val, y, wt, w, g2, gbuf, plan, steps, nb, batch,
+            loss=loss, tau=tau, lr=lr, l2=l2, eps=eps, adaptive=adaptive)
 
 
 def vw_margin(idx: torch.Tensor, val: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,10 @@ The PyTorch port of ``mmlspark_tpu.vw.learner``. The JAX package runs each
 mesh shard's online pass as one XLA program (``lax.scan`` over fixed-shape
 minibatches of gathered/scattered sparse features) and averages weights
 with ``pmean`` at every pass boundary, VW's "allreduce weights once per
-pass" (vw/VowpalWabbitBase.scala:235-266,401-429). Here a pass is one call
-that enqueues two hand-written kernels per minibatch (``ops/sgd.py``,
-``ops/csrc/sgd.cu``) on the card, or the plain PyTorch version on the CPU.
+pass" (vw/VowpalWabbitBase.scala:235-266,401-429). Here a pass is one
+launch of a hand-written kernel that walks every minibatch in order
+(``ops/sgd.py``, ``ops/csrc/sgd.cu``) on the card, or the plain PyTorch
+version on the CPU.
 Both round where XLA:CPU rounds, so weights equal the JAX package's
 single-device program bit for bit for the squared, quantile and hinge
 losses (tests/test_torch_port_vw.py).
@@ -112,8 +113,9 @@ def train_sparse_sgd_state(
     concatenation whenever chunk sizes are multiples of the minibatch size.
     The given state is not changed: the call updates a copy in place.
 
-    ``batch <= 0`` = auto: 1024 on the card (the SGD step is launch-bound
-    there; bigger minibatches keep it busy), 64 on the CPU (closer to VW's
+    ``batch <= 0`` = auto: 1024 on the card (each minibatch costs the pass
+    kernel two block barriers and its memory round trips; fewer, bigger
+    minibatches keep it busy), 64 on the CPU (closer to VW's
     per-example updates), the JAX package's rule with the card in the TPU's
     place. ``distributed`` is accepted for the JAX package's signature: one
     device runs the single-device program either way."""

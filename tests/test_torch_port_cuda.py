@@ -1067,7 +1067,8 @@ def test_vw_kernels_equal_cpu_plain_bitwise(cuda_device, loss, adaptive, l2, bat
               lr=0.5 if adaptive else 0.05)
     sgd.reset_launch_counts()
     card = _vw_fit(cuda_device, rows, 12, **kw)
-    assert sgd.launches["vw_grad"] == sgd.launches["vw_apply"] == 2 * (-(-3000 // batch))
+    # one launch a pass; no per-minibatch launches of the stand-alone entries
+    assert sgd.launches["vw_pass"] == 2 and sgd.launches["vw_grad"] == sgd.launches["vw_apply"] == 0
     again = _vw_fit(cuda_device, rows, 12, **kw)
     cpu = _vw_fit("cpu", rows, 12, **kw)
     assert np.array_equal(card.view(np.int32), again.view(np.int32))
@@ -1180,7 +1181,95 @@ def test_vw_step_kernels_equal_plain_parts(cuda_device, loss, adaptive):
     step = torch.tensor([0.01])
     wc, g2c = w.to(cuda_device), g2.to(cuda_device)
     plan = sgd.sgd_plan(card[0], card[1], 1024, 1 << 12)
+    sgd.reset_launch_counts()
     sgd.vw_apply_step(card[0], g_cpu.to(cuda_device), wc, g2c, step.to(cuda_device), plan,
                       lr=0.5, eps=1e-6, adaptive=adaptive)
+    assert sgd.launches["vw_apply"] == 1 and sgd.launches["vw_pass"] == 0
     sgd.apply_plain(cpu[0], g_cpu, w, g2, step[0], lr=0.5, eps=1e-6, adaptive=adaptive)
     assert torch.equal(_bits(wc), _bits(w)) and torch.equal(_bits(g2c), _bits(g2))
+
+
+# Shapes of the pass kernel: batch 64, 1,000 (not a multiple of 32), 1,024 and
+# 4,096 (more rows than a block's threads) x K 1, 9, 17 and 64; at 1,024 x 64
+# and 4,096 x 17 or 64, g does not fit in shared memory and lives in scratch.
+VW_PASS_BATCHES = [64, 1000, 1024, 4096]
+VW_PASS_KS = [1, 9, 17, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("k", VW_PASS_KS)
+@pytest.mark.parametrize("batch", VW_PASS_BATCHES)
+def test_vw_pass_equals_cpu_plain_bitwise(cuda_device, batch, k, adaptive):
+    """vw_pass equals the plain version on the CPU bit for bit, and itself
+    twice; one launch a pass."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    rows = _vw_rows(batch + batch // 2 + 3, k, 12, seed=batch + k, loss="hinge")
+    kw = dict(loss="hinge", adaptive=adaptive, l2=0.01, batch=batch, num_passes=3,
+              lr=0.5 if adaptive else 0.05)
+    sgd.reset_launch_counts()
+    card = _vw_fit(cuda_device, rows, 12, **kw)
+    assert sgd.launches["vw_pass"] == 3
+    again = _vw_fit(cuda_device, rows, 12, **kw)
+    cpu = _vw_fit("cpu", rows, 12, **kw)
+    lay = sgd.pass_layout(batch, k, 0, 0)
+    assert (lay.g_off >= 0) == (sgd.SMEM_FIXED + batch * k * 4 <= sgd.SMEM_BYTES)
+    assert np.array_equal(card.view(np.int32), again.view(np.int32))
+    assert np.array_equal(card.view(np.int32), cpu.view(np.int32))
+
+
+# (k, batch, n, seed, where every slot of a row, or every row, takes one index)
+VW_LONG_RUN_SHAPES = {
+    "k1_every_row_one_index": (1, 256, 700, 21, "rows"),
+    "row_on_one_index": (32, 64, 300, 22, "row"),
+    "batch_1000": (17, 1000, 2500, 23, None),
+    "batch_4096": (9, 4096, 5000, 24, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(VW_LONG_RUN_SHAPES))
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("loss", ["squared", "quantile", "hinge"])
+def test_vw_pass_long_runs_equal_cpu_plain_bitwise(cuda_device, loss, adaptive, case):
+    """Runs applied by a warp (one run the size of the minibatch; a run
+    across the slots of one row) give the CPU's bits, twice."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    k, batch, n, seed, one = VW_LONG_RUN_SHAPES[case]
+    idx, val, y, wt = _vw_rows(n, k, 12, seed=seed, loss=loss)
+    if one == "rows":
+        idx[:] = 7
+        val[:] = np.where(val == 0, np.float32(0.5), val)
+    elif one == "row":
+        idx[5::batch] = 3
+        val[5::batch] = np.where(val[5::batch] == 0, np.float32(-0.25), val[5::batch])
+    plan = sgd.sgd_plan(torch.from_numpy(idx[: n // batch * batch].astype(np.int32)),
+                        torch.from_numpy(val[: n // batch * batch]), batch, 1 << 12)
+    assert plan.long_runs.numel() >= 1
+    kw = dict(loss=loss, adaptive=adaptive, batch=batch, num_passes=2,
+              lr=0.5 if adaptive else 0.05, quantile_tau=0.3)
+    card = _vw_fit(cuda_device, (idx, val, y, wt), 12, **kw)
+    again = _vw_fit(cuda_device, (idx, val, y, wt), 12, **kw)
+    cpu = _vw_fit("cpu", (idx, val, y, wt), 12, **kw)
+    assert np.array_equal(card.view(np.int32), again.view(np.int32))
+    assert np.array_equal(card.view(np.int32), cpu.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k", [(1024, 17), (64, 9), (4096, 64)])
+def test_vw_grad_step_is_the_pass_grad_phase(cuda_device, batch, k):
+    """The stand-alone grad phase equals grad_plain on the CPU bit for bit
+    (g in shared memory and copied out, or in device memory), one launch."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    idx, val, y, wt = _vw_rows(batch, k, 12, seed=k, loss="squared")
+    cpu = [torch.from_numpy(a) for a in (idx.astype(np.int32), val, y, wt)]
+    w = torch.from_numpy(np.random.default_rng(k).normal(size=1 << 12).astype(np.float32))
+    sgd.reset_launch_counts()
+    g = sgd.vw_grad_step(*(t.to(cuda_device) for t in cpu), w.to(cuda_device), loss="squared",
+                         tau=0.5, l2=0.01)
+    assert sgd.launches["vw_grad"] == 1 and sgd.launches["vw_pass"] == 0
+    assert torch.equal(_bits(g), _bits(sgd.grad_plain(*cpu, w, loss="squared", tau=0.5,
+                                                      l2=0.01)))

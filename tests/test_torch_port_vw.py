@@ -202,6 +202,165 @@ def test_sgd_plan_runs():
     assert plan.max_runs == int((mb[1:] - mb[:-1]).max())
 
 
+# Shapes that reach the pass kernel's long runs and its block loop:
+# (k, batch, n, seed, where every slot of a row, or every row, takes one index)
+LONG_RUN_SHAPES = {
+    "k1_every_row_one_index": (1, 256, 700, 21, "rows"),
+    "row_on_one_index": (32, 64, 300, 22, "row"),
+    "batch_1000": (17, 1000, 2500, 23, None),
+    "batch_4096": (9, 4096, 5000, 24, None),
+}
+
+
+def long_run_rows(case, loss="squared"):
+    k, batch, n, seed, one = LONG_RUN_SHAPES[case]
+    idx, val, y, wt = rows(n, k, seed, loss=loss)
+    if one == "rows":      # K = 1, every row on one index: one run the size of the minibatch
+        idx[:] = 7
+        val[:] = np.where(val == 0, np.float32(0.5), val)
+    elif one == "row":     # one row of each minibatch holds a single index in all slots
+        idx[5::batch] = 3
+        val[5::batch] = np.where(val[5::batch] == 0, np.float32(-0.25), val[5::batch])
+    return (idx, val, y, wt), batch
+
+
+@pytest.mark.parametrize("case", sorted(LONG_RUN_SHAPES))
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("loss", ["squared", "quantile", "hinge"])
+def test_learner_weights_bitwise_at_long_runs(loss, adaptive, case):
+    data, batch = long_run_rows(case, loss)
+    got, want = fit_both(data, loss=loss, adaptive=adaptive, batch=batch, num_passes=2,
+                         lr=0.5 if adaptive else 0.05, quantile_tau=0.3)
+    assert bits_equal(got, want)
+    assert np.count_nonzero(got) >= (1 if case.startswith("k1") else 100)
+
+
+def apply_by_plan(g, w, g2, step, plan, b, *, lr, eps, adaptive):
+    """The pass kernel's apply phase over minibatch b's plan, in numpy f32:
+    each run from its stored value, in its order, short and long alike (a
+    warp forms a long run's products in parallel and keeps the same chains)."""
+    f32 = np.float32
+    order, rs, ri = (t.numpy() for t in (plan.order, plan.run_start, plan.run_index))
+    lo, hi = int(plan.mb_long[b]), int(plan.mb_long[b + 1])
+    longs = set(plan.long_runs[lo:hi].tolist())
+    gflat = g.reshape(-1).numpy()
+    for r in range(int(plan.mb_runs[b]), int(plan.mb_runs[b + 1])):
+        s, e, i = int(rs[r]), int(rs[r + 1]), int(ri[r])
+        assert (e - s >= PS.LONG_RUN) == (r in longs)
+        gj = gflat[order[s:e]]
+        wi = w[i]
+        if adaptive:
+            acc = g2[i]
+            for p in gj * gj:
+                acc = f32(acc + p)
+            g2[i] = acc
+            denom = f32(np.sqrt(acc) + f32(eps))
+            upd = (f32(-lr) * gj) / denom
+        else:
+            upd = -step * gj
+        for u in upd:
+            wi = f32(wi + u)
+        w[i] = wi
+
+
+@pytest.mark.parametrize("case", sorted(LONG_RUN_SHAPES))
+def test_sgd_plan_long_runs(case):
+    """The plan's long-run list: every run short or long, never both; long
+    runs of at least LONG_RUN entries, in (row, slot) order; run_index and
+    meta as the kernel reads them. Applied run by run as the kernel applies
+    them, the plan gives the plain version's bits."""
+    (idx, val, y, wt), batch = long_run_rows(case)
+    n_pad = -(-len(y) // batch) * batch
+    pad = n_pad - len(y)
+    it = torch.from_numpy(np.concatenate([idx, np.zeros((pad, idx.shape[1]), idx.dtype)])
+                          .astype(np.int32))
+    vt = torch.from_numpy(np.concatenate([val, np.zeros((pad, val.shape[1]), np.float32)]))
+    yt = torch.from_numpy(np.concatenate([y, np.zeros(pad, np.float32)]))
+    wtt = torch.from_numpy(np.concatenate([wt, np.zeros(pad, np.float32)]))
+    plan = PS.sgd_plan(it, vt, batch, 1 << BITS)
+    nb = n_pad // batch
+    starts = plan.run_start.long()
+    lengths = starts[1:] - starts[:-1]
+    longs = plan.long_runs.long()
+    assert (lengths[longs] >= PS.LONG_RUN).all()
+    short = torch.ones_like(lengths, dtype=torch.bool)
+    short[longs] = False
+    assert (lengths[short] < PS.LONG_RUN).all()
+    assert int(short.sum()) + longs.numel() == lengths.numel()
+    assert longs.numel() >= nb - (case == "row_on_one_index")
+    order = plan.order.long()
+    for b in range(nb):
+        flat = it[b * batch:(b + 1) * batch].reshape(-1)
+        for r in longs[int(plan.mb_long[b]):int(plan.mb_long[b + 1])].tolist():
+            assert int(plan.mb_runs[b]) <= r < int(plan.mb_runs[b + 1])
+            pos = order[starts[r]:starts[r + 1]]
+            assert (pos[1:] > pos[:-1]).all()
+            assert (flat[pos] == plan.run_index[r]).all()
+    meta = plan.meta.long()
+    assert meta.shape == (nb + 1, 4) and plan.meta.is_contiguous()
+    assert torch.equal(meta[:, 0], plan.mb_runs.long())
+    assert torch.equal(meta[:, 1], starts[plan.mb_runs.long()])
+    assert torch.equal(meta[:, 2], plan.mb_long.long())
+    for b in range(nb):   # packed: the minibatch's order, run_start and run_index slices
+        r0, r1, e0, e1 = (int(x) for x in (meta[b, 0], meta[b + 1, 0], meta[b, 1], meta[b + 1, 1]))
+        assert torch.equal(plan.packed[int(meta[b, 3]):int(meta[b + 1, 3])], torch.cat(
+            [plan.order[e0:e1], plan.run_start[r0:r1 + 1], plan.run_index[r0:r1]]))
+    assert int(meta[-1, 3]) == plan.packed.numel()
+    assert plan.max_entries == int((meta[1:, 1] - meta[:-1, 1]).max())
+    for adaptive in (True, False):
+        kw = dict(lr=0.5 if adaptive else 0.05, eps=1e-6, adaptive=adaptive)
+        steps = torch.from_numpy(PS.step_table(kw["lr"], 0.5, 0.0, nb))
+        w, g2 = torch.zeros(1 << BITS), torch.zeros(1 << BITS)
+        wn, g2n = w.numpy().copy(), g2.numpy().copy()
+        for b in range(nb):
+            rows_ = slice(b * batch, (b + 1) * batch)
+            g = PS.grad_plain(it[rows_], vt[rows_], yt[rows_], wtt[rows_], torch.from_numpy(wn),
+                              loss="squared", tau=0.5, l2=0.0)
+            apply_by_plan(g, wn, g2n, steps.numpy()[b], plan, b, **kw)
+        PS.sgd_pass_plain(it, vt, yt, wtt, w, g2, None if adaptive else steps, loss="squared",
+                          batch=batch, tau=0.5, l2=0.0, **kw)
+        assert bits_equal(wn, w.numpy()) and bits_equal(g2n, g2.numpy())
+
+
+# (batch, k, max_runs, max_entries) -> where g lives: shared memory or device memory
+LAYOUTS = {
+    "v2_1024x17": (1024, 17, 2000, 13_300, True),
+    "b1000x17": (1000, 17, 1900, 13_000, True),
+    "b64x17": (64, 17, 800, 900, True),
+    "b1024x64": (1024, 64, 9000, 52_000, False),
+    "b4096x17": (4096, 17, 9000, 55_000, False),
+    "b4096x64": (4096, 64, 30_000, 200_000, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_pass_layout_follows_the_shape(case):
+    """g lives in shared memory exactly where its batch * K * 4 bytes fit
+    beside the kernel's fixed bytes (mbarriers, chain windows); the plan
+    slices after it where they fit; 16-byte aligned, within the
+    227 KB a block may opt in to; one thread a row or run up to 1,024. The
+    same shape gives the same layout."""
+    batch, k, runs, entries, g_in_smem = LAYOUTS[case]
+    lay = PS.pass_layout(batch, k, runs, entries)
+    assert lay == PS.pass_layout(batch, k, runs, entries)
+    assert (lay.g_off >= 0) == g_in_smem == (PS.SMEM_FIXED + batch * k * 4 <= PS.SMEM_BYTES)
+    assert lay.smem_bytes <= PS.SMEM_BYTES
+    sizes = {"g_off": batch * k * 4, "plan_off": (entries + 2 * runs + 1) * 4 + PS.SLACK}
+    placed = sorted((getattr(lay, f), sizes[f]) for f in sizes if getattr(lay, f) >= 0)
+    end = PS.SMEM_FIXED
+    for off, nbytes in placed:
+        assert off % 16 == 0 and off >= end
+        end = off + nbytes
+    assert end <= lay.smem_bytes
+    assert lay.threads % 32 == 0 and lay.threads == min(1024, -(-max(batch, runs) // 32) * 32)
+    # a cluster only where g is in shared memory, a power of two of blocks of 128 rows or more
+    assert lay.ctas in (1, 2, 4, 8) and (lay.ctas == 1 or lay.g_off >= 0)
+    assert lay.ctas == 1 or batch // lay.ctas >= PS.CLUSTER_ROWS
+    assert lay.ctas == {"v2_1024x17": 8, "b1000x17": 4, "b64x17": 1}.get(case, 1)
+    if case in ("v2_1024x17", "b64x17"):   # the main path's shapes: g and the plan staged
+        assert lay.plan_off > lay.g_off >= 0
+
+
 def test_step_table_matches_the_jax_schedule():
     import jax
     import jax.numpy as jnp
