@@ -65,8 +65,10 @@ IndexToValue pipeline on the card and on the CPU, held-out AUC; a
 squared-loss regressor whose card weights equal the CPU's bit for bit; a
 contextual bandit against the uniform policy; the native murmur3 library
 must load), each kernel's time (eager and in a CUDA graph, the library
-calls alike) beside its byte bound and chain floor, and where a fit's time
-goes (launches a pass, the pass's device ms).
+calls alike) beside its byte bound and chain floor, ``vw_margin`` also at
+newsgroup-length rows (20,000 x 481) and a million rows x 41, bitwise the
+CPU there too, and where a fit's time goes (launches a pass, the pass's
+device ms).
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -1845,6 +1847,11 @@ VW_LONG_RUN_SHAPES = {"k1_every_row_one_index": (1, 256, 700, 21, "rows"),
                       "row_on_one_index": (32, 64, 300, 22, "row"),
                       "batch_1000": (17, 1000, 2500, 23, None),
                       "batch_4096": (9, 4096, 5000, 24, None)}
+# vw_margin's shapes beyond V2's held-out rows (M1, 20,000 x 17): (rows, fewest and most
+# tokens a row, seed); M2 newsgroup-length posts (K = 481), M3 a large scoring batch at
+# the width the CPU tests call wide (K = 41)
+VW_MARGIN_SHAPES = {"M2": (20_000, 32, 480, 12), "M3": (1_000_000, 1, 40, 13)}
+VW_MARGIN_VOCAB = 50_000
 
 
 def vw_texts(n: int = VW_ROWS):
@@ -1897,6 +1904,35 @@ def _vw_long_run_rows(case, bits, loss):
         idx[5::batch] = 3
         val[5::batch] = np.where(val[5::batch] == 0, np.float32(-0.25), val[5::batch])
     return (idx, val, y, wt), batch
+
+
+def vw_margin_rows(name: str):
+    """Hashed text rows for vw_margin's shapes M2 and M3 (VW_MARGIN_SHAPES):
+    each row's length uniform in [lo, hi] tokens, each token drawn from a
+    VW_MARGIN_VOCAB-word vocabulary by Zipf's law (p ~ 1 / rank) and hashed
+    into 2^VW_BITS weights (collisions kept), its value its count (1 to 3)
+    over sqrt(length); padded with (0, 0.0) to the longest row rounded up to
+    8 and the Constant slot appended, as ``pad_sparse_batch`` and the
+    estimators do. Returns int32 idx and f32 val (n, K) and f32 weights
+    (2^VW_BITS,), all from the shape's seed."""
+    from mmlspark_tpu_torch.vw.estimators import _constant_slot
+
+    n, lo, hi, seed = VW_MARGIN_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    hashes = rng.integers(0, 1 << VW_BITS, size=VW_MARGIN_VOCAB).astype(np.int32)
+    cdf = np.cumsum(1.0 / np.arange(1, VW_MARGIN_VOCAB + 1))
+    lengths = rng.integers(lo, hi + 1, size=n)
+    width = -(-int(lengths.max()) // 8) * 8
+    filled = np.arange(width)[None, :] < lengths[:, None]
+    tokens = np.searchsorted(cdf, rng.random(int(lengths.sum())) * cdf[-1])
+    counts = rng.integers(1, 4, size=tokens.size)
+    idx = np.zeros((n, width + 1), np.int32)
+    val = np.zeros((n, width + 1), np.float32)
+    idx[:, :width][filled] = hashes[tokens]
+    val[:, :width][filled] = (counts / np.sqrt(np.repeat(lengths, lengths))).astype(np.float32)
+    idx[:, width], val[:, width] = _constant_slot(VW_BITS), 1.0
+    w = (rng.normal(size=1 << VW_BITS) * 0.1).astype(np.float32)
+    return idx, val, w
 
 
 def vw_kernel_checks() -> dict:
@@ -2232,7 +2268,8 @@ def vw_times(train) -> dict:
     """Each kernel at the main path's shapes (V2: a minibatch of 1,024 rows
     x 17 slots, through the stand-alone grad and apply phases of the pass
     kernel; a whole pass over V2's 100,000 rows at batch 1,024; scoring
-    20,000 rows): its max |card - CPU plain version| on the same inputs, and
+    V2's 20,000 held-out rows, M1, and M2 and M3 of ``vw_margin_rows``): its
+    max |card - CPU plain version| on the same inputs, and
     its time, eager and in a CUDA graph, against its plain version and one
     PyTorch call, timed the same two ways (``index_add_`` for the apply
     phase's scatter, ``embedding_bag`` for vw_margin's sparse dot; the grad
@@ -2262,7 +2299,6 @@ def vw_times(train) -> dict:
     n_m = VW_HOLDOUT
     im = torch.from_numpy(idx[n - n_m:n]).to(DEV)
     vm = torch.from_numpy(val[n - n_m:n]).to(DEV)
-    im64, w1 = im.long(), w[:, None]
     # the whole pass, at V2's 100,000 rows in minibatches of 1,024
     it, vt, yt, wtt = (torch.from_numpy(a).to(DEV) for a in (idx, val, yall, wtall))
     pplan = sgd.sgd_plan(it, vt, b, d)
@@ -2280,11 +2316,6 @@ def vw_times(train) -> dict:
                           lambda: sgd.sgd_pass_plain(it, vt, yt, wtt, wq, g2q, None, **pass_kw),
                           None, _vw_pass_bytes(len(idx), k, pplan),
                           len(idx) * k * 6 + int(pplan.run_start[-1]) * 5, iters=3),
-        "vw_margin": _timed(lambda: sgd.vw_margin(im, vm, w),
-                            lambda: sgd.margin_plain(im, vm, w),
-                            lambda: torch.nn.functional.embedding_bag(
-                                im64, w1, per_sample_weights=vm, mode="sum"),
-                            n_m * k * 12 + n_m * 4, n_m * k * 2),
     }
     out["vw_apply"].update(entries=e, runs=r, longest_run=int(
         (plan.run_start[1:] - plan.run_start[:-1]).max()),
@@ -2294,7 +2325,7 @@ def vw_times(train) -> dict:
     # max |card - CPU plain| of each kernel on these inputs: vw_grad and the
     # pass within VW_EXP_TOL * max |g| or |w| (logistic calls expf), vw_apply
     # and vw_margin bitwise
-    host = [a.cpu() for a in (ib, vb, y, wt, w, g2, g, im, vm)]
+    host = [a.cpu() for a in (ib, vb, y, wt, w, g2, g)]
     g_cpu = sgd.grad_plain(*host[:5], **grad_kw)
     wa, g2a, wc, g2c = w.clone(), g2.clone(), host[4].clone(), host[5].clone()
     sgd.vw_apply_step(ib, g, wa, g2a, None, plan, **apply_kw)
@@ -2308,17 +2339,56 @@ def vw_times(train) -> dict:
         "vw_grad": float((g.cpu() - g_cpu).abs().max()),
         "vw_apply": max(float((wa.cpu() - wc).abs().max()), float((g2a.cpu() - g2c).abs().max())),
         "vw_pass": float((wp.cpu() - wpc).abs().max()),
-        "vw_margin": float((sgd.vw_margin(im, vm, w).cpu()
-                            - sgd.margin_plain(host[7], host[8], host[4])).abs().max()),
     }
     if (errs["vw_grad"] > VW_EXP_TOL * float(g_cpu.abs().max())
             or errs["vw_pass"] > VW_EXP_TOL * float(wpc.abs().max())
-            or errs["vw_apply"] or errs["vw_margin"]):
+            or errs["vw_apply"]):
         raise AssertionError(f"vw kernels at the main path's shapes differ from the CPU: {errs}")
     for name, err in errs.items():
         out[name]["max_abs_err"] = err
+    # vw_margin at V2's held-out rows (M1, the record's own numbers) and at M2, M3
+    shapes = {"M1": vw_margin_shape(im, vm, w)}
+    for name in VW_MARGIN_SHAPES:
+        shapes[name] = vw_margin_shape(*(torch.from_numpy(a).to(DEV)
+                                         for a in vw_margin_rows(name)))
+        torch.cuda.empty_cache()
+    out["vw_margin"] = {**shapes["M1"], "shapes": shapes}
     phase("vw", part="times", batch=b, k=k, sm_clock_hz=clock, fadd_cycles=FADD_CYCLES, **out)
     return out
+
+
+def vw_margin_shape(idx, val, w) -> dict:
+    """vw_margin on (n, K) rows on the card: one launch a call, its margins
+    bitwise the plain version's on the CPU (max |card - CPU| must be 0), and
+    its time eager and in a CUDA graph beside ``margin_plain`` and
+    ``embedding_bag`` timed the same two ways, its byte bound (each input
+    read once: the rows' indices and values, each weight they touch; the
+    margins written: n K 8 + 4 distinct + n 4 bytes) and its share of that
+    bound in the graph; beside it the earlier count, which takes a
+    weight read from device memory for every slot (n K 12 + n 4 bytes; the
+    gathers mostly hit the L2 cache, which holds all 2^18 weights)."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    n, k = idx.shape
+    sgd.reset_launch_counts()
+    got = sgd.vw_margin(idx, val, w).cpu()
+    launched = sgd.launches["vw_margin"]
+    cpu = sgd.margin_plain(idx.cpu(), val.cpu(), w.cpu())
+    if launched != 1 or not _bits_equal(got.numpy(), cpu.numpy()):
+        raise AssertionError(f"vw_margin at {n} x {k}: {launched} launches, max |card - cpu| "
+                             f"{float((got - cpu).abs().max())}")
+    idx64, w1 = idx.long(), w[:, None]
+    rec = _timed(lambda: sgd.vw_margin(idx, val, w), lambda: sgd.margin_plain(idx, val, w),
+                 lambda: torch.nn.functional.embedding_bag(idx64, w1, per_sample_weights=val,
+                                                           mode="sum"),
+                 n * k * 8 + 4 * int(torch.unique(idx).numel()) + n * 4, n * k * 2)
+    gather_bound = (n * k * 12 + n * 4) / HBM_BYTES_PER_S * 1e3
+    rec.update(rows=n, k=k, max_abs_err=float((got - cpu).abs().max()), launches_a_call=launched,
+               share_of_bound=rec["bound_ms"] / rec["device_ms"], gather_bound_ms=gather_bound,
+               share_of_gather_bound=gather_bound / rec["device_ms"],
+               padding_share=float((val == 0).float().mean()),
+               layout=sgd.margin_layout(n, k, sgd._sm_count(DEV.index or 0))._asdict())
+    return rec
 
 
 def vw_breakdown(fdf, batch: int, passes: int, name: str) -> dict:
@@ -2513,6 +2583,12 @@ def main() -> None:
             rec.update(runs_inside="vw_pass", standalone_launches=v2_launches[name])
         if "chain_floor_ms" in t:
             rec["chain_floor_ms"] = t["chain_floor_ms"]
+        if "shapes" in t:
+            rec["shapes"] = {m: {key: v[key] for key in (
+                "rows", "k", "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                "library_device_ms", "bound_ms", "share_of_bound", "gather_bound_ms",
+                "max_abs_err")}
+                for m, v in t["shapes"].items()}
         kernels.append(rec)
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

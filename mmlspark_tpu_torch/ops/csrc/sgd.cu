@@ -38,7 +38,9 @@
 //                window's terms formed while the chain runs. Short runs go to
 //                the warps on the other schedulers, so none takes issue slots
 //                from a chain.
-//   vw_margin <- learner.py:337-346: one thread per row, the same FMA chain.
+//   vw_margin <- learner.py:337-346: scoring, the same FMA chain a row, in
+//             its own persistent kernel that gathers panels of rows into
+//             shared memory (vw_margin_kernel, below).
 //
 // Shared memory. The minibatch's g lives in shared memory where it fits in
 // the 227 KB a block may opt in to, then the plan's slices of the minibatch
@@ -80,7 +82,6 @@
 
 namespace {
 
-constexpr int kMarginThreads = 128;
 constexpr int kMaxThreads = 1024;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -95,13 +96,6 @@ constexpr int kWindowOff = 16;
 constexpr int kWindow = 128;
 
 enum Loss { kLogistic = 0, kSquared = 1, kQuantile = 2, kHinge = 3, kPoisson = 4 };
-
-__device__ __forceinline__ float margin_of(const int32_t* ri, const float* rv,
-                                           const float* w, int k) {
-  float m = 0.0f;
-  for (int j = 0; j < k; ++j) m = __fmaf_rn(w[ri[j]], rv[j], m);
-  return m;
-}
 
 __device__ __forceinline__ float dloss(int loss, float m, float y, float tau_hi,
                                        float tau_lo) {
@@ -553,12 +547,194 @@ __global__ void __launch_bounds__(kMaxThreads, 1) vw_pass_kernel(const PassArgs 
 
 using PassKernel = void (*)(PassArgs);
 
-__global__ void vw_margin(const int32_t* __restrict__ idx, const float* __restrict__ val,
-                          const float* __restrict__ w, float* __restrict__ out, int n,
-                          int k) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  out[r] = margin_of(idx + (int64_t)r * k, val + (int64_t)r * k, w, k);
+// -- the scoring kernel ------------------------------------------------------------
+
+// Built with -DVW_PROFILE, block 0's thread 0 stamps the SM's clock at
+// kMProfMarks points of each of its first kMProfPanels panels: 0 the top, 1
+// its own gathered weights stored (their loads were issued a panel ahead),
+// 2 every thread's stored (past the barrier), 3 the chains done (past the
+// barrier).
+#ifdef VW_PROFILE
+constexpr int kMProfPanels = 4096, kMProfMarks = 4;
+__device__ long long vw_mprof[kMProfPanels][kMProfMarks];
+#define VW_MMARK(p, slot)                                              \
+  if (blockIdx.x == 0 && threadIdx.x == 0 && (p) < kMProfPanels) {     \
+    long long t_;                                                      \
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t_)::"memory");       \
+    vw_mprof[p][slot] = t_;                                            \
+  }
+#else
+#define VW_MMARK(p, slot)
+#endif
+
+constexpr int kMarginMaxThreads = 512;
+constexpr int kMarginPer = 16;  // slots a thread brings in for each panel
+
+struct MarginArgs {
+  const int32_t* idx;  // (n, k)
+  const float* val;    // (n, k)
+  const float* w;      // (D,)
+  float* out;          // (n,)
+  int64_t n;
+  int k;
+  int64_t rows;        // rows a block: block b takes rows [b rows, (b + 1) rows)
+  int panel_rows;      // R: rows a panel
+  int chunk;           // C: slots a panel takes of each of its rows (a K chunk)
+  int stride;          // R rounded up to odd: the rows of a slot in W and V in shared memory
+  int direct;          // 1: each thread walks its own rows' slots (no panels)
+};
+
+// vw_margin <- learner.py:337-346. out[r] = m, m = fma(w[idx[r, j]],
+// val[r, j], m) over j = 0 .. k - 1 from +0.0, serially.
+//
+// Persistent: block b takes a.rows consecutive rows. Where those hold no
+// more than a panel's slots (a.direct: 20,000 x 17 on 132 SMs), each thread
+// walks its own rows' slots where they lie, a row a thread: a DRAM
+// round trip then the gathers', with nothing to overlap, so panels only add
+// a barrier and a trip through shared memory. Else it walks them in panels
+// of R rows x C slots, chunk after chunk of K, group of R rows after group
+// (ops/sgd.py::margin_layout picks the path, R, C and the grid). A panel:
+//   loads    thread t brings in the panel's slots t, t + T, ... (kMarginPer
+//            of them, T threads; flat over R x C, slot fastest: neighbouring
+//            threads read neighbouring slots of a row) from device memory
+//            into registers, by ld.global.cg (L2 only, so the rows stream
+//            past the L1 cache, which keeps the weights), one panel ahead:
+//            while panel p is gathered and chained, panel p + 1's rows are
+//            in flight;
+//   gathers  the thread gathers w at its kMarginPer indices, all loads in
+//            flight at once (index 0, the padding's, from a register), and
+//            stores each weight and its value in shared memory as
+//            W[slot][row], V[slot][row] (rows an odd number apart: no bank
+//            conflicts);
+//   chains   one thread a row (R <= T where K is chunked): the serial fma
+//            chain over the panel's C slots of its row, reading W[j][r] and
+//            V[j][r] with the lanes on neighbouring words, the next 8 slots'
+//            loads in flight while 8 fmas run; the running
+//            margin stays in the thread's register from chunk to chunk, so
+//            the order, and the bits, are the one-row chain's.
+// The rows' indices and values are read once, coalesced; the gathers hit
+// the L1 and L2 caches (2^18 weights are 1 MB). Bound: each input read once
+// (8 bytes a slot, 4 a weight touched) at the card's memory rate. What sets
+// the time instead is the gathers: a warp's 32 loads of w touch up to 32 L1
+// lines, each one a wavefront of the L1's pipe (PERF.md).
+__global__ void __launch_bounds__(kMarginMaxThreads) vw_margin_kernel(const MarginArgs a) {
+  extern __shared__ __align__(16) float msm[];
+  const int R = a.panel_rows, C = a.chunk, T = blockDim.x, S = a.stride;
+  float* W = msm;          // the weight of slot j, row r at W[j S + r]
+  float* V = msm + C * S;  // its value at V[j S + r]
+  const int64_t r_lo = (int64_t)blockIdx.x * a.rows;
+  if (r_lo >= a.n) return;  // (the whole block)
+  const int nrows = (int)(a.n - r_lo < a.rows ? a.n - r_lo : a.rows);
+  if (a.direct) {  // a block of a few rows: a thread a row, its slots read where they lie
+    for (int r = threadIdx.x; r < nrows; r += T) {
+      const int32_t* ri = a.idx + (r_lo + r) * a.k;
+      const float* rv = a.val + (r_lo + r) * a.k;
+      float mm = 0.0f;
+      for (int j = 0; j < a.k; ++j) mm = __fmaf_rn(__ldg(a.w + ri[j]), rv[j], mm);
+      a.out[r_lo + r] = mm;
+    }
+    return;
+  }
+  const int groups = (nrows + R - 1) / R, chunks = (a.k + C - 1) / C;
+  const int panels = groups * chunks;
+  const float w0 = __ldg(a.w);  // index 0 (the padding's): one load, not one a slot
+
+  // this thread's slots of a panel, as (row, slot) pairs (-1: none)
+  int rj[kMarginPer];
+  {
+    int r = threadIdx.x / C;
+    int j = threadIdx.x - r * C;
+    const int dr = T / C, dj = T - dr * C;
+#pragma unroll
+    for (int i = 0; i < kMarginPer; ++i) {
+      rj[i] = r < R ? (r << 16) | j : -1;  // (R < 2^15, C < 2^16)
+      r += dr;
+      j += dj;
+      if (j >= C) {
+        j -= C;
+        ++r;
+      }
+    }
+  }
+  int32_t ix[kMarginPer];
+  float vx[kMarginPer];
+  // brings panel p's slots into ix and vx (indices 0 and values 0 where the
+  // thread has no slot: the last group's missing rows, the last chunk's)
+  auto load = [&](int p) {
+    const int g = p / chunks, c = p - g * chunks;
+    const int rg = min(R, nrows - g * R), cc = min(C, a.k - c * C);
+    const int64_t base = (r_lo + (int64_t)g * R) * a.k + (int64_t)c * C;
+    const int32_t* pi = a.idx + base;
+    const float* pv = a.val + base;
+#pragma unroll
+    for (int i = 0; i < kMarginPer; ++i) {
+      const bool ok = p < panels && rj[i] >= 0 && (rj[i] >> 16) < rg && (rj[i] & 0xffff) < cc;
+      const int at = (rj[i] >> 16) * a.k + (rj[i] & 0xffff);  // (rows k < 2^31)
+      ix[i] = ok ? __ldcg(pi + at) : 0;
+      vx[i] = ok ? __ldcg(pv + at) : 0.0f;
+    }
+  };
+  load(0);
+
+  float m = 0.0f;  // this thread's row's running margin, carried from chunk to chunk
+  for (int p = 0; p < panels; ++p) {
+    VW_MMARK(p, 0);
+    const int g = p / chunks, c = p - g * chunks;
+    const int rg = min(R, nrows - g * R), cc = min(C, a.k - c * C);
+    float ww[kMarginPer];
+#pragma unroll
+    for (int i = 0; i < kMarginPer; ++i) ww[i] = ix[i] ? __ldg(a.w + ix[i]) : w0;
+#pragma unroll
+    for (int i = 0; i < kMarginPer; ++i)
+      if (rj[i] >= 0 && (rj[i] >> 16) < rg && (rj[i] & 0xffff) < cc)
+        V[(rj[i] & 0xffff) * S + (rj[i] >> 16)] = vx[i];
+    load(p + 1);
+#pragma unroll
+    for (int i = 0; i < kMarginPer; ++i)
+      if (rj[i] >= 0 && (rj[i] >> 16) < rg && (rj[i] & 0xffff) < cc)
+        W[(rj[i] & 0xffff) * S + (rj[i] >> 16)] = ww[i];
+    VW_MMARK(p, 1);
+    __syncthreads();
+    VW_MMARK(p, 2);
+    for (int r = threadIdx.x; r < rg; r += T) {
+      float mm = c == 0 ? 0.0f : m;
+      const float* wr = W + r;
+      const float* vr = V + r;
+      int j = 0;
+      if (cc >= 8) {  // the next 8 slots' loads in flight while 8 fmas run
+        float x[8], y[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          x[u] = wr[u * S];
+          y[u] = vr[u * S];
+        }
+        for (j = 8; j + 8 <= cc; j += 8) {
+          float xn[8], yn[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            xn[u] = wr[(j + u) * S];
+            yn[u] = vr[(j + u) * S];
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) mm = __fmaf_rn(x[u], y[u], mm);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            x[u] = xn[u];
+            y[u] = yn[u];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) mm = __fmaf_rn(x[u], y[u], mm);
+      }
+      for (; j < cc; ++j) mm = __fmaf_rn(wr[j * S], vr[j * S], mm);
+      if (c == chunks - 1)
+        a.out[r_lo + (int64_t)g * R + r] = mm;
+      else
+        m = mm;
+    }
+    __syncthreads();
+    VW_MMARK(p, 3);
+  }
 }
 
 }  // namespace
@@ -647,14 +823,62 @@ int mmlspark_vw_fadd_cycles(int n, long long* out) {
 int mmlspark_vw_prof_read(long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, vw_prof, sizeof(long long) * kProfMarks * n);
 }
+
+// The SM cycles of n dependent __fmaf_rn on one thread (the scoring chain's
+// unit), written to out[0].
+__global__ void vw_fma_cycles(float x, float y, int n, long long* out) {
+  float acc = x;
+  long long t0, t1;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t0)::"memory");
+  for (int j = 0; j < n; j += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = __fmaf_rn(x, y, acc);
+  }
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t1)::"memory");
+  out[0] = t1 - t0;
+  out[1] = __float_as_int(acc);  // keeps the chain
+}
+
+int mmlspark_vw_fma_cycles(int n, long long* out) {
+  vw_fma_cycles<<<1, 1>>>(1.0f, 0.5f, n, out);
+  return (int)cudaDeviceSynchronize();
+}
+
+// Copies the clock stamps of the last scoring launch (block 0's first n
+// panels x kMProfMarks) to the host.
+int mmlspark_vw_mprof_read(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, vw_mprof, sizeof(long long) * kMProfMarks * n);
+}
 #endif
 
-// out[r] = serial FMA chain of w[idx[r, j]] * val[r, j] over j < k.
+// out[r] = serial FMA chain of w[idx[r, j]] * val[r, j] over j < k, in one
+// launch of `blocks` blocks of `threads`, each taking `rows` rows in panels
+// of panel_rows rows x chunk slots, W and V `stride` floats a slot in
+// shared memory (smem_bytes in all), or (direct) a thread a row; all from
+// ops/sgd.py::margin_layout.
+// Returns the launch's CUDA error (0 = accepted).
 int mmlspark_vw_margin(const int32_t* idx, const float* val, const float* w, float* out,
-                       int n, int k, void* stream) {
-  if (n == 0) return 0;
-  vw_margin<<<(n + kMarginThreads - 1) / kMarginThreads, kMarginThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(idx, val, w, out, n, k);
+                       long long n, int k, long long rows, int panel_rows, int chunk, int stride,
+                       int direct, int threads, int blocks, int smem_bytes, void* stream) {
+  if (n == 0 || k == 0) return 0;
+  if (threads < kWarp || threads > kMarginMaxThreads || threads % kWarp || rows < 1 ||
+      blocks < 1 || rows * (long long)k >= (1LL << 31) || (long long)blocks * rows < n ||
+      (!direct && (panel_rows < 1 || panel_rows >= (1 << 15) || chunk < 1 || chunk > k ||
+                   stride < panel_rows || stride % 2 == 0 ||
+                   (long long)panel_rows * chunk > (long long)kMarginPer * threads ||
+                   (chunk < k && panel_rows > threads) ||
+                   smem_bytes < 2 * chunk * stride * 4)))
+    return (int)cudaErrorInvalidValue;
+  static int opted = 0;  // the dynamic shared memory the kernel opted in to
+  if (smem_bytes > 48 * 1024 && smem_bytes > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vw_margin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem_bytes;
+  }
+  const MarginArgs a{idx, val, w, out, (int64_t)n, k, (int64_t)rows, panel_rows, chunk,
+                     stride, direct};
+  vw_margin_kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

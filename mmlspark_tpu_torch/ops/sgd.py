@@ -20,7 +20,12 @@ apply phase between barriers:
   thread's; a longer one (the Constant slot's) is one warp's, which forms
   the products and quotients 128 at a time and keeps both serial chains in
   order;
-- ``vw_margin``, one thread per row: the same chain, for scoring.
+- ``vw_margin``, for scoring: the same chain a row, in a persistent kernel
+  whose blocks walk panels of rows (a chunk of K at a time where rows are
+  long), every thread loading and gathering slots one panel ahead, one
+  chain a thread from shared memory; a block of a few rows takes no panels
+  (a thread a row); ``margin_layout`` picks the path, the panels and the
+  grid from the shape.
 
 ``pass_layout`` decides from the shapes where a minibatch lives (g and the
 plan's slices in shared memory where they fit) and the cluster.
@@ -316,6 +321,73 @@ def pass_layout(batch: int, k: int, max_runs: int, max_entries: int) -> Layout:
     return Layout(ctas, threads, offs["g"], offs["plan"], used)
 
 
+class MarginLayout(NamedTuple):
+    """``vw_margin``'s launch: ``blocks`` blocks of ``threads``, block b taking
+    rows [b rows, (b + 1) rows) in panels of ``panel_rows`` rows x ``chunk``
+    slots (a chunk of K; all of K where it fits), its weights and values in
+    shared memory ``stride`` floats a slot, ``smem_bytes`` in all; or, where
+    ``direct``, a thread a row and no panels (the block's rows as one panel
+    of whole rows, no shared memory)."""
+
+    threads: int
+    blocks: int
+    rows: int
+    panel_rows: int
+    chunk: int
+    stride: int
+    direct: bool
+    smem_bytes: int
+
+
+MARGIN_THREADS = 256
+MARGIN_PER = 16            # slots each thread brings in a panel (the kernel's kMarginPer)
+MARGIN_BLOCKS_PER_SM = 2
+MARGIN_MIN_SLOTS = 512     # the fewest slots a block takes, where the rows allow it
+MARGIN_PANEL_ROWS = 64     # K is cut into chunks where fewer whole rows than this fit
+                           # in a panel, so that many chains run side by side
+MARGIN_DIRECT_SLOTS = 4096 # a block of at most this many slots takes no panels: a
+                           # thread a row walks its slots
+H100_SMS = 132
+
+
+def margin_layout(n: int, k: int, sms: int = H100_SMS) -> MarginLayout:
+    """``vw_margin``'s launch from the shape alone. Up to
+    ``MARGIN_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, each at least
+    ``MARGIN_MIN_SLOTS`` slots where there are enough (so 20,000 x 17 rows
+    still spread over every SM), whole rows each; ``MARGIN_THREADS``
+    threads a block, fewer where a block has fewer than ``MARGIN_PER`` slots
+    for each. A panel holds at most ``MARGIN_PER`` slots a thread: whole rows
+    where ``MARGIN_PANEL_ROWS`` of them fit, else as many rows as the block
+    has threads (one chain a thread, its margin carried) x a chunk of K; a
+    block's groups of rows then made equal, and the chunks of K too. Shared
+    memory grows with the panel, not with K. A block of at most
+    ``MARGIN_DIRECT_SLOTS`` slots and ``MARGIN_THREADS`` rows takes no panels
+    (``direct``): a thread a row walks its slots, with no shared memory."""
+    blocks = max(1, min(MARGIN_BLOCKS_PER_SM * sms, -(-max(1, n * k) // MARGIN_MIN_SLOTS), n))
+    rows = -(-n // blocks)
+    blocks = -(-n // rows)
+    if rows * k >= 2 ** 31:
+        raise ValueError(f"{rows} rows x {k} slots a block overflow the kernel's int32 offsets")
+    if rows * k <= MARGIN_DIRECT_SLOTS and rows <= MARGIN_THREADS:
+        return MarginLayout(-(-rows // 32) * 32, blocks, rows, rows, k, rows | 1, True, 0)
+    threads = min(MARGIN_THREADS, -(-rows * k // (32 * MARGIN_PER)) * 32)
+    tile = MARGIN_PER * threads
+    if k * min(rows, MARGIN_PANEL_ROWS) <= tile:   # whole rows
+        r = min(rows, tile // k)
+    else:                                          # K in chunks: one row a thread
+        r = min(rows, threads)
+    r = -(-rows // -(-rows // r))                  # equal groups of rows
+    c = max(1, min(k, tile // r))
+    c = -(-k // -(-k // c))                        # equal chunks of K
+    stride = r | 1
+    return MarginLayout(threads, blocks, rows, r, c, stride, False, 2 * c * stride * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib() -> ctypes.CDLL:
     from mmlspark_tpu_torch.ops.cuda_build import library
 
@@ -323,7 +395,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_mmlspark_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.mmlspark_vw_pass.argtypes = [p] * 11 + [i] * 4 + [f] * 5 + [i] * 8 + [p]
-        lib.mmlspark_vw_margin.argtypes = [p, p, p, p, i, i, p]
+        ll = ctypes.c_longlong
+        lib.mmlspark_vw_margin.argtypes = [p, p, p, p, ll, i, ll] + [i] * 7 + [p]
         for fn in ("pass", "margin"):
             getattr(lib, f"mmlspark_vw_{fn}").restype = i
         lib._mmlspark_typed = True
@@ -501,12 +574,15 @@ def vw_margin(idx: torch.Tensor, val: torch.Tensor, w: torch.Tensor) -> torch.Te
     _check("idx", idx, (n, k), torch.int32, dev)
     _check("val", val, (n, k), torch.float32, dev)
     _check("w", w, (w.numel(),), torch.float32, dev)
+    if n == 0 or k == 0:
+        return torch.zeros(n, dtype=torch.float32, device=dev)
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
+    lay = margin_layout(n, k, _sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()))
     code = _lib().mmlspark_vw_margin(
-        idx.data_ptr(), val.data_ptr(), w.data_ptr(), out.data_ptr(), n, k,
-        torch.cuda.current_stream(dev).cuda_stream)
+        idx.data_ptr(), val.data_ptr(), w.data_ptr(), out.data_ptr(), n, k, lay.rows,
+        lay.panel_rows, lay.chunk, lay.stride, int(lay.direct), lay.threads, lay.blocks,
+        lay.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "vw_margin")
     _count("vw_margin", 1)
     return out

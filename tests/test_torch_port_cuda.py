@@ -1122,19 +1122,108 @@ def test_vw_chunked_state_equals_one_call_on_the_card(cuda_device, adaptive):
         assert torch.equal(_bits(a), _bits(b))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [9, 17, 25])
-def test_vw_margin_equals_cpu_plain_bitwise(cuda_device, k):
+# vw_margin: K from one slot to newsgroup-length rows (481); row counts of 1,
+# 127 and 5,000, and one row either side of a panel (one block: its first
+# panel's edge) and of a full grid's worth of panels (every block's)
+VW_MARGIN_KS = [1, 9, 17, 25, 41, 481]
+VW_MARGIN_ROWS = ["1", "127", "5000", "panel-1", "panel+1", "grid-1", "grid+1"]
+VW_MARGIN_BITS = 18
+
+
+def _vw_margin_rows(n, k, seed):
+    """Rows of ``_vw_rows`` over 2^VW_MARGIN_BITS weights, with every fifth
+    row all padding (index 0, value 0) and some indices at 2^bits - 1."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 1 << VW_MARGIN_BITS, size=(n, k)).astype(np.int32)
+    val = (rng.normal(size=(n, k)) * (rng.random((n, k)) < 0.8)).astype(np.float32)
+    idx[rng.random((n, k)) < 0.05] = (1 << VW_MARGIN_BITS) - 1
+    idx[::5], val[::5] = 0, 0.0
+    w = rng.normal(size=1 << VW_MARGIN_BITS).astype(np.float32)
+    return idx, val, w
+
+
+def _graph_replay(fn):
+    """fn's output from one replay of a CUDA graph that captured it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+def _check_margin(cuda_device, idx, val, w):
+    """One launch, bitwise the plain version on the CPU, and a CUDA graph's
+    replay bitwise the eager call."""
     from mmlspark_tpu_torch.ops import sgd
     from mmlspark_tpu_torch.vw import learner as VL
 
-    idx, val, _, _ = _vw_rows(5000, k, 12, seed=k)
-    w = np.random.default_rng(k).normal(size=1 << 12).astype(np.float32)
     sgd.reset_launch_counts()
     card = VL.predict_margin(idx, val, w, device=cuda_device)
     assert sgd.launches["vw_margin"] == 1
     cpu = VL.predict_margin(idx, val, w, device="cpu")
     assert np.array_equal(card.view(np.int32), cpu.view(np.int32))
+    it, vt, wt = (torch.from_numpy(a).to(cuda_device) for a in (idx, val, w))
+    replayed = _graph_replay(lambda: sgd.vw_margin(it, vt, wt))
+    assert np.array_equal(replayed.cpu().numpy().view(np.int32), card.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", VW_MARGIN_ROWS)
+@pytest.mark.parametrize("k", VW_MARGIN_KS)
+def test_vw_margin_equals_cpu_plain_bitwise(cuda_device, monkeypatch, k, rows):
+    from mmlspark_tpu_torch.ops import sgd
+
+    monkeypatch.setattr(sgd, "MARGIN_MIN_SLOTS", 1 << 40)   # one block
+    panel = sgd.margin_layout(100_000, k, 1).panel_rows      # a panel's rows, given enough
+    monkeypatch.undo()
+    if rows.startswith("panel"):   # one block, so its first panel edge falls by the row count
+        monkeypatch.setattr(sgd, "MARGIN_MIN_SLOTS", 1 << 40)
+        n = panel + (1 if rows.endswith("+1") else -1)
+    elif rows.startswith("grid"):
+        blocks = sgd.MARGIN_BLOCKS_PER_SM * sgd._sm_count(cuda_device.index or 0)
+        n = blocks * panel + (1 if rows.endswith("+1") else -1)
+    else:
+        n = int(rows)
+    _check_margin(cuda_device, *_vw_margin_rows(max(n, 1), k, seed=k + n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel_rows,threads", [(64, 256), (16, 256), (8, 32), (2, 32),
+                                                (64, 512), (4, 128)])
+def test_vw_margin_k_chunk_edges_bitwise(cuda_device, monkeypatch, panel_rows, threads):
+    """K = 481 cut into chunks of 69, 241, 61 or 121 slots (the chain carried
+    across every edge), or in whole rows of a small panel, with 32 to 512
+    threads a block; six blocks of 117 rows."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    monkeypatch.setattr(sgd, "MARGIN_MIN_SLOTS", 1 << 16)
+    monkeypatch.setattr(sgd, "MARGIN_PANEL_ROWS", panel_rows)
+    monkeypatch.setattr(sgd, "MARGIN_THREADS", threads)
+    _check_margin(cuda_device, *_vw_margin_rows(700, 481, seed=panel_rows + threads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direct_slots", [4096, 0])
+def test_vw_margin_unaligned_rows_bitwise(cuda_device, monkeypatch, direct_slots):
+    """Rows that start at every 4-byte offset of a 16-byte line (views into
+    a larger allocation), through the direct path (8 rows a block) and
+    through panels."""
+    from mmlspark_tpu_torch.ops import sgd
+
+    monkeypatch.setattr(sgd, "MARGIN_DIRECT_SLOTS", direct_slots)
+    idx, val, w = _vw_margin_rows(2_003, 41, seed=4)
+    it, vt, wt = (torch.from_numpy(a).to(cuda_device) for a in (idx, val, w))
+    cpu = sgd.margin_plain(*(torch.from_numpy(a) for a in (idx, val, w)))
+    for skip in range(1, 4):
+        got = sgd.vw_margin(it.reshape(-1)[skip * 41:].reshape(-1, 41),
+                            vt.reshape(-1)[skip * 41:].reshape(-1, 41), wt)
+        assert torch.equal(got.cpu().view(torch.int32), cpu[skip:].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -16,8 +16,8 @@ Tolerances:
   sigmoid round differently from PyTorch's);
 - K = 41: XLA:CPU changes the order of its margin sum, so within
   ``WIDE_TOL`` * max |w|;
-- ``predict_margin`` bitwise for K <= 17; at K = 25 the stand-alone jit
-  sums in another order: within ``WIDE_TOL`` * max |margin|.
+- ``predict_margin`` bitwise for K <= 17; at K = 25, 41 and 481 the
+  stand-alone jit sums in another order: within ``WIDE_TOL`` * max |margin|.
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def test_wide_rows_within_tolerance():
     assert np.abs(got - want).max() <= WIDE_TOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("k", [9, 16, 17, 25])
+@pytest.mark.parametrize("k", [9, 16, 17, 25, 41, 481])
 def test_predict_margin(k):
     idx, val, _, _ = rows(1024, k, seed=k)
     w = np.random.default_rng(k).normal(size=1 << BITS).astype(np.float32)
@@ -359,6 +359,108 @@ def test_pass_layout_follows_the_shape(case):
     assert lay.ctas == {"v2_1024x17": 8, "b1000x17": 4, "b64x17": 1}.get(case, 1)
     if case in ("v2_1024x17", "b64x17"):   # the main path's shapes: g and the plan staged
         assert lay.plan_off > lay.g_off >= 0
+
+
+# vw_margin's shapes: (n, K) -> whether the kernel's layout takes every SM
+MARGIN_SHAPES = {
+    "M1_20000x17": (20_000, 17, True), "M2_20000x481": (20_000, 481, True),
+    "M3_1000000x41": (1_000_000, 41, True), "one_row": (1, 1, False),
+    "127x9": (127, 9, False), "5000x25": (5_000, 25, True),
+    "k_wider_than_a_panel": (300, 5_000, True),
+    "k1_rows_past_a_panel": (1_081_345, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARGIN_SHAPES))
+def test_margin_layout_follows_the_shape(case):
+    """Whole rows a block, every row in one block; a panel of at most
+    MARGIN_PER slots a thread, whole rows where K fits beside
+    MARGIN_PANEL_ROWS of them, else more than half that many rows (or of the
+    block's), one a thread, x equal chunks of K; W and V in shared memory an odd
+    number of rows apart, within the 227 KB a block may opt in to, whatever
+    K is; a thread a row and no panels where a block holds no more than
+    MARGIN_DIRECT_SLOTS (M1); every SM busy where the slots allow it (M1
+    included); the same shape gives the same layout."""
+    n, k, every_sm = MARGIN_SHAPES[case]
+    lay = PS.margin_layout(n, k)
+    assert lay == PS.margin_layout(n, k)
+    assert lay.blocks * lay.rows >= n > (lay.blocks - 1) * lay.rows
+    assert lay.threads % 32 == 0 and lay.blocks <= PS.MARGIN_BLOCKS_PER_SM * PS.H100_SMS
+    assert (lay.blocks >= PS.H100_SMS) == every_sm
+    if every_sm:   # no block idles below MARGIN_MIN_SLOTS while another has more
+        assert lay.rows * k >= PS.MARGIN_MIN_SLOTS or lay.blocks == PS.MARGIN_BLOCKS_PER_SM * 132
+    # a block of no more than MARGIN_DIRECT_SLOTS: a thread a row, no panels
+    assert lay.direct == (lay.rows * k <= PS.MARGIN_DIRECT_SLOTS
+                          and lay.rows <= PS.MARGIN_THREADS)
+    if lay.direct:
+        assert lay.threads >= lay.rows and lay.smem_bytes == 0
+        return
+    r, c = lay.panel_rows, lay.chunk
+    assert 1 <= r <= lay.rows and 1 <= c <= k and r * c <= PS.MARGIN_PER * lay.threads
+    chunks = -(-k // c)
+    assert (chunks - 1) * c < k and c - (k - (chunks - 1) * c) < chunks   # equal chunks
+    if chunks > 1:   # a thread's chain carries its margin from chunk to chunk
+        assert r <= lay.threads and 2 * r > min(lay.rows, PS.MARGIN_PANEL_ROWS)
+    groups = -(-lay.rows // r)
+    assert (groups - 1) * r < lay.rows and r - (lay.rows - (groups - 1) * r) < groups
+    assert lay.stride % 2 == 1 and lay.stride >= r
+    assert lay.smem_bytes == 2 * c * lay.stride * 4 <= PS.SMEM_BYTES
+
+
+def margin_replay(idx, val, w, lay):
+    """The kernel's walk on the CPU: each block's rows in groups of
+    panel_rows, each group chunk after chunk of K, the chunk's slots in
+    order, each row's margin carried from chunk to chunk. Checks that every
+    slot is taken once, in its row's order."""
+    n, k = idx.shape
+    gathered = w[idx.long()]
+    m = torch.zeros(n)
+    done = torch.zeros(n, dtype=torch.long)
+    for b in range(lay.blocks):
+        r_hi = min(n, (b + 1) * lay.rows)
+        for g0 in range(b * lay.rows, r_hi, lay.panel_rows):
+            rs = torch.arange(g0, min(r_hi, g0 + lay.panel_rows))
+            for c0 in range(0, k, lay.chunk):
+                for j in range(c0, min(k, c0 + lay.chunk)):
+                    assert bool((done[rs] == j).all())
+                    m[rs] = torch.addcmul(m[rs], gathered[rs, j], val[rs, j])
+                    done[rs] += 1
+    assert bool((done == k).all())
+    return m
+
+
+# (n, K, MARGIN_PANEL_ROWS, MARGIN_THREADS, SMs): whole rows; K cut into chunks
+# (K = 41, 481, 600, 5,000) with groups of rows and with one row a block
+MARGIN_REPLAYS = {
+    "v2_like": (600, 17, 64, 256, 4), "k41_chunks": (3000, 41, 64, 64, 2),
+    "k481_chunks": (24, 481, 64, 256, 1), "k481_small_groups": (40, 481, 8, 32, 2),
+    "one_row_a_block_k600": (9, 600, 64, 32, 132), "k5000": (6, 5000, 64, 256, 2),
+    "k9_127": (127, 9, 64, 256, 3), "one_row": (1, 1, 64, 256, 132),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARGIN_REPLAYS))
+def test_margin_chunked_chain_equals_plain_bitwise(monkeypatch, case):
+    """The kernel's order, replayed in torch with its layout (K cut into
+    chunks, each chain carried across), equals ``margin_plain`` bit for bit,
+    and the JAX package's ``predict_margin`` where that is bitwise (K <= 17)."""
+    n, k, panel_rows, threads, sms = MARGIN_REPLAYS[case]
+    monkeypatch.setattr(PS, "MARGIN_DIRECT_SLOTS", 0)   # panels (direct is the plain order)
+    monkeypatch.setattr(PS, "MARGIN_PANEL_ROWS", panel_rows)
+    monkeypatch.setattr(PS, "MARGIN_THREADS", threads)
+    idx, val, _, _ = rows(n, k, seed=n + k)
+    val[n // 2] = 0.0   # a row all padding
+    idx[n // 2] = 0
+    w = np.random.default_rng(k).normal(size=1 << BITS).astype(np.float32)
+    it, vt, wt = torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(val), torch.from_numpy(w)
+    lay = PS.margin_layout(n, k, sms)
+    if k > 17:
+        assert lay.chunk < k   # the case cuts K into chunks
+    got = margin_replay(it, vt, wt, lay)
+    want = PS.margin_plain(it, vt, wt)
+    assert bits_equal(got.numpy(), want.numpy())
+    if k <= 17:
+        assert bits_equal(got.numpy(), np.asarray(JL.predict_margin(idx, val, w)))
 
 
 def test_step_table_matches_the_jax_schedule():
