@@ -68,7 +68,17 @@ must load), each kernel's time (eager and in a CUDA graph, the library
 calls alike) beside its byte bound and chain floor, ``vw_margin`` also at
 newsgroup-length rows (20,000 x 481) and a million rows x 41, bitwise the
 CPU there too, and where a fit's time goes (launches a pass, the pass's
-device ms).
+device ms). Last, phase ``distributed``: the histograms'
+distributed form (the fixed-scale kernel entries plus int64 all-reduces)
+at world 1 under NCCL in this process and at world 2 as two spawned gloo
+processes on this card, bitwise one ``plane_hist`` / ``multi_plane_hist``
+call on all 200,000 rows, with each rank's kernel, all-reduce and build
+times; the trees/s cell at world 2 (data_parallel lossguide and
+depthwise, voting_parallel with K = 4) within 0.005 AUC of the one-device
+fits, both ranks' models byte-identical, voting's bytes a split under a
+third of data_parallel's; an integer-column fit whose world-2 model
+string must equal the one-device one; VW's V2 at world 2 within 1e-3 AUC
+of one device.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -2470,6 +2480,470 @@ def vw(smi: str) -> dict:
     return {"checks": checks, "V1": v1, "V2": v2, "times": times, "breakdown": breakdown}
 
 
+# -- phase distributed: ranks over torch.distributed (B4, GBDT, VW) ---------------------
+
+DIST_WORLD = 2                      # ranks of the world-2 runs: two processes on this card
+DIST_AUC_TOL = 0.005                # world-2 GBDT AUC against the one-device fit
+DIST_TOP_K = 4                      # voting's K: 2K candidates of 64 features, so a split
+                                    # all-reduces (2 x 64 votes + 2 x 8 x 256 x 3 cells) under a
+                                    # third of data_parallel's 64 x 256 x 3 cells (at the default
+                                    # K = 20, 2 x 40 x 256 x 3 cells outweigh the whole plane)
+INT_LEVELS = 40                     # integer-column dataset: values 0..39 in every column
+B4_SOURCE_LINES = {"plane": "791-818 _plane_histogram_shard_map (B4: B1/B2 per shard + psum)",
+                   "multi": "712-736 multi_plane_histogram's _rows_sharded branch (B4: B3 "
+                            "per shard + psum)"}
+
+
+def int_dataset(n: int, seed: int = SEED + 20):
+    """Integer-valued columns (fewer distinct values than bins, so every
+    row sample gives one bin mapper) and a learnable binary label."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, INT_LEVELS, (n, D)).astype(np.float32)
+    y = ((x[:, 0] - 20) * 0.1 + (x[:, 1] > 25) - (x[:, 2] % 3 == 0) * 0.5
+         + rng.normal(size=n) * 0.5 > 0)
+    return x, y.astype(np.float64)
+
+
+def b4_data(B: int):
+    """The B4 inputs at full width: uint8 bins, stats, a 0/1 mask keeping
+    half the rows, slots in [0, 16] (16 dropped)."""
+    bins, stats = _data(N, D, B, seed=500 + B, oob=False)
+    g = torch.Generator().manual_seed(600 + B)
+    mask = (torch.rand(N, generator=g) < 0.5).float()
+    slot = torch.randint(0, 17, (N,), generator=g, dtype=torch.int32)
+    return bins.to(torch.uint8), stats, mask, slot
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.detach().contiguous().cpu().numpy().tobytes()
+
+
+def _b4_builds(group, lo: int, hi: int) -> dict:
+    """The distributed planes of rows [lo, hi) over ``group``: plane B=64,
+    B=256 (whole and masked), cube S=16 at B=256."""
+    out = {}
+    for B in (64, 256):
+        bins, stats, mask, slot = (t[lo:hi].to(DEV) for t in b4_data(B))
+        out[f"plane{B}"] = _bits(H.plane_histogram(bins, stats, None, B, group=group))
+        if B == 256:
+            out["masked256"] = _bits(H.plane_histogram(bins, stats, mask, B, group=group))
+            out["multi16"] = _bits(H.multi_plane_histogram(bins, stats, slot, 16, B, group=group))
+    torch.cuda.synchronize()
+    return out
+
+
+def _b4_one_call() -> dict:
+    """The same planes from one kernel call on all the rows, each held
+    bitwise against the kernels' arithmetic in PyTorch (``*_emulated``)."""
+    out, bad = {}, []
+    for B in (64, 256):
+        bins, stats, mask, slot = (t.to(DEV) for t in b4_data(B))
+        cases = {f"plane{B}": (H.plane_hist(bins, stats, None, B),
+                               H.plane_histogram_emulated(bins, stats, None, B))}
+        if B == 256:
+            cases["masked256"] = (H.plane_hist(bins, stats, mask, B),
+                                  H.plane_histogram_emulated(bins, stats, mask, B))
+            cases["multi16"] = (H.multi_plane_hist(bins, stats, slot, 16, B),
+                                H.multi_plane_histogram_emulated(bins, stats, slot, 16, B))
+        for name, (got, want) in cases.items():
+            out[name] = _bits(got)
+            if out[name] != _bits(want):
+                bad.append(name)
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"one kernel call on all the rows: {bad} differ from the emulation")
+    return out
+
+
+def _b4_rank_checks(group, lo: int, hi: int) -> dict:
+    """Each fixed-scale entry on this rank's rows [lo, hi) at the scale of
+    the distributed build (the ranks' maxima and row count), as the fits
+    launch it: planes at B = 64 and 256, whole, half the rows masked and 3%
+    masked (a small right child), and the cube S = 16. Held against its
+    plain version (``_fixed_sums``, the same int64 arithmetic in PyTorch):
+    max |kernel - plain| over the int64 cells, which must be 0."""
+    rows = H.global_rows(hi - lo, group, DEV)
+    out = {}
+    for B in (64, 256):
+        bins, stats, mask, slot = (t[lo:hi].to(DEV) for t in b4_data(B))
+        sparse = (torch.rand(N, generator=torch.Generator().manual_seed(700 + B))
+                  < 0.03).float()[lo:hi].to(DEV)
+        for tag, m in (("", None), ("_masked50", mask), ("_masked3", sparse)):
+            v = stats if m is None else stats * m[:, None]
+            scale = H.global_scale(v, rows, group)
+            got = H.plane_hist_fixed(bins, stats, m, B, scale)
+            want = H._fixed_sums(bins, v, scale[:3], scale[3:].bool(), B, None, D * B)
+            out[f"plane{B}{tag}"] = int((got - want).abs().max())
+        if B == 256:
+            ok, base = H._slot_base(bins, slot, 16, B)
+            scale = H.global_scale(torch.where(ok[:, None], stats, 0.0), rows, group)
+            got = H.multi_plane_hist_fixed(bins, stats, slot, 16, B, scale)
+            want = H._fixed_sums(bins, stats, scale[:3], scale[3:].bool(), B, base, 16 * D * B)
+            out["multi16"] = int((got.reshape(-1, 3) - want).abs().max())
+    torch.cuda.synchronize()
+    return out
+
+
+B4_CASES = (("plane_hist_fixed (B=256)", 256, None), ("plane_hist_fixed (B=64)", 64, None),
+             ("multi_plane_hist_fixed (S=16)", 256, 16))
+
+
+def _b4_inputs(B: int, lo: int, hi: int):
+    bins, stats, _, slot = (t[lo:hi].to(DEV) for t in b4_data(B))
+    return bins, stats, slot
+
+
+def _b4_kernel_times(group) -> dict:
+    """World 1, all the rows: each fixed-scale kernel (ms, and device_ms
+    from a CUDA graph) at the scale of the distributed build, its plain
+    PyTorch version (the same fixed-point arithmetic: an int64
+    ``index_add_``), one library ``index_add_`` of the precomputed
+    fixed-point values, max |kernel - plain| over the int64 cells, and the
+    bound: the rows' bins and stats read and the cells written, at HBM
+    rate."""
+    out = {}
+    for name, B, S in B4_CASES:
+        bins, stats, slot = _b4_inputs(B, 0, N)
+        rows = H.global_rows(N, group, DEV)
+        if S is None:
+            scale = H.global_scale(stats, rows, group)
+            kernel = lambda: H.plane_hist_fixed(bins, stats, None, B, scale)  # noqa: E731
+            base, cells, kept, idx = None, D * B, N, _flat(bins, B)
+        else:
+            ok = slot < S
+            scale = H.global_scale(torch.where(ok[:, None], stats, 0.0), rows, group)
+            kernel = lambda: H.multi_plane_hist_fixed(bins, stats, slot, S, B, scale)  # noqa: E731
+            base, cells, kept = torch.where(ok, slot.long() * (D * B), -1), S * D * B, int(ok.sum())
+            idx = _flat(bins, B, torch.where(ok, slot.long(), 0))  # dropped rows add 0 to slot 0
+        k, fin = scale[:3], scale[3:].bool()
+        plain = lambda: H._fixed_sums(bins, stats, k, fin, B, base, cells)  # noqa: E731
+        q = H._to_fixed(stats, k, fin)
+        if S is not None:
+            q = torch.where(ok[:, None], q, 0)
+        src = q[:, None, :].expand(N, D, 3).reshape(-1).contiguous()
+        lib_out = torch.zeros(cells * 3, dtype=torch.int64, device=DEV)
+        library = lambda: lib_out.zero_().index_add_(0, idx, src)  # noqa: E731
+        err = float((kernel().reshape(-1, 3) - plain()).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name}: the int64 cells differ from the plain version by {err}")
+        rec = _timed(kernel, plain, library, kept * (D + 12) + (N * 4 if S else 0) + cells * 24,
+                     kept * D * 3)
+        rec.update(max_abs_err=err, rows=N, rows_kept=kept, cells=cells * 3,
+                   allreduce_bytes=cells * 24)
+        out[name] = rec
+    return out
+
+
+def _host_ms(fn, iters: int = 10) -> float:
+    """ms per call on the host clock: ``iters`` calls after a warm-up,
+    ending in a synchronise (a gloo collective is host-staged and
+    synchronous; an NCCL one is timed the same way to compare)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _b4_reduce_times(group, lo: int, hi: int) -> dict:
+    """A rank's all-reduce of the int64 cells and its whole distributed
+    build (two small all-reduces, the kernel, the cells), all ranks
+    together."""
+    from mmlspark_tpu_torch.parallel import collectives
+
+    out = {}
+    for name, B, S in B4_CASES:
+        bins, stats, slot = _b4_inputs(B, lo, hi)
+        build = ((lambda: H.plane_histogram(bins, stats, None, B, group=group)) if S is None
+                 else (lambda: H.multi_plane_histogram(bins, stats, slot, S, B, group=group)))
+        acc = torch.zeros((S or 1) * D * B * 3, dtype=torch.int64, device=DEV)
+        out[name] = {"allreduce_ms": _host_ms(lambda: collectives.allreduce_sum(acc, group)),
+                     "build_ms": _host_ms(build)}
+    return out
+
+
+def _b4_kernel_times_local(lo: int, hi: int) -> dict:
+    """This rank's fixed-scale kernels alone on its rows (the scale from
+    its own rows: the time does not depend on it)."""
+    out = {}
+    for name, B, S in B4_CASES:
+        bins, stats, slot = _b4_inputs(B, lo, hi)
+        k, fin = H._fixed_scale(stats, N)
+        scale = torch.cat([k, fin.long()])
+        fn = ((lambda: H.plane_hist_fixed(bins, stats, None, B, scale)) if S is None
+              else (lambda: H.multi_plane_hist_fixed(bins, stats, slot, S, B, scale)))
+        ms, device_ms = time_ms(fn)
+        out[name] = {"rank_ms": ms, "rank_device_ms": device_ms}
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def b4_world1() -> dict:
+    """World 1 under NCCL, in this process: the distributed builds on all
+    200,000 rows bitwise one kernel call on them, and the per-rank times."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world 1 ran on {dist.get_backend()}, not NCCL")
+        got, want = _b4_builds(dist.group.WORLD, 0, N), _b4_one_call()
+        bad = sorted(k for k in want if got[k] != want[k])
+        bad += sorted(k for k, e in _b4_rank_checks(dist.group.WORLD, 0, N).items() if e)
+        if bad:
+            raise AssertionError(f"world 1 (NCCL): {bad} differ from one kernel call or "
+                                 "from the plain version")
+        together = _b4_reduce_times(dist.group.WORLD, 0, N)
+        times = {k: {**v, **together[k]} for k, v in _b4_kernel_times(dist.group.WORLD).items()}
+    finally:
+        dist.destroy_process_group()
+    phase("distributed", part="B4 world 1 (NCCL)", rows=N, d=D, bitwise_one_call=True,
+          **{k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                                   "allreduce_ms", "build_ms", "max_abs_err")}
+             for k, v in times.items()})
+    return {"times": times, "one_call": want}
+
+
+def _fit_rec(est, train_df, x_test, y_test) -> dict:
+    """Fit on this rank's rows with the counts at 0 just before; the
+    model string, trees/s, held-out AUC, the fixed-scale kernels' launches
+    and the elements and bytes all-reduced per split."""
+    from mmlspark_tpu_torch.parallel import collectives
+
+    torch.cuda.synchronize()
+    H.reset_launch_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    model = est.fit(train_df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(H.launches)
+    counts = {k: sum(v.values()) for k, v in collectives.counts.items()}
+    trees = model.booster.trees
+    splits = int(sum(int(np.sum(t.active)) for t in trees))
+    rec = {"fit_s": fit_s, "trees": len(trees), "trees_per_s": len(trees) / fit_s,
+           "splits": splits, "launches": launches,
+           "allreduce_elements_per_split": counts.get("elements", 0) / max(splits, 1),
+           "allreduce_bytes_per_split": counts.get("bytes", 0) / max(splits, 1),
+           "model": model.get("model_string")}
+    if x_test is not None:
+        rec.update(classifier_score(x_test, y_test)(model))
+    return rec
+
+
+def vw_v2_block(rank: int, world: int) -> dict:
+    """V2's pipeline (``vw_v2``) fitted on this rank's block of the 80,000
+    training texts (every rank of a group fits its own; with two or more
+    ranks the learner averages the weights after every pass): held-out
+    AUC on the 20,000 others, the fit's seconds and the weights."""
+    from mmlspark_tpu_torch import Pipeline
+    from mmlspark_tpu_torch.featurize import IndexToValue, ValueIndexer
+    from mmlspark_tpu_torch.stages import UnicodeNormalize
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier, VowpalWabbitFeaturizer
+
+    texts, _ = vw_texts()
+    score = vw_planted(texts)
+    noise = np.random.default_rng(7).normal(size=len(texts)) * 1.0
+    labels = np.where(score + noise > 0, "pos", "neg").astype(object)
+    n_fit = len(texts) - VW_HOLDOUT
+    per = n_fit // world
+    block = slice(rank * per, (rank + 1) * per)
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[
+        UnicodeNormalize(input_col="text", output_col="norm"),
+        ValueIndexer(input_col="label_str", output_col="label"),
+        VowpalWabbitFeaturizer(input_cols=[], string_split_input_cols=["norm"],
+                               num_bits=VW_BITS),
+        VowpalWabbitClassifier(num_passes=3, batch_size=1024, device="cuda"),
+        IndexToValue(input_col="label", output_col="label_back"),
+    ]).fit(DataFrame.from_dict({"text": texts[block], "label_str": labels[block]}))
+    fit_s = time.perf_counter() - t0
+    prob = model.transform(DataFrame.from_dict(
+        {"text": texts[n_fit:], "label_str": labels[n_fit:]}))["probability"]
+    w = np.asarray(model.stages[3].get("weights"), np.float32)
+    return {"auc": binary_auc((labels[n_fit:] == "pos").astype(np.float64), prob),
+            "fit_s": fit_s, "rows_fit": per, "weights": w.tobytes()}
+
+
+def _dist_rank_work(rank: int, world: int) -> dict:
+    """What each rank of a group runs on its block of the rows: B4's
+    builds, its fixed-scale entries against their plain version and their
+    times, the trees/s cell's fits, the integer-column fit and V2."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import cluster_summary, make_mesh
+
+    g = dist.group.WORLD
+    per = N // world
+    lo, hi = rank * per, (rank + 1) * per
+    out = {"backend": dist.get_backend(), "summary": cluster_summary(make_mesh()),
+           "b4": _b4_builds(g, lo, hi), "b4_fixed_err": _b4_rank_checks(g, lo, hi)}
+    times = {}
+    for r in range(world):  # one rank at a time (the ranks may share a card)
+        dist.barrier()
+        if r == rank:
+            times = _b4_kernel_times_local(lo, hi)
+    dist.barrier()
+    # the all-reduce and the whole build, all ranks together
+    together = _b4_reduce_times(g, lo, hi)
+    out["b4_times"] = {k: {**times[k], **together[k]} for k in together}
+
+    x_all, y_all = dataset(N + N_TEST)
+    x, y, x_test, y_test = x_all[lo:hi], y_all[lo:hi], x_all[N:], y_all[N:]
+    tr = DataFrame.from_dict({"features": x, "label": y})
+    kw = dict(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0, device="cuda")
+    fits = {}
+    for name, extra in (("lossguide", {}), ("depthwise", {"growth_policy": "depthwise"}),
+                        ("voting", {"parallelism": "voting_parallel", "top_k": DIST_TOP_K})):
+        fits[name] = _fit_rec(LightGBMClassifier(**kw, **extra), tr, x_test, y_test)
+    xi, yi = int_dataset(N)
+    fits["integer_b64"] = _fit_rec(LightGBMClassifier(**kw, max_bin=63), DataFrame.from_dict(
+        {"features": xi[lo:hi], "label": yi[lo:hi]}), None, None)
+    out["fits"] = fits
+    out["vw"] = vw_v2_block(rank, world)
+    return out
+
+
+def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
+               card_per_rank: bool) -> None:
+    """A spawned rank: joins the group (``file://`` rendezvous at ``rdv``)
+    on card ``rank`` (``card_per_rank``) or all on card 0 (NCCL refuses two
+    ranks on one card: gloo there) and writes its result for the parent."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"file://{rdv}", world, rank,
+                           device=f"cuda:{rank if card_per_rank else 0}", backend=backend)
+    try:
+        res = _dist_rank_work(rank, world)
+        with open(f"{out_path}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, card_per_rank: bool) -> "tuple[list, float]":
+    """Spawns ``world`` ranks (``_dist_rank``) and waits for them: their
+    results in rank order, and the seconds from spawn to the last exit. Its
+    scratch directory under build/ is removed after."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_dist_rank, args=(world, os.path.join(tmp, "rdv"), os.path.join(tmp, "out"),
+                                   backend, card_per_rank), nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"out.{r}"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks, spawn_s
+
+
+def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
+    """The ranks' results against the one-device references ``ref``
+    (``backend``; ``one_call``: B4's planes of one kernel call; ``auc``:
+    the lossguide and depthwise fits' held-out AUC; ``integer``: the
+    integer-column model string; ``vw_auc``: V2's AUC): every plane
+    bitwise one call, every fixed-scale entry bitwise its plain version,
+    the fits' AUC at least 0.90 and within DIST_AUC_TOL, every rank's
+    models byte-identical, voting's bytes a split under a third of
+    data_parallel's, the integer model equal to one device's, V2 within
+    VW_AUC_TOL, and every fixed-scale entry launched by its fit. Returns
+    (the failures, the record)."""
+    fails = []
+    if any(res["backend"] != ref["backend"] for res in ranks):
+        fails.append(f"not every rank ran {ref['backend']}")
+    for r, res in enumerate(ranks):
+        bad = sorted(k for k in ref["one_call"] if res["b4"][k] != ref["one_call"][k])
+        if bad:
+            fails.append(f"rank {r}: B4 {bad} differ from one kernel call")
+        bad = sorted(k for k, e in res["b4_fixed_err"].items() if e)
+        if bad:
+            fails.append(f"rank {r}: fixed-scale entries {bad} differ from the plain version")
+    fits = {}
+    for name, one in (("lossguide", "lossguide"), ("depthwise", "depthwise"),
+                      ("voting", "lossguide"), ("integer_b64", None)):
+        f = ranks[0]["fits"][name]
+        same = all(res["fits"][name]["model"] == f["model"] for res in ranks)
+        fits[name] = {k: v for k, v in f.items() if k != "model"}
+        fits[name]["ranks_identical"] = same
+        if not same:
+            fails.append(f"{name}: the ranks' models differ")
+        if one is None:
+            fits[name]["model_equals_one_device"] = f["model"] == ref["integer"]
+            if f["model"] != ref["integer"]:
+                fails.append("integer columns: the model differs from the one-device model")
+            continue
+        fits[name]["one_device_auc"] = ref["auc"][one]
+        if not (f["auc"] >= 0.90 and abs(f["auc"] - ref["auc"][one]) <= DIST_AUC_TOL):
+            fails.append(f"{name}: AUC {f['auc']} against one device {ref['auc'][one]}")
+    vote_b, dp_b = (fits[k]["allreduce_bytes_per_split"] for k in ("voting", "lossguide"))
+    if not vote_b < dp_b / 3:
+        fails.append(f"voting moves {vote_b} bytes a split, data_parallel {dp_b}")
+    for fit, kernel in (("lossguide", "plane_hist_fixed"), ("integer_b64", "plane_hist_fixed"),
+                        ("depthwise", "multi_plane_hist_fixed")):
+        if fits[fit]["launches"].get(kernel, 0) == 0:
+            fails.append(f"the {fit} fit never launched {kernel}")
+    vw2 = ranks[0]["vw"]
+    vw_same = all(res["vw"]["weights"] == vw2["weights"] for res in ranks)
+    if not (vw_same and abs(vw2["auc"] - ref["vw_auc"]) <= VW_AUC_TOL):
+        fails.append(f"VW V2: AUC {vw2['auc']} against {ref['vw_auc']}, ranks equal {vw_same}")
+    rec = {"backend": ref["backend"], "ranks": len(ranks), "summary": ranks[0]["summary"],
+           "rows_per_rank": N // len(ranks),
+           "b4_bitwise_one_call": not any("B4" in f for f in fails),
+           "b4_fixed_err": {f"rank{r}": res["b4_fixed_err"] for r, res in enumerate(ranks)},
+           "b4": {name: {f"rank{r}": res["b4_times"][name] for r, res in enumerate(ranks)}
+                  for name in ranks[0]["b4_times"]},
+           "fits": fits,
+           "vw_v2": {"auc": vw2["auc"], "one_device_auc": ref["vw_auc"],
+                     "ranks_identical": vw_same, "fit_s": vw2["fit_s"],
+                     "rows_fit_per_rank": vw2["rows_fit"]}}
+    return fails, rec
+
+
+def distributed_phase(runs: dict, vw_rec: dict) -> dict:
+    """Phase ``distributed``: B4 at world 1 under NCCL here, then two gloo
+    ranks on this card (spawned processes, 100,000 rows each) held by
+    ``check_ranks`` against the one-device fits of the earlier phases."""
+    t0 = time.perf_counter()
+    w1 = b4_world1()
+    xi, yi = int_dataset(N)
+    one_int = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
+                                 device="cuda", max_bin=63).fit(
+        DataFrame.from_dict({"features": xi, "label": yi})).get("model_string")
+    ranks, spawn_s = spawn_ranks(DIST_WORLD, "gloo", card_per_rank=False)
+    fails, rec = check_ranks(ranks, {
+        "backend": "gloo", "one_call": w1["one_call"], "integer": one_int,
+        "auc": {p: runs[p]["auc"] for p in ("lossguide", "depthwise")},
+        "vw_auc": vw_rec["V2"]["auc"]})
+    phase("distributed", part="world 2 (gloo, one card)", spawn_s=spawn_s, **rec,
+          seconds=time.perf_counter() - t0)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"world1": w1["times"], "world2": rec["b4"], "fits": rec["fits"]}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -2540,6 +3014,7 @@ def main() -> None:
     pipeline(x, y, x_test, y_test, repo)
     shutil.rmtree(repo, ignore_errors=True)
     vw_rec = vw(smi)
+    dist_rec = distributed_phase(runs, vw_rec)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -2590,6 +3065,21 @@ def main() -> None:
                 "max_abs_err")}
                 for m, v in t["shapes"].items()}
         kernels.append(rec)
+    # B4: the fixed-scale entries, timed at world 1 (NCCL, all 200,000 rows); their
+    # launches are the world-2 fits' (rank 0), each rank's time beside
+    for name, fit, kernel, src in (
+            ("plane_hist_fixed (B=256)", "lossguide", "plane_hist_fixed", "plane"),
+            ("plane_hist_fixed (B=64)", "integer_b64", "plane_hist_fixed", "plane"),
+            ("multi_plane_hist_fixed (S=16)", "depthwise", "multi_plane_hist_fixed", "multi")):
+        t = dist_rec["world1"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": f"{TPU}:{B4_SOURCE_LINES[src]}",
+            "launches": dist_rec["fits"][fit]["launches"][kernel],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "allreduce_ms": t["allreduce_ms"],
+            "world2_ranks": dist_rec["world2"][name]})
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,8 +12,10 @@ continued training (``model_string``, ``num_batches``), checkpoint/resume
 and delegates included. Every model reads and writes LightGBM's own text
 format (``save_native_model``, ``load_native_model_from_string`` /
 ``_file``) and explains itself (``features_shap``, ``predict_leaf``,
-``get_feature_importances``). ``parallelism="voting_parallel"`` raises
-``NotImplementedError`` (ROADMAP.md, Queue A item 3). The classification
+``get_feature_importances``). Over two or more ``torch.distributed`` ranks
+each rank fits its own rows and gets the same model (``train``:
+``data_parallel`` or ``voting_parallel``); the label statistics behind
+``boost_from_average`` are then taken over all the ranks. The classification
 and regression models are fusable by the pipeline compiler
 (``fusable_kernel``): the tree traversal, the leaf-value gather and the
 numpy-order tree sum run in the fused segment on the device, and the
@@ -47,6 +49,17 @@ from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 from mmlspark_tpu_torch.models.gbdt import objectives, treegrow
 from mmlspark_tpu_torch.models.gbdt.booster import Booster
 from mmlspark_tpu_torch.models.gbdt.train import TrainConfig, train
+from mmlspark_tpu_torch.parallel import collectives
+from mmlspark_tpu_torch.parallel.mesh import group_rank_size
+
+
+def _over_ranks(local: np.ndarray, op: str = "sum") -> np.ndarray:
+    """An int64 or f64 statistic of this rank's labels summed (or maxed)
+    over the ranks of the default group; itself with one rank."""
+    if group_rank_size()[1] == 1:
+        return local
+    fn = collectives.allreduce_sum if op == "sum" else collectives.allreduce_max
+    return fn(torch.from_numpy(np.ascontiguousarray(local))).numpy()
 
 
 class _LightGBMParams(
@@ -82,9 +95,12 @@ class _LightGBMParams(
     )
     metric = Param("eval metric name ('' = objective default)", default="", type_=str)
     parallelism = Param(
-        "data_parallel (voting_parallel is not ported)",
+        "data_parallel | voting_parallel (PV-Tree: each rank votes its top_k "
+        "features, only the candidates' histogram columns are all-reduced; "
+        "with one rank it falls back to data_parallel)",
         default="data_parallel",
         type_=str,
+        validator=lambda v: v in ("data_parallel", "voting_parallel"),
     )
     growth_policy = Param(
         "lossguide (LightGBM leaf-wise, default) | depthwise (level-wise; "
@@ -95,7 +111,8 @@ class _LightGBMParams(
     )
     default_listen_port = Param("parity no-op (no sockets)", default=12400, type_=int)
     use_barrier_execution_mode = Param("parity no-op", default=False, type_=bool)
-    top_k = Param("voting_parallel K (parity)", default=20, type_=int)
+    top_k = Param("voting_parallel: features each rank nominates per split (PV-Tree K)",
+                  default=20, type_=int)
     boost_from_average = Param("init score from label average", default=True, type_=bool)
     boosting_type = Param(
         "gbdt | goss | dart | rf",
@@ -220,6 +237,10 @@ class _LightGBMParams(
                 "checkpoint_dir/resume_from are incompatible with num_batches > 1 "
                 "(per-segment round indices would collide in one checkpoint directory)"
             )
+        if nb and nb > 1 and group_rank_size()[1] > 1:
+            raise NotImplementedError(
+                "num_batches > 1 (continued training) over ranks is not ported to "
+                "mmlspark_tpu_torch yet (ROADMAP.md, A4 step 1b)")
         n = len(data["y"])
         bounds = np.linspace(0, n, nb + 1).astype(int) if nb and nb > 1 else np.array([0, n])
         for i in range(len(bounds) - 1):
@@ -305,19 +326,23 @@ class LightGBMClassifier(Estimator, _LightGBMParams, HasProbabilityCol, HasRawPr
     def fit(self, df: DataFrame) -> "LightGBMClassificationModel":
         data = self._gather(df)
         y = data["y"].astype(np.int64)
-        n_classes = int(y.max()) + 1 if len(y) else 2
+        n_classes = int(_over_ranks(np.array([y.max() + 1 if len(y) else 0]), "max")[0]) or 2
         objective = self.get("objective")
         if objective == "binary" and n_classes > 2:
             objective = "multiclass"
         num_class = n_classes if objective == "multiclass" else 1
         data["y"] = y.astype(np.float64)
         base: Any = 0.0
-        if self.get("boost_from_average") and data["init"] is None and len(y):
+        # class counts over all the ranks: integers, so the prior is the
+        # one-device fit's exactly
+        counts = _over_ranks(np.bincount(y, minlength=max(num_class, 2)).astype(np.int64))
+        total = int(counts.sum())
+        if self.get("boost_from_average") and data["init"] is None and total:
             if objective == "binary":
-                p = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
+                p = float(np.clip(counts[1] / total, 1e-6, 1 - 1e-6))
                 base = float(np.log(p / (1 - p)))
             else:  # multiclass: per-class log prior
-                priors = np.bincount(y, minlength=num_class) / len(y)
+                priors = counts / total
                 base = np.log(np.clip(priors, 1e-6, None)).astype(np.float32)
         booster = self._fit_batches(data, self._config(objective, num_class), base)
         m = LightGBMClassificationModel(
@@ -424,18 +449,21 @@ class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
         obj = objectives.canonical_objective(self.get("objective"))
         base = 0.0
         y = data["y"]
-        if self.get("boost_from_average") and data["init"] is None and len(y):
+        # the mean over all the ranks' labels (one rank: numpy's own mean)
+        sum_n = _over_ranks(np.array([y.sum(), len(y)], np.float64))
+        mean = float(y.mean()) if group_rank_size()[1] == 1 else float(sum_n[0] / sum_n[1])
+        if self.get("boost_from_average") and data["init"] is None and sum_n[1]:
             # LightGBM's BoostFromScore per objective family: log-link
             # objectives start at log(mean), quantile at the alpha
             # percentile, l1/mape at the median
             if obj in objectives.LOG_LINK_KINDS:
-                base = float(np.log(np.clip(y.mean(), 1e-9, None)))
+                base = float(np.log(np.clip(mean, 1e-9, None)))
             elif obj == "quantile":
                 base = float(np.percentile(y, self.get("alpha") * 100.0))
             elif obj in ("regression_l1", "mape"):
                 base = float(np.median(y))
             else:
-                base = float(y.mean())
+                base = mean
         booster = self._fit_batches(data, self._config(obj), base)
         m = LightGBMRegressionModel(
             features_col=self.get("features_col"),

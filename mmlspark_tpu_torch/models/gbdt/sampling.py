@@ -65,12 +65,13 @@ def round_key(seed: int, it, stream: int) -> tuple:
     return fold_in(fold_in(key, it), stream)
 
 
-def random_bits(key: tuple, n: int, device: torch.device) -> torch.Tensor:
-    """``jax.random.bits(key, (n,))`` (32 bits each, as int64 values) with
-    JAX's partitionable Threefry: element i is ``bits1 ^ bits2`` of
-    ``threefry2x32(key, (hi(i), lo(i)))``; a multi-dimensional draw is the
-    flat draw of its row-major element count."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def random_bits(key: tuple, n: int, device: torch.device, offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, (N,))[offset:offset + n]`` (32 bits each, as
+    int64 values) with JAX's partitionable Threefry: element i is
+    ``bits1 ^ bits2`` of ``threefry2x32(key, (hi(i), lo(i)))``, whatever N;
+    a multi-dimensional draw is the flat draw of its row-major element
+    count."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     b1, b2 = _threefry2x32(key[0], key[1], i >> 32, i & _M32)
     return b1 ^ b2
 
@@ -81,12 +82,15 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(seed: int, it, stream: int, n: int, device: torch.device) -> torch.Tensor:
+def uniform(seed: int, it, stream: int, n: int, device: torch.device,
+            offset: int = 0) -> torch.Tensor:
     """(n,) f32 uniform in [0, 1) on ``device`` for round ``it`` of draw
     stream ``stream``: the JAX package's Threefry draw, bit for bit. With
     an int ``it`` the key is host arithmetic; with an int64 device scalar
-    it is computed on the device (the fused rounds' captured round)."""
-    return bits_to_unit(random_bits(round_key(seed, it, stream), n, device))
+    it is computed on the device (the fused rounds' captured round).
+    ``offset``: the draw's elements from there on, as a rank takes its
+    block of the rows' global positions."""
+    return bits_to_unit(random_bits(round_key(seed, it, stream), n, device, offset))
 
 
 def goss_weights(g_abs: torch.Tensor, w: torch.Tensor, u: torch.Tensor,

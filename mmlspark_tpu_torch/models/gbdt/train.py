@@ -39,8 +39,22 @@ checkpoint). That one round body serves every eligible fit, graph or
 not; only dart, delegates and the host LambdaRank/NDCG cases take the
 per-round loop, which reads the host between rounds.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): voting-parallel, elastic and multi-host training.
+Multi-rank training (the JAX package's multi-process branch): when the
+default ``torch.distributed`` group has two or more ranks, each rank calls
+``train`` with its own rows, as each JAX process does. The bin mapper is
+fitted on an all-gathered sample, bag draws are keyed to the rows' global
+positions, every histogram and leaf sum is built over all the ranks
+(``data_parallel``: ``ops/histogram.py``'s distributed form; or
+``voting_parallel``: ``voting.grow_tree_voting``), and every rank grows the
+same trees: the boosters are byte-identical across ranks. The rounds run
+eagerly (a collective is not captured in a CUDA graph). Boosting ``gbdt``
+and ``rf``, bagging, the binary, multiclass and Newton-valued regression
+objectives, both growth policies and categorical features run that way;
+GOSS, dart, the renewed objectives, lambdarank, validation rows,
+checkpoints, continued training and CSR input raise ``NotImplementedError``
+at two ranks or more (ROADMAP.md, A4 step 1b). With one rank
+``voting_parallel`` falls back to ``data_parallel``, as in the JAX package.
+Elastic gang training is not ported yet (ROADMAP.md, A4 step 2).
 """
 
 from __future__ import annotations
@@ -72,6 +86,9 @@ from mmlspark_tpu_torch.models.gbdt.treegrow import (
     grow_tree_partitioned,
     predict_scores,
 )
+from mmlspark_tpu_torch.models.gbdt.voting import grow_tree_voting
+from mmlspark_tpu_torch.parallel import collectives, make_mesh, multihost_pad_target
+from mmlspark_tpu_torch.parallel.mesh import group_rank_size
 
 log = logging.getLogger("mmlspark_tpu_torch.gbdt")
 
@@ -95,8 +112,7 @@ fused = {"chunks": 0, "captures": 0, "replays": 0}
 class TrainConfig:
     """The JAX package's ``TrainConfig`` field for field, so one config
     drives both packages (and a checkpoint's fingerprint is the same in
-    both); ``parallelism`` must stay ``data_parallel`` (``train``
-    checks)."""
+    both)."""
 
     objective: str = "binary"          # binary|multiclass|lambdarank|regression kinds
     num_class: int = 1
@@ -146,10 +162,10 @@ def _objective_p1(cfg: TrainConfig) -> float:
     }.get(cfg.objective, 0.0)
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
+def _unported_multirank(what: str, world: int) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to mmlspark_tpu_torch yet "
-        f"(ROADMAP.md Queue A item 3: {item})"
+        f"{what} at {world} ranks is not ported to mmlspark_tpu_torch yet "
+        "(ROADMAP.md, A4 step 1b)"
     )
 
 
@@ -177,8 +193,14 @@ def _check_config(cfg: TrainConfig) -> None:
     if cfg.boosting_type == "goss" and cfg.top_rate + cfg.other_rate > 1.0:
         # LightGBM refuses too: the sampler is unbiased only if b/(1-a) <= 1
         raise ValueError("goss requires top_rate + other_rate <= 1")
-    if cfg.parallelism != "data_parallel":
-        raise _unported(f"parallelism={cfg.parallelism!r}", "voting-parallel")
+    if cfg.parallelism not in ("data_parallel", "voting_parallel"):
+        raise ValueError(
+            f"parallelism must be 'data_parallel' or 'voting_parallel', got {cfg.parallelism!r}"
+        )
+    if cfg.growth_policy == "depthwise" and cfg.parallelism == "voting_parallel":
+        # the voting grower is leaf-wise: an explicit depthwise request is
+        # not quietly dropped
+        raise ValueError("growth_policy='depthwise' is incompatible with voting_parallel")
     if cfg.delegate is not None:
         missing = [h for h in _DELEGATE_HOOKS if not hasattr(cfg.delegate, h)]
         if missing:
@@ -257,6 +279,63 @@ def _densify(x: Any) -> np.ndarray:
     if is_sparse(x):
         return densify_missing(x)
     return np.asarray(x, np.float32)
+
+
+def _check_multirank(cfg: TrainConfig, world: int, *, sparse_input: bool, valid: Any,
+                     init_booster: Any, checkpointing: bool, fused_rounds: int) -> None:
+    """What a fit over two or more ranks does not run yet raises."""
+    refused = [
+        (cfg.boosting_type == "goss", "GOSS (a global top-rate threshold)"),
+        (valid is not None and bool(np.any(valid)), "validation rows / early stopping"),
+        (cfg.objective in objectives.RENEWED_KINDS,
+         f"objective {cfg.objective!r} (a global weighted percentile)"),
+        (cfg.boosting_type == "dart", "dart"),
+        (cfg.objective == "lambdarank", "lambdarank"),
+        (checkpointing, "checkpoint/resume"),
+        (init_booster is not None and bool(init_booster.trees), "continued training"),
+        (sparse_input, "CSR input"),
+        (int(fused_rounds) > 1,
+         "fused_rounds > 1 (a collective captured in the round's CUDA graph)"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise _unported_multirank(what, world)
+
+
+def _multirank_mapper(x: np.ndarray, cfg: TrainConfig, cat_features: tuple,
+                      world: int, dev: torch.device) -> BinMapper:
+    """Bin bounds identical on every rank: the mapper is fitted on a
+    NaN-padded sample of ``max(1, 50,000 // world)`` rows a rank
+    (``default_rng(seed).choice``), all-gathered (NaN rows are ignored by
+    the quantile fit), with each categorical column's global maximum
+    planted in every rank's sample, as the JAX package's multi-process
+    branch builds it."""
+    n, d = x.shape
+    k_s = max(1, 50_000 // world)
+    samp = np.full((k_s, d), np.nan, np.float32)
+    take = np.random.default_rng(cfg.seed).choice(n, min(n, k_s), replace=False)
+    samp[: len(take)] = np.asarray(x[take], np.float32)
+    if cat_features:
+        # the categorical range must cover every category of every rank,
+        # and its check is one decision for all ranks
+        ext = np.zeros((len(cat_features), 2), np.float64)
+        for j, f in enumerate(cat_features):
+            col = np.asarray(x[:, f], np.float64)
+            col = col[~np.isnan(col)]
+            ext[j] = (col.min(), col.max()) if len(col) else (0.0, 0.0)
+        gext = collectives.all_gather(torch.from_numpy(ext), tiled=False).numpy()
+        gmin, gmax = gext[..., 0].min(axis=0), gext[..., 1].max(axis=0)
+        bad = np.flatnonzero((gmin < 0) | (gmax > cfg.max_bin - 2))
+        if len(bad):
+            raise ValueError(
+                f"categorical features {[cat_features[b] for b in bad]} "
+                f"have values outside [0, {cfg.max_bin - 2}] — re-index categories first"
+            )
+        for j, f in enumerate(cat_features):
+            samp[0, f] = gmax[j]
+    sample = collectives.all_gather(torch.from_numpy(samp)).to(dev)
+    return BinMapper.fit(sample, max_bin=cfg.max_bin, seed=cfg.seed,
+                         categorical_features=cat_features, device=dev)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -413,6 +492,10 @@ def train(
     none) and gives the model string of the uninterrupted fit, byte for
     byte. The same directory for both is a crash-loop-safe auto-resume.
 
+    Over two or more ranks of the default ``torch.distributed`` group each
+    rank passes its own rows and gets the same booster (module
+    docstring); the rounds then run eagerly.
+
     ``fused_rounds``: 0 (the default) runs eligible fits as fused chunks
     sized automatically (the whole run without early stopping,
     ``min(T, max(16, patience))`` rounds with it); 1 runs the same rounds
@@ -459,7 +542,17 @@ def train(
                 f"{x.mapper.max_bin} but cfg.max_bin={cfg.max_bin}; "
                 "bin codes would overflow the histogram space"
             )
+    rank, world = group_rank_size()
+    if pre_binned and world > 1:
+        raise ValueError("pre-binned input is single-process only")
     dev = resolve_device(device)
+    if world > 1:
+        _check_multirank(cfg, world, sparse_input=sparse_input, valid=valid_mask,
+                         init_booster=init_booster,
+                         checkpointing=bool(checkpoint_dir or resume_from),
+                         fused_rounds=fused_rounds)
+    elif cfg.parallelism == "voting_parallel":
+        log.info("voting_parallel needs >1 data shard; falling back to data_parallel")
     host_reads["count"] = 0
     for key in fused:
         fused[key] = 0
@@ -483,8 +576,11 @@ def train(
     else:
         # binned on the fit's device; a dense matrix crosses to it once
         src = x if sparse_input else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        mapper = BinMapper.fit(src, max_bin=cfg.max_bin, seed=cfg.seed,
-                               categorical_features=cat_features, device=dev)
+        if world > 1:
+            mapper = _multirank_mapper(x, cfg, cat_features, world, dev)
+        else:
+            mapper = BinMapper.fit(src, max_bin=cfg.max_bin, seed=cfg.seed,
+                                   categorical_features=cat_features, device=dev)
         bins = mapper.bin_tensor(src, dev)                    # (n, d) uint8
         del src
     cat_mask = None
@@ -508,6 +604,10 @@ def train(
         log.info("goss boosting: bagging disabled (GOSS is the row sampler)")
         bagging_freq = 0
     use_bag = bagging_freq > 0 and bagging_fraction < 1.0
+    # a rank's rows sit at global positions rank * share + i (share: the
+    # largest rank's row count), so its bag draws are the JAX package's
+    # draws over the padded global rows
+    bag_at = rank * multihost_pad_target(n, make_mesh(device=dev)) if world > 1 and use_bag else 0
     patience = cfg.early_stopping_round
     if is_dart and patience > 0:
         # dropout rescales trees inside any best-iteration prefix, so no
@@ -597,7 +697,13 @@ def train(
         learning_rate=1.0 if is_rf else lr_cur,
     )
     grow = (grow_tree_depthwise if cfg.growth_policy == "depthwise"
-            else grow_tree_partitioned if _partitioned() else grow_tree)
+            else grow_tree_partitioned if _partitioned() and world == 1 else grow_tree)
+    grow_kw: dict = {}
+    if world > 1:
+        # every plane over all the ranks' rows (the default group)
+        grow_kw["group"] = torch.distributed.group.WORLD
+        if cfg.parallelism == "voting_parallel":
+            grow, grow_kw["top_k"] = grow_tree_voting, int(cfg.top_k)
     renew = cfg.objective in objectives.RENEWED_KINDS and not is_rf
     q_renew = p1 if cfg.objective == "quantile" else torch.tensor(0.5).to(dev)
     # every round's host draws, made up front in the reference's order and
@@ -622,7 +728,7 @@ def train(
         # the bag in force at ``start``: redrawn from its round, and held
         # against the one the checkpoint saved
         r0 = (start - 1) // bagging_freq * bagging_freq
-        bag = (sampling.uniform(cfg.seed, r0, sampling.BAGGING_STREAM, n, dev)
+        bag = (sampling.uniform(cfg.seed, r0, sampling.BAGGING_STREAM, n, dev, bag_at)
                < bagging_fraction).float()
         if resumed.bag is None or not np.array_equal(_to_host(bag), resumed.bag):
             raise ValueError(
@@ -704,7 +810,7 @@ def train(
             num_leaves=L, sp=sp, feature_mask=fm,
             max_depth=int(cfg.max_depth),
             min_data_in_leaf=int(cfg.min_data_in_leaf), num_bins=B,
-            categorical_mask=cat_mask,
+            categorical_mask=cat_mask, **grow_kw,
         )
         if renew:
             # the leaf's weighted percentile of residuals over the sampled
@@ -739,7 +845,8 @@ def train(
         # -- one round as a function of static device buffers, run in
         # chunks: captured once and replayed on the card when fused
         # (fused_rounds != 1), eager otherwise
-        fusing = int(fused_rounds) != 1
+        # over ranks the rounds run eagerly: a collective is not captured
+        fusing = int(fused_rounds) != 1 and world == 1
         C_full = T if patience == 0 else min(T, max(16, patience))
         if int(fused_rounds) > 1:
             C_full = max(1, min(C_full, int(fused_rounds)))
@@ -758,7 +865,7 @@ def train(
             it = it_dev
             w_it = w_dev
             if use_bag:
-                u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev)
+                u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, bag_at)
                 bag.copy_(torch.where(it % bagging_freq == 0, (u < bagging_fraction).float(), bag))
                 w_it = w_dev * bag
             g, h = (g_rf, h_rf) if is_rf else gradients(scores)
@@ -840,7 +947,7 @@ def train(
             w_it = w_dev
             if use_bag:
                 if it % bagging_freq == 0:
-                    u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev)
+                    u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, bag_at)
                     bag = (u < bagging_fraction).float()
                 w_it = w_dev * bag
             drop = draws.drops[it]

@@ -17,18 +17,28 @@ a tensor (``index_select`` / ``index_copy_``), never ``.item()``, so the
 host never waits on the device inside a tree and a later change can
 capture a whole round as a CUDA graph. The records come to the host once,
 after training (``train.py``).
+
+Multi-rank growth (LightGBM's ``data_parallel``): ``grow_tree`` and
+``grow_tree_depthwise`` take ``group``, a ``torch.distributed`` process
+group whose ranks each pass their own rows. Every plane and leaf sum is
+then built over all the ranks' rows (``ops/histogram.py``'s distributed
+form, bit for bit one build on all of them), so split search runs on
+identical planes on every rank and every rank grows the same tree with no
+further collective; ``row_leaf`` stays the rank's own. The partitioned
+grower stays single-device, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from mmlspark_tpu_torch.ops.histogram import (
     NUM_BINS,
+    global_rows,
     leaf_stat_sums,
     multi_plane_histogram,
     plane_histogram,
@@ -183,9 +193,11 @@ def _row_stats(grad: torch.Tensor, hess: torch.Tensor,
 
 
 def _leaf_values(row_leaf: torch.Tensor, row_stats: torch.Tensor, L: int,
-                 sp: SplitParams) -> tuple:
-    """-ThresholdL1(G)/(H+lambda) * lr per final leaf (0 for empty leaves)."""
-    sums = leaf_stat_sums(row_leaf, row_stats, L)
+                 sp: SplitParams, group: Any = None,
+                 rows: Optional[torch.Tensor] = None) -> tuple:
+    """-ThresholdL1(G)/(H+lambda) * lr per final leaf (0 for empty leaves);
+    with ``group`` from the sums over its ranks."""
+    sums = leaf_stat_sums(row_leaf, row_stats, L, group, rows)
     Gl, Hl, Cl = sums[:, 0], sums[:, 1], sums[:, 2]
     values = -threshold_l1(Gl, sp.lambda_l1) / (Hl + sp.lambda_l2) * sp.learning_rate
     return torch.where(Cl > 0, values, 0.0), Cl.to(torch.int32)
@@ -204,10 +216,12 @@ def grow_tree(
     min_data_in_leaf: int = 20,
     num_bins: int = NUM_BINS,
     categorical_mask: Optional[torch.Tensor] = None,  # (d,) bool
+    group: Any = None,
 ) -> GrownTree:
     """Leaf-wise (best-first) growth of one tree: the port of the JAX
     package's ``_grow_tree``. ``categorical_mask`` None leaves the
-    categorical search and routing out entirely.
+    categorical search and routing out entirely. ``group``: the ranks'
+    rows together (module docstring).
 
     The (L, d*B, 3) histogram cube is carried incrementally and updated in
     place: each split histograms only the rows that moved to the new right
@@ -220,9 +234,10 @@ def grow_tree(
     row_stats = _row_stats(grad, hess, row_weight)
     cat_f = categorical_mask
     leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B, cat_f=cat_f)
+    rows = None if group is None else global_rows(n, group, dev)
 
     hist = torch.zeros((L, d * B, 3), dtype=torch.float32, device=dev)
-    hist[0] = plane_histogram(bins, row_stats, None, B)
+    hist[0] = plane_histogram(bins, row_stats, None, B, group, rows)
     leaf_ids = torch.arange(L, device=dev)
     row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
     leaf_depth = torch.zeros(L, dtype=torch.int32, device=dev)
@@ -270,7 +285,7 @@ def grow_tree(
             right = row_bins > bb
         moved = do_split & (row_leaf == bl) & right
         row_leaf = torch.where(moved, k + 1, row_leaf)
-        right = plane_histogram(bins, row_stats, moved.to(torch.float32), B)
+        right = plane_histogram(bins, row_stats, moved.to(torch.float32), B, group, rows)
         hist[k + 1] = right
         parent = hist.index_select(0, bl)
         hist.index_copy_(0, bl, parent + torch.where(do_split, -right, 0.0))
@@ -291,7 +306,7 @@ def grow_tree(
         done = done | ~do_split
         prev_pair = torch.cat([bl, leaf_ids[k + 1: k + 2]])
 
-    values, counts = _leaf_values(row_leaf, row_stats, L, sp)
+    values, counts = _leaf_values(row_leaf, row_stats, L, sp, group, rows)
     return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
                      values, counts, row_leaf, rec_is_cat, rec_catmask)
 
@@ -502,6 +517,7 @@ def grow_tree_depthwise(
     min_data_in_leaf: int = 20,
     num_bins: int = NUM_BINS,
     categorical_mask: Optional[torch.Tensor] = None,
+    group: Any = None,
 ) -> GrownTree:
     """Level-wise growth: the port of the JAX package's
     ``_grow_tree_depthwise`` with sibling subtraction and the vectorized
@@ -514,7 +530,8 @@ def grow_tree_depthwise(
     once: the budget and record order come from a cumsum over the
     gain-sorted valid mask (``argsort`` is stable, as ``jnp.argsort``).
 
-    With ``max_depth`` unset, depth caps at ceil(log2(num_leaves))."""
+    With ``max_depth`` unset, depth caps at ceil(log2(num_leaves)).
+    ``group``: the ranks' rows together (module docstring)."""
     n, d = bins.shape
     L, B = int(num_leaves), num_bins
     dev = bins.device
@@ -525,6 +542,7 @@ def grow_tree_depthwise(
     row_stats = _row_stats(grad, hess, row_weight)
     cat_f = categorical_mask
     leaf_best = make_leaf_best(d, feature_mask, min_data_in_leaf, sp, num_bins=B, cat_f=cat_f)
+    rows = None if group is None else global_rows(n, group, dev)
 
     i32, i64 = torch.int32, torch.int64
     row_slot = torch.zeros(n, dtype=i64, device=dev)
@@ -551,7 +569,7 @@ def grow_tree_depthwise(
             P = S // 2
             is_right = (local < 2 * P) & (local % 2 == 1)
             slot_pair = torch.where(is_right, local // 2, P).to(i32)
-            half = multi_plane_histogram(bins, row_stats, slot_pair, P, B)
+            half = multi_plane_histogram(bins, row_stats, slot_pair, P, B, group, rows)
             ok = (parent_local >= 0)[:, None, None]
             parents = cube_prev[parent_local.clamp(0, cube_prev.shape[0] - 1)]
             left = torch.where(ok, parents - half, 0.0)
@@ -562,7 +580,7 @@ def grow_tree_depthwise(
                     [cube, torch.zeros((S - 2 * P, d * B, 3), device=dev)]
                 )
         else:
-            cube = multi_plane_histogram(bins, row_stats, local.to(i32), S, B)
+            cube = multi_plane_histogram(bins, row_stats, local.to(i32), S, B, group, rows)
         cube_prev = cube
         gains, feats, bbs, catms = leaf_best(cube)
         order = torch.argsort(-gains, stable=True)
@@ -617,7 +635,7 @@ def grow_tree_depthwise(
         row_slot = torch.where(goes_right, split_new[j_r], row_slot)
         k = k + ok.sum()
 
-    values, counts = _leaf_values(row_slot.to(i32), row_stats, L, sp)
+    values, counts = _leaf_values(row_slot.to(i32), row_stats, L, sp, group, rows)
     return GrownTree(rec_leaf, rec_feature, rec_bin, rec_active, rec_gain,
                      values, counts, row_slot.to(i32), rec_is_cat, rec_catmask)
 

@@ -56,6 +56,17 @@
 //
 // Launch geometry is chosen here, from (n, d, B, S) and the SM count: features
 // per block, slot planes per block, row chunks and cluster size.
+//
+// The distributed form (B4: the JAX package's per-shard kernel + psum of the
+// planes, _plane_histogram_shard_map and multi_plane_histogram(mesh=...)).
+// The *_fixed entries take the scale from the caller instead of computing it:
+// six int64 words on the device, k_0..k_2 and finite_0..finite_2, which the
+// wrapper derives from an all-reduce MAX of the ranks' column maxima and the
+// global row count. They skip pass (4) and leave the int64 sums in the first
+// S * d * B * 3 words of the scratch. The wrapper all-reduces those sums and
+// only then rounds to f32, so the plane of any number of ranks equals, bit for
+// bit, the plane one call on all their rows gives: every row adds the same
+// integer, and integer addition does not depend on the order or the rank.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,6 +124,19 @@ struct Scales {
 };
 
 // k_j = kSumBits - ceil(log2 n) - e_j, with max|v_j| < 2^e_j.
+// The scale the caller fixed: k_j in given[j], finite_j in given[3 + j].
+__device__ inline Scales given_scales(const long long* given) {
+  Scales s;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    s.finite[j] = given[3 + j] != 0;
+    const int k = static_cast<int>(given[j]);
+    s.to_int[j] = ldexp(1.0, k);
+    s.to_float[j] = ldexp(1.0, -k);
+  }
+  return s;
+}
+
 __device__ inline Scales load_scales(const Header* hdr, int n) {
   Scales s;
   const int top = kSumBits - ceil_log2(n);
@@ -308,8 +332,8 @@ __global__ void __launch_bounds__(kThreads)
 hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ stats,
             const float* __restrict__ mask, const int32_t* __restrict__ slot,
             const Header* __restrict__ hdr, const int32_t* __restrict__ rows,
-            unsigned long long* __restrict__ acc, int n, int d, int B, int S, int fb,
-            int sg) {
+            const long long* __restrict__ given, unsigned long long* __restrict__ acc, int n,
+            int d, int B, int S, int fb, int sg) {
   extern __shared__ unsigned sh[];               // [2][3][ns][B][F]
   __shared__ unsigned char lane_of[kWarps][32];  // per warp: kept rank -> lane
 
@@ -329,7 +353,7 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ stats,
   const int plane = B * F;           // words of one (stat, slot)
   const int cells = 3 * ns * plane;  // int64 cells; high words at sh + cells
   for (int i = threadIdx.x; i < 2 * cells; i += kThreads) sh[i] = 0u;
-  const Scales sc = load_scales(hdr, n);
+  const Scales sc = given ? given_scales(given) : load_scales(hdr, n);
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -466,10 +490,12 @@ bool plan(int n, int d, int B, int S, int sms, Geometry* g) {
 }
 
 // partial: int64 words, [S * d * B * 3 accumulator][2 header][ceil(n / 2) row list].
+// given: null (the scale from this call's rows, then f32 into out) or the
+// caller's scale (the int64 sums stay in partial; out is not written).
 template <typename BinT, bool kMulti>
 int launch(const void* bins, const float* stats, const float* mask, const int32_t* slot,
-           long long* partial, float* out, int n, int d, int B, int S, int sms,
-           cudaStream_t st) {
+           const long long* given, long long* partial, float* out, int n, int d, int B,
+           int S, int sms, cudaStream_t st) {
   Geometry g;
   if (!plan(n, d, B, S, sms, &g)) return kTooManyBins;
   const size_t m = static_cast<size_t>(S) * d * B * 3;
@@ -501,11 +527,11 @@ int launch(const void* bins, const float* stats, const float* mask, const int32_
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, hist_kernel<BinT, kMulti>, static_cast<const BinT*>(bins),
                            stats, mask, slot, const_cast<const Header*>(hdr),
-                           const_cast<const int32_t*>(rows),
+                           const_cast<const int32_t*>(rows), given,
                            reinterpret_cast<unsigned long long*>(partial), n, d, B, S, g.fb,
                            g.sg);
   if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || given) return static_cast<int>(err);
 
   to_float_kernel<<<grid_for(m, 256, 4096), 256, 0, st>>>(partial, hdr, out, m, n);
   return static_cast<int>(cudaGetLastError());
@@ -525,8 +551,10 @@ int mmlspark_plane_hist(const void* bins, int bin_kind, const float* stats,
                         int B, int sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bin_kind == 0)
-    return launch<uint8_t, false>(bins, stats, mask, nullptr, partial, out, n, d, B, 1, sms, st);
-  return launch<int32_t, false>(bins, stats, mask, nullptr, partial, out, n, d, B, 1, sms, st);
+    return launch<uint8_t, false>(bins, stats, mask, nullptr, nullptr, partial, out, n, d, B, 1,
+                                  sms, st);
+  return launch<int32_t, false>(bins, stats, mask, nullptr, nullptr, partial, out, n, d, B, 1,
+                                sms, st);
 }
 
 // partial holds S * d * B * 3 + 2 + ceil(n / 2) int64 words; out S * d * B * 3.
@@ -535,8 +563,38 @@ int mmlspark_multi_plane_hist(const void* bins, int bin_kind, const float* stats
                               int d, int B, int S, int sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bin_kind == 0)
-    return launch<uint8_t, true>(bins, stats, nullptr, slot, partial, out, n, d, B, S, sms, st);
-  return launch<int32_t, true>(bins, stats, nullptr, slot, partial, out, n, d, B, S, sms, st);
+    return launch<uint8_t, true>(bins, stats, nullptr, slot, nullptr, partial, out, n, d, B, S,
+                                 sms, st);
+  return launch<int32_t, true>(bins, stats, nullptr, slot, nullptr, partial, out, n, d, B, S,
+                               sms, st);
+}
+
+// The distributed form of mmlspark_plane_hist: scale = six int64 words on the
+// device (k_0..k_2, finite_0..finite_2). The int64 sums are left in the first
+// d * B * 3 words of partial; nothing is converted to f32.
+int mmlspark_plane_hist_fixed(const void* bins, int bin_kind, const float* stats,
+                              const float* mask, const long long* scale, long long* partial,
+                              int n, int d, int B, int sms, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bin_kind == 0)
+    return launch<uint8_t, false>(bins, stats, mask, nullptr, scale, partial, nullptr, n, d, B,
+                                  1, sms, st);
+  return launch<int32_t, false>(bins, stats, mask, nullptr, scale, partial, nullptr, n, d, B, 1,
+                                sms, st);
+}
+
+// The distributed form of mmlspark_multi_plane_hist: the int64 sums are left
+// in the first S * d * B * 3 words of partial.
+int mmlspark_multi_plane_hist_fixed(const void* bins, int bin_kind, const float* stats,
+                                    const int32_t* slot, const long long* scale,
+                                    long long* partial, int n, int d, int B, int S, int sms,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bin_kind == 0)
+    return launch<uint8_t, true>(bins, stats, nullptr, slot, scale, partial, nullptr, n, d, B, S,
+                                 sms, st);
+  return launch<int32_t, true>(bins, stats, nullptr, slot, scale, partial, nullptr, n, d, B, S,
+                               sms, st);
 }
 
 }  // extern "C"

@@ -36,18 +36,37 @@ the counts before it drives the main path and reads them after. A call
 made while the stream is being captured into a CUDA graph launches
 nothing and is not counted; the graph's replays launch the captured
 kernels without calling a wrapper, so they show only in a device trace.
+
+The distributed form (B4, the JAX package's per-shard kernel + ``psum``:
+``_plane_histogram_shard_map`` and ``multi_plane_histogram(mesh=...)``):
+given a process ``group``, the builders sum over its ranks, each holding
+its own rows. The scale is fixed for all ranks first: an all-reduce MAX of
+the ranks' column maxima and an all-reduce SUM of their row counts give
+the k_j one call on all the rows would compute. Each rank then sums its
+rows in int64 at that scale (``plane_hist_fixed`` / ``multi_plane_hist_fixed``
+on the card, the same arithmetic in PyTorch on the CPU), the int64 cells
+are all-reduced, and only then rounded to f32. So the plane equals a
+single call on all the ranks' rows bit for bit, at every world size: on
+the card that single call is ``plane_hist``; on the CPU it is
+``plane_histogram_emulated``, not the f32 ``plane_histogram_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
+from typing import Any
 
 import torch
 
+from mmlspark_tpu_torch import obs
+from mmlspark_tpu_torch.parallel import collectives
+
 NUM_BINS = 256
 
-launches = {"plane_hist": 0, "multi_plane_hist": 0}
+launches = {"plane_hist": 0, "multi_plane_hist": 0, "plane_hist_fixed": 0,
+            "multi_plane_hist_fixed": 0}
 
 _SUM_BITS = 62  # n * max|v| * 2^k < 2^62: no int64 sum overflows (csrc kSumBits)
 _TOO_MANY_BINS = -1  # csrc kTooManyBins
@@ -148,6 +167,26 @@ def _from_fixed(acc: torch.Tensor, k: torch.Tensor, finite: torch.Tensor) -> tor
     return torch.where(finite, out, float("nan"))
 
 
+def _fixed_sums(bins: torch.Tensor, v: torch.Tensor, k: torch.Tensor, finite: torch.Tensor,
+                num_bins: int, base: "torch.Tensor | None", size: int) -> torch.Tensor:
+    """The int64 cells (size, 3) of the rows' contributions ``v`` at scale
+    2^k_j: the kernels' accumulator."""
+    n, d = bins.shape
+    q = _to_fixed(v, k, finite)
+    acc = torch.zeros((size + 1) * 3, dtype=torch.int64, device=bins.device)
+    acc.index_add_(0, _flat_index(bins, num_bins, base, size),
+                   q[:, None, :].expand(n, d, 3).reshape(-1))
+    return acc[: size * 3].view(size, 3)
+
+
+def _slot_base(bins: torch.Tensor, slot: torch.Tensor, num_slots: int,
+               num_bins: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(rows whose slot lies in [0, S), each row's plane offset or -1)."""
+    sl = slot.long()
+    ok = (sl >= 0) & (sl < num_slots)
+    return ok, torch.where(ok, sl * (bins.shape[1] * num_bins), -1)
+
+
 def plane_histogram_emulated(
     bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None" = None,
     num_bins: int = NUM_BINS,
@@ -158,12 +197,7 @@ def plane_histogram_emulated(
     n, d = bins.shape
     v = stats if mask is None else stats * mask[:, None]
     k, finite = _fixed_scale(v, n)
-    q = _to_fixed(v, k, finite)
-    size = d * num_bins
-    acc = torch.zeros((size + 1) * 3, dtype=torch.int64, device=bins.device)
-    acc.index_add_(0, _flat_index(bins, num_bins, None, size),
-                   q[:, None, :].expand(n, d, 3).reshape(-1))
-    return _from_fixed(acc[: size * 3].view(size, 3), k, finite)
+    return _from_fixed(_fixed_sums(bins, v, k, finite, num_bins, None, d * num_bins), k, finite)
 
 
 def multi_plane_histogram_emulated(
@@ -173,16 +207,10 @@ def multi_plane_histogram_emulated(
     """``multi_plane_hist``'s own arithmetic in PyTorch -> (S, d*B, 3); the
     scale comes from the rows whose slot lies in [0, S)."""
     n, d = bins.shape
-    sl = slot.long()
-    ok = (sl >= 0) & (sl < num_slots)
+    ok, base = _slot_base(bins, slot, num_slots, num_bins)
     k, finite = _fixed_scale(stats[ok], n)
-    q = _to_fixed(stats, k, finite)
-    size = num_slots * d * num_bins
-    base = torch.where(ok, sl * (d * num_bins), -1)
-    acc = torch.zeros((size + 1) * 3, dtype=torch.int64, device=bins.device)
-    acc.index_add_(0, _flat_index(bins, num_bins, base, size),
-                   q[:, None, :].expand(n, d, 3).reshape(-1))
-    return _from_fixed(acc[: size * 3].view(num_slots, d * num_bins, 3), k, finite)
+    acc = _fixed_sums(bins, stats, k, finite, num_bins, base, num_slots * d * num_bins)
+    return _from_fixed(acc.view(num_slots, d * num_bins, 3), k, finite)
 
 
 # -- the CUDA kernels -------------------------------------------------------
@@ -209,6 +237,10 @@ def _lib() -> ctypes.CDLL:
         lib.mmlspark_plane_hist.restype = i
         lib.mmlspark_multi_plane_hist.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p]
         lib.mmlspark_multi_plane_hist.restype = i
+        lib.mmlspark_plane_hist_fixed.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
+        lib.mmlspark_plane_hist_fixed.restype = i
+        lib.mmlspark_multi_plane_hist_fixed.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p]
+        lib.mmlspark_multi_plane_hist_fixed.restype = i
         lib._mmlspark_typed = True
     return lib
 
@@ -238,6 +270,25 @@ def _raise_on(code: int, kernel: str, num_bins: int) -> None:
         )
 
 
+def _check_rows(kernel: str, bins: torch.Tensor, stats: torch.Tensor,
+                extra: tuple, scale: "torch.Tensor | None") -> "tuple[int, int]":
+    """Device, type, shape and contiguity of a kernel's row inputs; extra
+    = (name, tensor, dtype) of the mask or the slot."""
+    dev = bins.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be (n, d), got shape {tuple(bins.shape)}")
+    n, d = bins.shape
+    _check("bins", bins, (n, d), tuple(_BIN_KIND), dev)
+    _check("stats", stats, (n, 3), (torch.float32,), dev)
+    if extra[1] is not None:
+        _check(extra[0], extra[1], (n,), (extra[2],), dev)
+    if scale is not None:
+        _check("scale", scale, (6,), (torch.int64,), dev)
+    return n, d
+
+
 def plane_hist(
     bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None",
     num_bins: int,
@@ -245,15 +296,7 @@ def plane_hist(
     """The ``plane_hist`` kernel on CUDA tensors: uint8/int32 (n, d) bins,
     f32 (n, 3) stats, optional f32 (n,) mask -> f32 (d*B, 3)."""
     dev = bins.device
-    if dev.type != "cuda":
-        raise ValueError(f"plane_hist runs on CUDA tensors, got {dev}")
-    if bins.dim() != 2:
-        raise ValueError(f"bins must be (n, d), got shape {tuple(bins.shape)}")
-    n, d = bins.shape
-    _check("bins", bins, (n, d), tuple(_BIN_KIND), dev)
-    _check("stats", stats, (n, 3), (torch.float32,), dev)
-    if mask is not None:
-        _check("mask", mask, (n,), (torch.float32,), dev)
+    n, d = _check_rows("plane_hist", bins, stats, ("mask", mask, torch.float32), None)
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
     out = torch.empty((d * num_bins, 3), dtype=torch.float32, device=dev)
@@ -279,14 +322,7 @@ def multi_plane_hist(
     """The ``multi_plane_hist`` kernel on CUDA tensors: uint8/int32 (n, d)
     bins, f32 (n, 3) stats, int32 (n,) slot -> f32 (S, d*B, 3)."""
     dev = bins.device
-    if dev.type != "cuda":
-        raise ValueError(f"multi_plane_hist runs on CUDA tensors, got {dev}")
-    if bins.dim() != 2:
-        raise ValueError(f"bins must be (n, d), got shape {tuple(bins.shape)}")
-    n, d = bins.shape
-    _check("bins", bins, (n, d), tuple(_BIN_KIND), dev)
-    _check("stats", stats, (n, 3), (torch.float32,), dev)
-    _check("slot", slot, (n,), (torch.int32,), dev)
+    n, d = _check_rows("multi_plane_hist", bins, stats, ("slot", slot, torch.int32), None)
     if num_bins < 1 or num_slots < 1:
         raise ValueError("num_bins and num_slots must be >= 1")
     out = torch.empty((num_slots, d * num_bins, 3), dtype=torch.float32, device=dev)
@@ -304,6 +340,129 @@ def multi_plane_hist(
     return out
 
 
+def plane_hist_fixed(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None",
+    num_bins: int, scale: torch.Tensor,
+) -> torch.Tensor:
+    """The distributed entry of the ``plane_hist`` kernel: the caller's
+    scale, (6,) int64 [k_0..k_2, finite_0..finite_2] on the card ->
+    this rank's int64 sums (d*B, 3), not yet rounded to f32."""
+    dev = bins.device
+    n, d = _check_rows("plane_hist_fixed", bins, stats, ("mask", mask, torch.float32), scale)
+    if num_bins < 1:
+        raise ValueError(f"num_bins must be >= 1, got {num_bins}")
+    size = d * num_bins
+    scratch = _scratch(n, size * 3, dev)
+    if d == 0:
+        return scratch[:0].view(0, 3)
+    code = _lib().mmlspark_plane_hist_fixed(
+        bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(),
+        mask.data_ptr() if mask is not None else None, scale.data_ptr(),
+        scratch.data_ptr(), n, d, num_bins, _sm_count(dev.index or 0),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "plane_hist_fixed", num_bins)
+    if not torch.cuda.is_current_stream_capturing():
+        launches["plane_hist_fixed"] += 1
+    return scratch[: size * 3].view(size, 3)
+
+
+def multi_plane_hist_fixed(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int, scale: torch.Tensor,
+) -> torch.Tensor:
+    """The distributed entry of the ``multi_plane_hist`` kernel: the
+    caller's scale -> this rank's int64 sums (S, d*B, 3)."""
+    dev = bins.device
+    n, d = _check_rows("multi_plane_hist_fixed", bins, stats, ("slot", slot, torch.int32), scale)
+    if num_bins < 1 or num_slots < 1:
+        raise ValueError("num_bins and num_slots must be >= 1")
+    size = num_slots * d * num_bins
+    scratch = _scratch(n, size * 3, dev)
+    if d == 0:
+        return scratch[:0].view(num_slots, 0, 3)
+    code = _lib().mmlspark_multi_plane_hist_fixed(
+        bins.data_ptr(), _BIN_KIND[bins.dtype], stats.data_ptr(), slot.data_ptr(),
+        scale.data_ptr(), scratch.data_ptr(), n, d, num_bins, num_slots,
+        _sm_count(dev.index or 0), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "multi_plane_hist_fixed", num_bins)
+    if not torch.cuda.is_current_stream_capturing():
+        launches["multi_plane_hist_fixed"] += 1
+    return scratch[: size * 3].view(num_slots, d * num_bins, 3)
+
+
+# -- the distributed form (B4) ------------------------------------------------
+
+
+def global_rows(n_local: int, group: Any, device: torch.device) -> torch.Tensor:
+    """The real rows of every rank of ``group``: (1,) int64 on ``device``
+    (one all-reduce SUM). A caller that builds many planes of the same rows
+    computes it once and passes it as ``rows``."""
+    return collectives.allreduce_sum(
+        torch.tensor([int(n_local)], dtype=torch.int64, device=device), group)
+
+
+def global_scale(v: torch.Tensor, rows: torch.Tensor, group: Any) -> torch.Tensor:
+    """The scale one call on all ranks' rows would take: (6,) int64
+    [k_0..k_2, finite_0..finite_2] from the all-reduce MAX of the ranks'
+    max |v_j| (as the bits of the f32 absolute value, so NaN orders above
+    inf as in the kernel's scan) and ``rows``, all on the device."""
+    a = v.abs().amax(0) if v.shape[0] else v.new_zeros(3)
+    bits = collectives.allreduce_max(a.view(torch.int32) & 0x7FFFFFFF, group)
+    amax = bits.view(torch.float32)
+    _, e = torch.frexp(amax)
+    finite = torch.isfinite(amax)
+    m = rows.reshape(()) - 1
+    nb = torch.where(m > 0, torch.frexp(m.clamp_min(1).double())[1].long(), 0)  # bit_length
+    k = torch.where(finite, _SUM_BITS - nb - e.long(), 0)
+    return torch.cat([k, finite.long()])
+
+
+def _split(scale: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    return scale[:3], scale[3:].bool()
+
+
+def plane_histogram_fixed(
+    bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None",
+    num_bins: int, scale: torch.Tensor,
+) -> torch.Tensor:
+    """This rank's int64 plane (d*B, 3) at the given scale: the
+    ``plane_hist_fixed`` kernel on CUDA tensors, its arithmetic in PyTorch
+    on CPU tensors."""
+    if _on_cpu(bins, "plane_histogram_fixed"):
+        v = stats if mask is None else stats * mask[:, None]
+        return _fixed_sums(bins, v, *_split(scale), num_bins, None, bins.shape[1] * num_bins)
+    return plane_hist_fixed(bins, stats, mask, num_bins, scale)
+
+
+def multi_plane_histogram_fixed(
+    bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
+    num_bins: int, scale: torch.Tensor,
+) -> torch.Tensor:
+    """This rank's int64 cube (S, d*B, 3) at the given scale."""
+    if _on_cpu(bins, "multi_plane_histogram_fixed"):
+        _, base = _slot_base(bins, slot, num_slots, num_bins)
+        d = bins.shape[1]
+        acc = _fixed_sums(bins, stats, *_split(scale), num_bins, base, num_slots * d * num_bins)
+        return acc.view(num_slots, d * num_bins, 3)
+    return multi_plane_hist_fixed(bins, stats, slot, num_slots, num_bins, scale)
+
+
+def from_fixed(acc: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int64 sums at ``scale`` -> f32, as the kernels' last pass rounds."""
+    return _from_fixed(acc, *_split(scale))
+
+
+def _no_capture(op: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{op}: a collective cannot run inside a CUDA graph capture")
+
+
+def _reduced(acc: torch.Tensor, scale: torch.Tensor, group: Any) -> torch.Tensor:
+    return from_fixed(collectives.allreduce_sum(acc, group), scale)
+
+
 # -- the builders the growers call -------------------------------------------
 
 
@@ -317,13 +476,26 @@ def _on_cpu(t: torch.Tensor, op: str) -> bool:
 
 def plane_histogram(
     bins: torch.Tensor, stats: torch.Tensor, mask: "torch.Tensor | None" = None,
-    num_bins: int = NUM_BINS,
+    num_bins: int = NUM_BINS, group: Any = None, rows: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """(d * B, 3) gradient-histogram plane of the masked rows.
 
     ``bins``: (n, d) int bin codes (uint8 or int32 on CUDA); ``stats``:
     (n, 3) f32 per-row (g, h, count); ``mask``: optional (n,) f32 row weight
-    (0 rows contribute nothing)."""
+    (0 rows contribute nothing).
+
+    ``group``: a ``torch.distributed`` process group whose ranks each pass
+    their own rows: the plane of all of them (the distributed form, equal
+    to one call on all their rows bit for bit); None builds this process's
+    rows alone. ``rows``: the ranks' real row count (:func:`global_rows`),
+    all-reduced here when not given."""
+    if group is not None:
+        _no_capture("plane_histogram")
+        if rows is None:
+            rows = global_rows(bins.shape[0], group, bins.device)
+        v = stats if mask is None else stats * mask[:, None]
+        scale = global_scale(v, rows, group)
+        return _reduced(plane_histogram_fixed(bins, stats, mask, num_bins, scale), scale, group)
     if _on_cpu(bins, "plane_histogram"):
         return plane_histogram_plain(bins, stats, mask, num_bins)
     return plane_hist(bins, stats, mask, num_bins)
@@ -331,23 +503,58 @@ def plane_histogram(
 
 def multi_plane_histogram(
     bins: torch.Tensor, stats: torch.Tensor, slot: torch.Tensor, num_slots: int,
-    num_bins: int = NUM_BINS,
+    num_bins: int = NUM_BINS, group: Any = None, rows: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """Histogram planes for many leaves in one pass over the rows:
     ``slot`` (n,) picks each row's plane (outside [0, S) = none). Returns
-    (num_slots, d * B, 3). The depthwise grower's workhorse."""
+    (num_slots, d * B, 3). The depthwise grower's workhorse. ``group`` and
+    ``rows`` as in :func:`plane_histogram`; the scale comes from the rows
+    whose slot lies in [0, S)."""
+    if group is not None:
+        _no_capture("multi_plane_histogram")
+        if rows is None:
+            rows = global_rows(bins.shape[0], group, bins.device)
+        ok, _ = _slot_base(bins, slot, num_slots, num_bins)
+        scale = global_scale(torch.where(ok[:, None], stats, 0.0), rows, group)
+        acc = multi_plane_histogram_fixed(bins, stats, slot, num_slots, num_bins, scale)
+        return _reduced(acc, scale, group)
     if _on_cpu(bins, "multi_plane_histogram"):
         return multi_plane_histogram_plain(bins, stats, slot, num_slots, num_bins)
     return multi_plane_hist(bins, stats, slot, num_slots, num_bins)
 
 
 def leaf_stat_sums(
-    leaf: torch.Tensor, stats: torch.Tensor, num_leaves: int
+    leaf: torch.Tensor, stats: torch.Tensor, num_leaves: int, group: Any = None,
+    rows: "torch.Tensor | None" = None,
 ) -> torch.Tensor:
     """Per-leaf (g, h, count) totals: (n,) int32 leaf ids in [0, L) + (n, 3)
     stats -> (L, 3). On CUDA this is ``plane_hist`` with d = 1 and B = L,
     as the JAX package's host path reuses its plane kernel, so it is
-    deterministic too."""
+    deterministic too. ``group``/``rows``: the totals over the ranks, as
+    :func:`plane_histogram`'s."""
+    if group is not None:
+        return plane_histogram(leaf[:, None], stats, None, num_leaves, group, rows)
     if _on_cpu(leaf, "leaf_stat_sums"):
         return plane_histogram_plain(leaf[:, None], stats, None, num_leaves)
     return plane_hist(leaf[:, None], stats, None, num_leaves)
+
+
+_M_ALLREDUCE_SECONDS = obs.histogram(
+    "mmlspark_gbdt_hist_allreduce_seconds",
+    "Wall time of one sharded histogram build including the explicit "
+    "all-reduce (observed by eager/bench builds)",
+)
+
+
+def sharded_build_timed(
+    bins: torch.Tensor, stats: torch.Tensor, group: Any, num_bins: int = NUM_BINS,
+) -> torch.Tensor:
+    """One distributed plane build (this rank's kernel plus the
+    all-reduces), timed on the host clock up to a synchronise of the
+    card, into ``mmlspark_gbdt_hist_allreduce_seconds``."""
+    t0 = time.perf_counter()
+    out = plane_histogram(bins, stats, None, num_bins, group)
+    if out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
+    _M_ALLREDUCE_SECONDS.observe(time.perf_counter() - t0)
+    return out

@@ -2,8 +2,8 @@
 
 Hashed sparse features -> device SGD (AdaGrad) as hand-written CUDA
 kernels (``ops/sgd.py``), replacing VW's native train loop
-(vw/VowpalWabbitBase.scala). One device: the per-pass weight allreduce
-comes with the port's ``parallel/`` (ROADMAP.md, A4).
+(vw/VowpalWabbitBase.scala). Over ranks, the weights are averaged after
+every pass over the port's ``parallel/`` (``vw.learner``).
 """
 
 from mmlspark_tpu_torch.vw.contextual_bandit import (

@@ -3,9 +3,11 @@
 The PyTorch port of ``mmlspark_tpu.vw.estimators``. Facade parity with
 vw/VowpalWabbitClassifier.scala and VowpalWabbitRegressor.scala; the online
 pass runs in ``vw.learner`` on the stage's ``device`` (the card by
-default: two hand-written kernels per minibatch). One device, so no
-per-pass weight allreduce yet (VowpalWabbitBase.scala:313-429; ROADMAP.md,
-A4). Training diagnostics mirror ``TrainingStats``
+default: one hand-written kernel a pass). Over two or more
+``torch.distributed`` ranks each rank fits its own rows and the weights
+are averaged after every pass (``vw.learner``; the reference's per-pass
+allreduce, VowpalWabbitBase.scala:313-429). Training diagnostics mirror
+``TrainingStats``
 (VowpalWabbitBase.scala:27-46,431-457).
 """
 
@@ -31,6 +33,7 @@ from mmlspark_tpu_torch.core.params import (
 )
 from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 from mmlspark_tpu_torch.ops.hashing import murmur3_bytes
+from mmlspark_tpu_torch.parallel.mesh import group_rank_size
 from mmlspark_tpu_torch.vw.featurizer import HasNumBits, combine_namespaces
 from mmlspark_tpu_torch.vw.learner import (
     LOSS_HINGE,
@@ -237,7 +240,7 @@ class _VowpalWabbitBase(
                 "rows": [int(len(y))],
                 "time_total_ns": [t1 - t0],
                 "time_learn_ns": [t1 - t0],
-                "num_devices": [1],
+                "num_devices": [group_rank_size()[1]],
                 "passes": [self.get("num_passes")],
             }
         )

@@ -16,9 +16,14 @@ Adaptive (AdaGrad) per-coordinate learning rates stand in for VW's
 ``--adaptive`` default; ``power_t`` scales the global schedule for the
 non-adaptive path.
 
-There is one device: the per-pass ``pmean`` over a mesh comes with the
-port's ``parallel/`` (ROADMAP.md Queue A, A4). ``distributed=True`` runs the
-single-device program, as the JAX package does on a one-device mesh.
+Over ranks (``distributed=True`` and a default ``torch.distributed`` group
+of two or more): each rank passes its own rows, runs one ``vw_pass`` a
+pass over them, and after every pass ``w`` and ``g2`` become their mean
+over the ranks (``parallel.collectives.allreduce_mean``, the JAX package's
+per-pass ``pmean``). Every rank pads its rows to the same whole number of
+minibatches (the largest rank's row count, all-gathered), as the JAX
+package's multi-process branch does. With one rank, or
+``distributed=False``, the single-device program runs.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch
 
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.ops import sgd
+from mmlspark_tpu_torch.parallel import collectives, make_mesh, multihost_pad_target
+from mmlspark_tpu_torch.parallel.mesh import group_rank_size
 
 LOSS_LOGISTIC = "logistic"
 LOSS_SQUARED = "squared"
@@ -117,9 +124,8 @@ def train_sparse_sgd_state(
     kernel two block barriers and its memory round trips; fewer, bigger
     minibatches keep it busy), 64 on the CPU (closer to VW's
     per-example updates), the JAX package's rule with the card in the TPU's
-    place. ``distributed`` is accepted for the JAX package's signature: one
-    device runs the single-device program either way."""
-    del distributed  # one device: no per-pass pmean (ROADMAP.md, A4)
+    place. ``distributed``: over two or more ranks, average ``w`` and
+    ``g2`` over them after every pass (module docstring)."""
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}")
     dev = resolve_device(device)
@@ -128,8 +134,16 @@ def train_sparse_sgd_state(
     if batch <= 0:
         batch = 1024 if dev.type == "cuda" else 64
     wt = np.ones(n, np.float32) if wt is None else np.asarray(wt, np.float32)
-    batch = max(1, min(batch, max(1, n)))
-    n_pad = int(np.ceil(max(n, 1) / batch)) * batch
+    ranks = group_rank_size()[1] if distributed else 1
+    if ranks > 1:
+        # every rank runs the same number of minibatches: sized from the
+        # largest rank's rows (at least one inert minibatch)
+        target = max(1, multihost_pad_target(n, make_mesh(device=dev)))
+        batch = max(1, min(batch, target))
+        n_pad = int(np.ceil(target / batch)) * batch
+    else:
+        batch = max(1, min(batch, max(1, n)))
+        n_pad = int(np.ceil(max(n, 1) / batch)) * batch
     idx = np.asarray(idx)
     val = np.asarray(val, np.float32)
     y = np.asarray(y, np.float32)
@@ -164,6 +178,9 @@ def train_sparse_sgd_state(
             loss=loss, batch=batch, tau=quantile_tau, lr=lr, l2=l2, eps=_EPS,
             adaptive=adaptive,
         )
+        if ranks > 1:  # the per-pass allreduce (VowpalWabbitBase.scala:401-429)
+            w.copy_(collectives.allreduce_mean(w))
+            g2.copy_(collectives.allreduce_mean(g2))
     t = torch.tensor(sgd.counter_after(t0, num_passes * nb), dtype=torch.float32, device=dev)
     return SGDState(w=w, g2=g2, t=t)
 

@@ -227,6 +227,81 @@ def test_leaf_stat_sums_launches_plane_hist(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,keep,S", [(64, None, None), (256, None, None), (256, 0.3, None),
+                                      (64, None, 16), (256, None, 5)])
+def test_fixed_scale_entries_equal_their_plain_version_bitwise(cuda_device, B, keep, S):
+    """The distributed entries (B4): the int64 cells at a given scale equal
+    the same fixed-point arithmetic in PyTorch on the card, bit for bit;
+    at the scale of all the rows, rounded to f32 they are ``plane_hist`` /
+    ``multi_plane_hist`` of the same call; each launch counts once."""
+    n, d = 30_000, 12
+    bins, stats = _inputs(n, d, B, seed=B + (S or 0))
+    b, st = bins.to(cuda_device), stats.to(cuda_device)
+    g = torch.Generator().manual_seed(9)
+    if S is None:
+        mask = None if keep is None else (torch.rand(n, generator=g) < keep).float().to(cuda_device)
+        v = st if mask is None else st * mask[:, None]
+        k, fin = PH._fixed_scale(v, n)
+        scale = torch.cat([k, fin.long()])
+        before = PH.launches["plane_hist_fixed"]
+        got = PH.plane_hist_fixed(b, st, mask, B, scale)
+        assert PH.launches["plane_hist_fixed"] == before + 1
+        want = PH._fixed_sums(b, v, k, fin, B, None, d * B)
+        one = PH.plane_hist(b, st, mask, B)
+    else:
+        slot = torch.randint(-1, S + 2, (n,), generator=g, dtype=torch.int32).to(cuda_device)
+        ok, base = PH._slot_base(b, slot, S, B)
+        k, fin = PH._fixed_scale(st[ok], n)
+        scale = torch.cat([k, fin.long()])
+        before = PH.launches["multi_plane_hist_fixed"]
+        got = PH.multi_plane_hist_fixed(b, st, slot, S, B, scale)
+        assert PH.launches["multi_plane_hist_fixed"] == before + 1
+        want = PH._fixed_sums(b, st, k, fin, B, base, S * d * B).view(S, d * B, 3)
+        one = PH.multi_plane_hist(b, st, slot, S, B)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(_bits(PH.from_fixed(got, scale)), _bits(one))
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_leave_their_input_alone(cuda_device, tmp_path):
+    """NCCL reduces in place: every collective hands it a copy, so the
+    result is a new tensor and the caller's input keeps its values (a
+    one-rank NCCL group on the card)."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.parallel import collectives
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", world_size=1,
+                            rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        for op in (collectives.allreduce_sum, collectives.allreduce_mean,
+                   collectives.allreduce_max, collectives.broadcast):
+            x = torch.arange(12, dtype=torch.float32, device=cuda_device)
+            keep = x.clone()
+            out = op(x)
+            torch.cuda.synchronize()
+            assert out.data_ptr() != x.data_ptr(), op.__name__
+            assert torch.equal(out, keep), op.__name__
+            out.add_(1)
+            torch.cuda.synchronize()
+            assert torch.equal(x, keep), op.__name__
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_fixed_scale_entries_refuse_a_bad_scale(cuda_device):
+    b = torch.zeros(10, 2, dtype=torch.int32, device=cuda_device)
+    s = torch.zeros(10, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        PH.plane_hist_fixed(b, s, None, 16, torch.zeros(6, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        PH.plane_hist_fixed(b, s, None, 16, torch.zeros(3, dtype=torch.int64, device=cuda_device))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_inputs(cuda_device):
     b = torch.zeros(10, 2, dtype=torch.int64, device=cuda_device)
     s = torch.zeros(10, 3, device=cuda_device)

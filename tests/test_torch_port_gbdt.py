@@ -285,15 +285,16 @@ def _categorical_csr(x, y):
     (lambda x, y: _fit_with(x, y, init_booster=_init_booster(x, y)), ValueError, "class count"),
     (_estimator_num_batches, ValueError, "num_batches"),
     (_categorical_csr, ValueError, "dense"),
-    (lambda x, y: _fit_with(x, y, dict(parallelism="voting_parallel")), NotImplementedError,
-     "voting"),
+    (lambda x, y: _fit_with(x, y, dict(parallelism="voting_parallel",
+                                       growth_policy="depthwise")), ValueError, "voting"),
 ], ids=["delegate", "csr_input", "init_booster", "num_batches", "categorical", "voting"])
 def test_unported_options_raise(run, exc, match):
-    """What the port refuses raises, naming why: voting-parallel is not
-    ported; the ported options refuse what the JAX package cannot do either
-    (a delegate without the hooks, continuing a booster of another class
-    count, checkpoints across ``num_batches``, categorical columns of
-    sparse input, to ``BinMapper`` and to ``train``)."""
+    """What the port refuses raises, naming why: the ported options refuse
+    what the JAX package cannot do either (a delegate without the hooks,
+    continuing a booster of another class count, checkpoints across
+    ``num_batches``, categorical columns of sparse input, to ``BinMapper``
+    and to ``train``, and the leaf-wise voting grower asked to grow
+    level-wise)."""
     x, y = load_xy("iris")
     with pytest.raises(exc, match=match):
         run(x, (y > 0).astype(float))

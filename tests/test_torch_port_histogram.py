@@ -153,7 +153,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                        torch.from_numpy(mask), num_bins=64)
     PH.multi_plane_histogram(torch.from_numpy(bins), torch.from_numpy(stats),
                              torch.zeros(300, dtype=torch.int32), 2, 64)
-    assert PH.launches == {"plane_hist": 0, "multi_plane_hist": 0}
+    assert PH.launches == {"plane_hist": 0, "multi_plane_hist": 0, "plane_hist_fixed": 0,
+                           "multi_plane_hist_fixed": 0}
     assert PH.hist_lowering("cpu") == "torch"
     assert PH.hist_lowering("cuda") == "cuda"
 

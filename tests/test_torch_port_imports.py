@@ -51,6 +51,9 @@ def test_import_with_jax_blocked(tmp_path):
         "from mmlspark_tpu_torch.stages import SummarizeData, FlattenBatch, VectorZipper\n"
         "from mmlspark_tpu_torch.featurize import CleanMissingData, ValueIndexer, TextFeaturizer\n"
         "from mmlspark_tpu_torch.ops.native_loader import try_load\n"
+        "import mmlspark_tpu_torch.parallel, mmlspark_tpu_torch.core.faults\n"
+        "from mmlspark_tpu_torch.parallel import collectives, distributed, sharding, mesh\n"
+        "from mmlspark_tpu_torch.models.gbdt.voting import grow_tree_voting\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
@@ -75,9 +78,10 @@ def test_gbdt_exports_every_name_of_the_jax_package():
 
 
 # names of the JAX package's ``__all__`` the port does not export yet: none
-# (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported)
+# (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported; so is
+# A4 step 1, ``parallel``)
 A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
-                "obs": set()}
+                "obs": set(), "parallel": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
