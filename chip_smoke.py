@@ -68,7 +68,18 @@ must load), each kernel's time (eager and in a CUDA graph, the library
 calls alike) beside its byte bound and chain floor, ``vw_margin`` also at
 newsgroup-length rows (20,000 x 481) and a million rows x 41, bitwise the
 CPU there too, and where a fit's time goes (launches a pass, the pass's
-device ms). Last, phase ``distributed``: the histograms'
+device ms). Then phase ``serving``: one ``WorkerServer`` +
+``ModelDispatcher`` over a ``ModelStore`` on the card holding ``echo``, the
+trees/s cell's lossguide booster (``gbdt:``), V2's classifier (``vw:``,
+scored by ``vw_margin``), P1 compiled (``pipeline:``, its buckets' graphs
+captured in warm-up) and ``zoo:ResNet50``: each load's resident bytes
+against the rise of card memory, 300 sequential loopback POSTs a model
+(50 warm-up) whose replies must all be 200 and bitwise the model called
+in-process on the card (VW's also the CPU plain version's), p50 and p99,
+where a ResNet-50 request's time goes, P1 hot-swapped to a second version
+under load (zero 5xx, zero drops, every reply one version's answer), each
+unload's memory back, and a budget of one ResNet-50 refusing a second.
+Last, phase ``distributed``: the histograms'
 distributed form (the fixed-scale kernel entries plus int64 all-reduces)
 at world 1 under NCCL in this process and at world 2 as two spawned gloo
 processes on this card, bitwise one ``plane_hist`` / ``multi_plane_hist``
@@ -543,11 +554,11 @@ def fit_main_path(x, y, x_test, y_test, name="main_path", **params) -> dict:
                              seed=0, device=DEV.type, **params)
     train_df = DataFrame.from_dict({"features": x, "label": y})
     kernel = "multi_plane_hist" if params.get("growth_policy") == "depthwise" else "plane_hist"
-    rec, _ = drive(name, est, train_df, kernel, classifier_score(x_test, y_test),
-                   trace=name == "main_path", **params)
+    rec, model = drive(name, est, train_df, kernel, classifier_score(x_test, y_test),
+                       trace=name == "main_path", **params)
     if rec["auc"] < 0.90:
         raise AssertionError(f"held-out AUC {rec['auc']} < 0.90 for {params}")
-    return rec
+    return {**rec, "model_string": model.get("model_string")}
 
 
 def gate_data():
@@ -1833,7 +1844,7 @@ def pipeline(x, y, x_test, y_test, repo: str) -> dict:
            "P1b": pipeline_p1b(p1["cols"], p1["model"]),
            "P2": pipeline_p2(x, y, x_test, y_test), "P3": pipeline_p3(repo)}
     phase("pipeline", part="total", seconds=time.perf_counter() - t0)
-    return rec
+    return {**rec, "p1_serve": {"cols": p1["cols"], "model": p1["model"]}}
 
 
 # -- VowpalWabbit: text -> hashed features -> the SGD kernels ---------------------
@@ -2227,7 +2238,7 @@ def vw_v2(texts) -> dict:
            "regressor_rmse": rmse, "score_std": float(score.std()),
            "bandit": vw_bandit()}
     phase("vw", part="V2 split text", **rec)
-    return {**rec, "fdf": fdf}
+    return {**rec, "fdf": fdf, "classifier": model.get("stages")[3]}
 
 
 def _sm_clock_hz() -> float:
@@ -2472,12 +2483,466 @@ def vw(smi: str) -> dict:
     v1 = vw_v1(texts, y)
     v2 = vw_v2(texts)
     fdf = v2.pop("fdf")
+    serve = {"model": v2.pop("classifier"), "rows": fdf["features"][-VW_HOLDOUT:][:64]}
     train = fdf.select("features", "score").with_column(
         "label", lambda p: (p["score"] > 0).astype(np.float64))
     times = vw_times(train)
     breakdown = {f"V2_b{b}": vw_breakdown(train, b, 3, f"V2 b{b}") for b in (1024, 64)}
     phase("vw", part="total", seconds=time.perf_counter() - t0, nvidia_smi=smi)
-    return {"checks": checks, "V1": v1, "V2": v2, "times": times, "breakdown": breakdown}
+    return {"checks": checks, "V1": v1, "V2": v2, "times": times, "breakdown": breakdown,
+            "serve": serve}
+
+
+# -- phase serving: one worker on the card (WorkerServer -> ModelDispatcher -> ModelStore) ----
+
+SERVE_REQUESTS, SERVE_WARM = 300, 50   # bench.py _seg_serving: 300 sequential POSTs, 50 warm-up
+SERVE_ROWS = 16                        # distinct request rows a model cycles through
+SERVE_IMAGES = 4                       # distinct images for the zoo model
+SERVE_ZOO, SERVE_IMAGE = "ResNet50", 224   # the zoo model at its input size
+SERVE_BUCKETS = 64                     # the dispatcher's max_batch_size: warmup captures to it
+# a version's device bytes (the store's resident_bytes) against the rise of
+# memory_allocated plus graph-pool bytes at its load, and the level after its
+# unload against the one before its load: the caching allocator rounds each
+# block up to 512 bytes and may leave a large block unsplit (up to 1 MiB over)
+SERVE_MEM_MARGIN = 4 << 20
+SERVE_MEM_REL = 0.02
+
+
+def _serve_mem() -> "tuple[int, int]":
+    """(memory_allocated, bytes reserved for CUDA graph pools) on the card."""
+    pools = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    return torch.cuda.memory_allocated(), int(pools)
+
+
+def _mem_ok(got: int, want: int) -> bool:
+    return abs(got - want) <= SERVE_MEM_MARGIN + SERVE_MEM_REL * abs(want)
+
+
+def _settle() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _post_loop(port: int, path: str, bodies: list) -> dict:
+    """SERVE_REQUESTS sequential keep-alive POSTs cycling through
+    ``bodies``, as bench.py's serving segment sends them: statuses,
+    bodies, ms each."""
+    import http.client
+
+    n = SERVE_REQUESTS
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out = {"status": [], "body": [], "ms": [], "row": []}
+    for i in range(n):
+        k = i % len(bodies)
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=bodies[k], headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["status"].append(r.status)
+        out["body"].append(data)
+        out["row"].append(k)
+    conn.close()
+    return out
+
+
+def _quantiles(ms: list) -> dict:
+    a = np.sort(np.asarray(ms))
+    return {"p50_ms": float(a[len(a) // 2]), "p99_ms": float(a[int(len(a) * 0.99)]),
+            "n": int(a.size)}
+
+
+def _serving_files(d: str, gbdt_string: str, vw_model, p1: dict) -> dict:
+    """Each model written the way its loader reads it; returns the specs
+    and the request rows."""
+    from mmlspark_tpu_torch import PipelineModel
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "trees.gbdt.json"), "w") as f:
+        f.write(gbdt_string)
+    meta = json.dumps({"num_bits": vw_model.get("num_bits"),
+                       "loss": vw_model.get("loss_function") or "logistic",
+                       "no_constant": vw_model.get("no_constant")}).encode()
+    np.savez(os.path.join(d, "v2.npz"), weights=np.asarray(vw_model.get("weights"), np.float32),
+             meta=np.frombuffer(meta, np.uint8))
+    cols = p1["cols"]
+    inputs = [f"x{i}" for i in range(16)] + ["vec"]
+    warm = {c: np.asarray(cols[c][:SERVE_BUCKETS]).tolist() for c in inputs}
+    stages = p1["model"].get("stages")
+    lr = stages[-1]
+    # version 2 of the pipeline: the same stages with the head's weights halved
+    v2 = PipelineModel(stages=list(stages[:-1]) + [
+        lr.copy({"weights": np.asarray(lr.get("weights")) * np.float32(0.5)})])
+    for name, model in (("p1", p1["model"]), ("p1_v2", v2)):
+        model.save(os.path.join(d, name))
+        with open(os.path.join(d, name, "warmup.json"), "w") as f:
+            json.dump(warm, f)
+    return {"specs": {"echo": "echo", "gbdt": f"gbdt:{d}/trees.gbdt.json",
+                      "vw": f"vw:{d}/v2.npz", "pipeline": f"pipeline:{d}/p1",
+                      SERVE_ZOO: f"zoo:{SERVE_ZOO}"},
+            "pipeline_v2": f"pipeline:{d}/p1_v2", "models": {"p1": p1["model"], "p1_v2": v2}}
+
+
+def _serving_requests(x_test, vw_rows, cols, rng) -> dict:
+    """The request bodies of each model (bytes) and the rows behind them."""
+    gb = x_test[:SERVE_ROWS]
+    vw = [{"i": np.asarray(r["i"]).tolist(), "v": np.asarray(r["v"], np.float32).tolist()}
+          for r in vw_rows[:SERVE_ROWS]]
+    pipe = [{**{f"x{i}": float(cols[f"x{i}"][k]) for i in range(16)},
+             "vec": np.asarray(cols["vec"][k]).tolist()} for k in range(SERVE_ROWS)]
+    imgs = rng.integers(0, 256, (SERVE_IMAGES, SERVE_IMAGE, SERVE_IMAGE, 3), dtype=np.uint8)
+    return {
+        "echo": [json.dumps({"k": k, "x": rng.standard_normal(4).tolist()}).encode()
+                 for k in range(SERVE_ROWS)],
+        "gbdt": [json.dumps({"features": r.tolist()}).encode() for r in gb],
+        "vw": [json.dumps(r).encode() for r in vw],
+        "pipeline": [json.dumps(r).encode() for r in pipe],
+        SERVE_ZOO: [json.dumps({"image": im.tolist()}).encode() for im in imgs],
+        "rows": {"gbdt": gb, "vw": vw, "pipeline": pipe, SERVE_ZOO: imgs},
+    }
+
+
+def _serving_expected(req: dict, gbdt_string: str, vw_model, models: dict, repo: str) -> dict:
+    """Each model called in-process on the card on the same rows (and VW's
+    margins on the CPU plain version too): what every reply must equal."""
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+
+    rows = req["rows"]
+    booster = Booster.from_model_string(gbdt_string)
+    margins = booster.predict(rows["gbdt"], device=DEV)
+    vdf = DataFrame.from_dict({"features": _obj(rows["vw"])})
+    vw_card = vw_model.copy({"device": DEV.type}).transform(vdf)["raw_prediction"]
+    vw_cpu = vw_model.copy({"device": "cpu"}).transform(vdf)["raw_prediction"]
+    pipe = {}
+    for name, model in models.items():
+        comp = model.compile()
+        pdf = DataFrame.from_dict({c: (np.asarray([r[c] for r in rows["pipeline"]],
+                                                   np.float32 if c == "vec" else np.float64))
+                                   for c in rows["pipeline"][0]})
+        out = comp.transform(pdf)
+        pipe[name] = {c: out[c] for c in ("features", "features_s", "raw_prediction",
+                                          "probability", "prediction")}
+        for seg in comp.fused_segments:
+            seg.release()
+    feat = ImageFeaturizer(input_col="image", output_col="f", model_name=SERVE_ZOO,
+                           repo_dir=repo, device=DEV.type)
+    # one image a call: the served path's batch (one image padded to batch_size)
+    zoo = [feat.transform(DataFrame.from_dict({"image": im[None]}))["f"][0]
+           for im in rows[SERVE_ZOO]]
+    return {"gbdt": margins, "vw": vw_card, "vw_cpu": vw_cpu, "pipeline": pipe,
+            SERVE_ZOO: zoo}
+
+
+def _obj(items: list) -> np.ndarray:
+    a = np.empty(len(items), dtype=object)
+    for i, x in enumerate(items):
+        a[i] = {"i": np.asarray(x["i"], np.int64), "v": np.asarray(x["v"], np.float32)}
+    return a
+
+
+def _pipe_equal(reply: dict, want: dict, k: int) -> bool:
+    return all(np.array_equal(np.asarray(reply[c], np.asarray(want[c]).dtype), want[c][k])
+               for c in want)
+
+
+def _check_replies(name: str, got: dict, req: dict, want: dict) -> list:
+    """The rows whose reply differs from the in-process call (empty = all
+    bitwise equal)."""
+    bad = []
+    for k, body in zip(got["row"], got["body"]):
+        r = json.loads(body)
+        if name == "echo":
+            ok = r == {"echo": json.loads(req["echo"][k])}
+        elif name == "gbdt":
+            ok = r["margin"] == float(want["gbdt"][k])
+        elif name == "vw":
+            ok = r["margin"] == float(np.float32(want["vw"][k])) == float(
+                np.float32(want["vw_cpu"][k]))
+        elif name == "pipeline":
+            ok = _pipe_equal(r, want["pipeline"]["p1"], k)
+        else:
+            ok = np.array_equal(np.asarray(r["features"], np.float32), want[SERVE_ZOO][k])
+        if not ok:
+            bad.append(k)
+    return sorted(set(bad))
+
+
+def _zoo_request_ms(store, body: bytes) -> dict:
+    """Where a ResNet-50 request's time goes, in-process on the served
+    version: host decode (``prepare``: JSON -> uint8 array) and the whole
+    ``execute`` (the padded batch's copy in, forward and copy out, and the
+    reply's JSON encode), medians of 10; device ms, the device operations'
+    summed time, from the request's trace (``_request_profile``)."""
+    from mmlspark_tpu_torch.serving import CachedRequest
+
+    mv = store.acquire(SERVE_ZOO)
+    try:
+        h, bs = mv.loaded.handler, mv.loaded.meta["batch_size"]
+        req = CachedRequest(id="r", epoch=0, method="POST", path="/", headers={}, body=body)
+        dec, exe = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            staged = h.prepare([req])
+            dec.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            h.execute(staged)
+            exe.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        store.release(mv)
+    traced = _request_profile(store, SERVE_ZOO, body)
+    return {"decode_ms": float(np.median(dec)), "device_ms": traced["device_ms"],
+            "execute_ms": float(np.median(exe)), "batch_size": bs,
+            "padded_rows": bs - 1, "body_bytes": len(body), "traced": traced}
+
+
+def _request_profile(store, name: str, body: bytes) -> dict:
+    """One request through the served version's handler in-process, traced:
+    the host's launch calls (kernels and graphs), the device operations
+    and their summed device ms, and the call's wall ms (the trace's cost
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch.serving import CachedRequest
+
+    mv = store.acquire(name)
+    try:
+        req = CachedRequest(id="r", epoch=0, method="POST", path="/", headers={}, body=body)
+        mv.loaded.handler([req])  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mv.loaded.handler([req])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        store.release(mv)
+    events = prof.events()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e.name for e in events if e.name in _HOST_LAUNCHES]
+    return {"host_launch_calls": len(host), "graph_launches": host.count("cudaGraphLaunch"),
+            "device_ops": len(dev),
+            "device_ms": sum(getattr(e, "device_time", 0.0) for e in dev) / 1e3,
+            "traced_wall_ms": wall * 1e3}
+
+
+def _hot_swap(store, port: int, bodies: list, want: dict, spec_v2: str) -> dict:
+    """A client loop POSTs to ``pipeline`` while version 2 loads and warms
+    (its graphs captured beside version 1's replays) and the alias flips:
+    zero 5xx, zero drops, every reply version 1's or version 2's answer for
+    its row, the requests after the flip version 2's; p99 of the requests
+    straddling the load and the flip."""
+    import http.client
+    import threading
+
+    log, errs, stop = [], [], threading.Event()
+
+    def client() -> None:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            i = 0
+            while not stop.is_set():
+                k = i % len(bodies)
+                t0 = time.perf_counter()
+                conn.request("POST", "/models/pipeline", body=bodies[k])
+                r = conn.getresponse()
+                log.append((k, r.status, r.read(), t0, time.perf_counter()))
+                i += 1
+            conn.close()
+        except BaseException as e:  # re-raised below, in the phase's thread
+            errs.append(e)
+
+    th = threading.Thread(target=client, name="serving-swap-client")
+    th.start()
+    time.sleep(0.3)
+    t_load = time.perf_counter()
+    v2 = store.load("pipeline", spec_v2, wait=True)
+    t_flip = time.perf_counter()
+    store.swap("pipeline", v2)
+    t_done = time.perf_counter()
+    time.sleep(0.3)
+    stop.set()
+    th.join(120)
+    if errs:
+        raise errs[0]
+    if th.is_alive():
+        raise AssertionError("hot swap: the client loop did not finish")
+    fails, versions = [], []
+    for k, status, body, t0, _ in log:
+        if status != 200:
+            fails.append(f"status {status}")
+            continue
+        r = json.loads(body)
+        v = next((v for v in ("p1", "p1_v2") if _pipe_equal(r, want[v], k)), None)
+        versions.append(v)
+        if v is None:
+            fails.append(f"row {k}: neither version's answer")
+        elif t0 > t_done and v != "p1_v2":
+            fails.append(f"row {k}: version 1 answered after the flip")
+    straddle = [t1 - t0 for _, _, _, t0, t1 in log if t_load <= t0 <= t_done]
+    after = [t1 - t0 for _, _, _, t0, t1 in log if t0 > t_done][:25]
+    rec = {"requests": len(log), "non_200": sum(s != 200 for _, s, _, _, _ in log),
+           "v1_replies": versions.count("p1"), "v2_replies": versions.count("p1_v2"),
+           "load_warm_s": t_flip - t_load, "swap_ms": (t_done - t_flip) * 1e3,
+           "straddling": len(straddle),
+           "straddle_p99_ms": _quantiles([1e3 * s for s in straddle + after])["p99_ms"]
+           if straddle + after else None}
+    if not versions.count("p1") or not versions.count("p1_v2"):
+        fails.append("both versions must have answered")
+    if not straddle:
+        fails.append("no request straddled the load and the flip")
+    return {**rec, "fails": fails[:5]}
+
+
+def _budget(repo: str, r50: int) -> dict:
+    """A budget that fits one ResNet-50 but not two: the second version is
+    refused (HBMBudgetExceeded) before anything is placed; with room for
+    two, a third version evicts the least recently used non-serving one."""
+    from mmlspark_tpu_torch.serving.modelstore import HBMBudgetExceeded, ModelStore
+
+    _settle()
+    a0 = torch.cuda.memory_allocated()
+    one = ModelStore(budget_bytes=int(1.5 * r50), device=DEV.type, zoo_dir=repo)
+    one.load("a", f"zoo:{SERVE_ZOO}")
+    a1 = torch.cuda.memory_allocated()
+    refused = False
+    try:
+        one.load("a", f"zoo:{SERVE_ZOO}")
+    except HBMBudgetExceeded:
+        refused = True
+    _settle()
+    a_refused = torch.cuda.memory_allocated()
+    one.unload("a")
+    two = ModelStore(budget_bytes=int(2.5 * r50), device=DEV.type, zoo_dir=repo)
+    for name in ("a", "a", "b"):
+        two.load(name, f"zoo:{SERVE_ZOO}")
+    states = {v["version"]: v["state"] for v in two.models()["a"]["versions"]}
+    resident = two.resident_bytes()
+    _settle()
+    a_lru = torch.cuda.memory_allocated()
+    two.unload("a")
+    two.unload("b")
+    _settle()
+    a_end = torch.cuda.memory_allocated()
+    rec = {"budget_1_5x_refused": refused, "one_rise": a1 - a0, "rise_after_refusal": a_refused - a0,
+           "lru_states_a": states, "lru_resident_bytes": resident, "lru_rise": a_lru - a0,
+           "end_rise": a_end - a0}
+    fails = []
+    if not refused or not _mem_ok(a_refused - a0, r50):
+        fails.append(f"one-ResNet-50 budget: refused {refused}, rise {a_refused - a0}")
+    if states != {1: "ready", 2: "evicted"} or not _mem_ok(a_lru - a0, 2 * r50) \
+            or resident != 2 * r50:
+        fails.append(f"LRU: {states}, resident {resident}, rise {a_lru - a0}")
+    if not _mem_ok(a_end - a0, 0):
+        fails.append(f"after unloading: {a_end - a0} bytes left")
+    return {**rec, "fails": fails}
+
+
+def serving(smi: str, repo: str, gbdt_string: str, vw_serve: dict, p1: dict,
+            x_test) -> dict:
+    """Phase ``serving``: one WorkerServer + ModelDispatcher over a
+    ModelStore on the card holding ``echo``, ``gbdt:`` (the trees/s cell's
+    lossguide booster), ``vw:`` (V2's classifier, num_bits 18), ``pipeline:``
+    (P1, compiled, its buckets' graphs captured in warm-up) and
+    ``zoo:ResNet50``, each written the way its loader reads it. Each load's
+    resident bytes against the rise of card memory; 300 sequential loopback
+    POSTs a model (50 warm-up), every reply 200 and bitwise the model called
+    in-process on the card (VW's margins also the CPU plain version's), p50
+    and p99; where a ResNet-50 request's time goes; P1 hot-swapped under
+    load; each unload's memory back; a budget of one ResNet-50. The served
+    requests run with the launch counts set to 0 just before and read just
+    after: ``vw_margin`` must have launched."""
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.serving import WorkerServer
+    from mmlspark_tpu_torch.serving.modelstore import ModelDispatcher, ModelStore
+
+    t0 = time.perf_counter()
+    d = os.path.join(ROOT, "build", "chip_smoke_serving")
+    shutil.rmtree(d, ignore_errors=True)
+    files = _serving_files(d, gbdt_string, vw_serve["model"], p1)
+    req = _serving_requests(x_test, vw_serve["rows"], p1["cols"], np.random.default_rng(SEED))
+    want = _serving_expected(req, gbdt_string, vw_serve["model"], files["models"], repo)
+    _settle()
+    fails = []
+    store = ModelStore(device=DEV.type, zoo_dir=repo)
+    loads = {}
+    for name, spec in files["specs"].items():
+        a0, p0 = _serve_mem()
+        r0 = store.resident_bytes()
+        ts = time.perf_counter()
+        store.load(name, spec)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - ts
+        a1, p1b = _serve_mem()
+        held = store.resident_bytes() - r0
+        loads[name] = {"load_s": load_s, "resident_bytes": held, "allocated_rise": a1 - a0,
+                       "graph_pool_rise": p1b - p0}
+        if not _mem_ok(a1 - a0 + p1b - p0, held):
+            fails.append(f"{name}: resident {held} bytes, card memory rose {a1 - a0} "
+                         f"+ {p1b - p0} in graph pools")
+    states = {n: [v["state"] for v in m["versions"]] for n, m in store.models().items()}
+    if any(s != ["ready"] for s in states.values()):
+        raise AssertionError(f"serving: not every model is ready: {states}")
+    srv = WorkerServer(name="chip-smoke")
+    info = srv.start()
+    disp = ModelDispatcher(srv, store, max_batch_size=SERVE_BUCKETS).start()
+    try:
+        sgd.reset_launch_counts()
+        H.reset_launch_counts()
+        served = {name: _post_loop(info.port, f"/models/{name}", req[name])
+                  for name in files["specs"]}
+        launches = {**dict(sgd.launches), **dict(H.launches)}
+        lat, mismatched = {}, {}
+        for name, got in served.items():
+            lat[name] = {**_quantiles(got["ms"][SERVE_WARM:]),
+                         "non_200": sum(s != 200 for s in got["status"])}
+            if lat[name]["non_200"]:
+                fails.append(f"{name}: {lat[name]['non_200']} replies were not 200")
+                continue
+            mismatched[name] = _check_replies(name, got, req, want)
+            if mismatched[name]:
+                fails.append(f"{name}: rows {mismatched[name]} differ from the in-process call")
+        if launches["vw_margin"] < SERVE_REQUESTS:
+            fails.append(f"the vw: requests launched vw_margin {launches['vw_margin']} times")
+        zoo_ms = _zoo_request_ms(store, req[SERVE_ZOO][0])
+        traced = {name: _request_profile(store, name, req[name][0])
+                  for name in ("gbdt", "vw", "pipeline")}
+        phase("serving", part="requests", nvidia_smi=smi, latency=lat, loads=loads,
+              launches=launches, resnet50_request=zoo_ms, traced_request=traced,
+              dispatcher_errors=disp.errors)
+        swap = _hot_swap(store, info.port, req["pipeline"], want["pipeline"],
+                         files["pipeline_v2"])
+        fails += [f"hot swap: {f}" for f in swap.pop("fails")]
+        phase("serving", part="hot swap", nvidia_smi=smi, **swap)
+    finally:
+        disp.stop()
+        srv.stop()
+    unloads = {}
+    for name in files["specs"]:
+        _settle()
+        a0, p0 = _serve_mem()
+        held = store.resident_bytes()
+        store.unload(name)
+        _settle()
+        a1, p1b = _serve_mem()
+        held -= store.resident_bytes()
+        unloads[name] = {"resident_bytes": held, "allocated_drop": a0 - a1,
+                         "graph_pool_drop": p0 - p1b}
+        if not _mem_ok(a0 - a1 + p0 - p1b, held):
+            fails.append(f"{name}: unload freed {a0 - a1} + {p0 - p1b}, held {held}")
+    budget = _budget(repo, loads[SERVE_ZOO]["resident_bytes"])
+    fails += budget.pop("fails")
+    shutil.rmtree(d, ignore_errors=True)
+    rec = {"unloads": unloads, "budget": budget, "mem_margin_bytes": SERVE_MEM_MARGIN,
+           "mem_margin_rel": SERVE_MEM_REL, "seconds": time.perf_counter() - t0}
+    phase("serving", part="memory", nvidia_smi=smi, **rec)
+    if fails:
+        raise AssertionError("serving: " + "; ".join(fails))
+    return {"latency": lat, "launches": launches, "swap": swap, "loads": loads,
+            "resnet50_request": zoo_ms, "traced_request": traced, **rec}
 
 
 # -- phase distributed: ranks over torch.distributed (B4, GBDT, VW) ---------------------
@@ -3011,9 +3476,11 @@ def main() -> None:
     repo = os.path.join(ROOT, "build", "chip_smoke_zoo")
     shutil.rmtree(repo, ignore_errors=True)
     featurizer(smi, repo)
-    pipeline(x, y, x_test, y_test, repo)
-    shutil.rmtree(repo, ignore_errors=True)
+    pipe_rec = pipeline(x, y, x_test, y_test, repo)
     vw_rec = vw(smi)
+    serve_rec = serving(smi, repo, runs["lossguide"]["model_string"], vw_rec.pop("serve"),
+                        pipe_rec["p1_serve"], x_test)
+    shutil.rmtree(repo, ignore_errors=True)
     dist_rec = distributed_phase(runs, vw_rec)
 
     def entry(name, replaces, run, kernel, err, t):
@@ -3054,6 +3521,8 @@ def main() -> None:
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"]}
+        if name == "vw_margin":
+            rec["serving_launches"] = serve_rec["launches"]["vw_margin"]
         if name in ("vw_grad", "vw_apply"):
             rec.update(runs_inside="vw_pass", standalone_launches=v2_launches[name])
         if "chain_floor_ms" in t:

@@ -34,6 +34,14 @@ Load-bearing design points:
   outputs to, one packed device buffer each, mirrored by a pinned host
   buffer; a chunk is copied into the input one, the graph replays, and the
   outputs are copied out of the host one before the next replay.
+- **Capture beside serving.** A serving worker captures a new version's
+  graphs (its warm-up) while another thread replays the old version's and
+  waits on their results. Each capture runs in thread-local capture mode,
+  which forbids syncs and allocations only on the capturing thread (the
+  default global mode would make the other thread's illegal, or break the
+  capture), and captures, like the release of a segment's graphs, are
+  serialised process-wide, so one capture's device-wide synchronize never
+  lands inside another.
 
 A segment that cannot run a given DataFrame (an object-dtype input, a
 kernel guard refusal) runs its stages staged for that call — recorded in
@@ -43,6 +51,7 @@ launch a graph raises: it is never hidden behind a staged or CPU rerun.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Optional
 
@@ -396,13 +405,26 @@ class FusedSegment(Segment):
         cur.wait_stream(side)
         outs = _Packed([(c, tuple(v.shape), v.dtype) for c, v in warm.items()], dev)
         del warm
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            for c, v in self._run(ins.dev_views).items():
-                outs.dev_views[c].copy_(v)
+        with _CAPTURE_LOCK:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                for c, v in self._run(ins.dev_views).items():
+                    outs.dev_views[c].copy_(v)
         return _Graph(graph, ins, outs)
+
+    def release(self) -> None:
+        """Drop the segment's graphs, their static buffers and its memory
+        pool (a serving version's eviction); the next call captures anew."""
+        with _CAPTURE_LOCK:
+            self._graphs.clear()
+            self._pool = None
+
+
+# one capture (or graph release) at a time in the process: see the module
+# docstring, "Capture beside serving"
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _fill(views: dict, cols: dict, s: int, e: int) -> None:

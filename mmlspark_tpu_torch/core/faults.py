@@ -1,11 +1,11 @@
 """Deterministic fault injection: named points, seeded schedules.
 
 The PyTorch port's copy of ``mmlspark_tpu.core.faults`` (it imports only
-``obs``). One difference: the JAX package also records every fire in its
-flight recorder (``obs/flightrec.py``), which the port does not have yet
-(ROADMAP.md, Queue A: A4 step 2); the port counts every fire on
-``mmlspark_faults_injected_total`` only. Of the injection points below the
-port wires ``parallel.barrier`` so far; the others come with their modules.
+``obs``): every fire is counted on ``mmlspark_faults_injected_total`` and
+recorded in the flight recorder (``obs/flightrec.py``). Of the injection
+points below the port wires ``parallel.barrier``, ``modelstore.load``,
+``modelstore.swap``, ``admission.shed``, ``publish.fence`` and
+``obs.watchdog_dump`` so far; the others come with their modules.
 
 The reference leans on Spark for fault tolerance (barrier execution,
 uncommitted-epoch replay, ``FaultToleranceUtils.retryWithTimeout``); the
@@ -290,6 +290,12 @@ class FaultPlan:
         if fire is None:
             return None
         _M_INJECTED.labels(point=point).inc()
+        # every fire also lands in the flight recorder, so a post-incident
+        # dump shows the injected faults interleaved with the requests
+        # they broke — and the chaos smoke can gate recorded == injected
+        from mmlspark_tpu_torch.obs import flightrec
+
+        flightrec.record("fault", path=point, detail=f"step={s}")
         return fire.raise_or_payload()
 
     # -- arming ---------------------------------------------------------------

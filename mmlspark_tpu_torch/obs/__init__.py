@@ -5,9 +5,10 @@ only: :mod:`registry` (counters, gauges, fixed-bucket histograms; snapshot
 and Prometheus text exposition v0.0.4) and :mod:`tracing` (host spans with
 trace-id propagation; each span also enters
 ``torch.profiler.record_function``, so host spans nest into a trace of the
-card). The rest of the JAX package's ``obs`` (flight recorder, profiler
-aggregates, SLOs, the trace collector, the watchdog) comes with serving
-(ROADMAP.md, Queue A item 7).
+card), and the three modules serving imports: :mod:`flightrec` (the ring
+of recent request records), :mod:`prof` (the sampling profiler behind
+``GET /profile``) and :mod:`watchdog` (stall dumps). SLOs and the trace
+collector are still to come (ROADMAP.md, Queue A item 7, step 2).
 
 Metric names follow ``mmlspark_<subsystem>_<name>_<unit>``, as in the JAX
 package. Hot-path contract: every instrument op on a disabled registry
@@ -60,9 +61,23 @@ def enabled() -> bool:
 def reset() -> None:
     """Zero every metric in the default registry IN PLACE (children stay
     bound — call sites pre-resolve label children for hot-path speed) and
-    drop recorded spans. Test isolation helper."""
+    drop recorded spans, flight records, profiler aggregates and watchdog
+    counters. Test isolation helper."""
+    import sys as _sys
+
+    from mmlspark_tpu_torch.obs import flightrec
+
     REGISTRY.reset()
     clear_recent_spans()
+    flightrec.FLIGHT.clear()
+    # prof/watchdog state only if those modules were actually imported —
+    # reset() must not drag them (and core.faults) into every test
+    prof_mod = _sys.modules.get("mmlspark_tpu_torch.obs.prof")
+    if prof_mod is not None:
+        prof_mod.PROFILER.reset()
+    wd_mod = _sys.modules.get("mmlspark_tpu_torch.obs.watchdog")
+    if wd_mod is not None:
+        wd_mod.WATCHDOG.reset()
 
 
 __all__ = [

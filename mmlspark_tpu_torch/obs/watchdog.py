@@ -1,0 +1,285 @@
+"""Hang watchdog: named progress counters that auto-dump all-thread
+stacks when they stop moving.
+
+The PyTorch port's copy of ``mmlspark_tpu.obs.watchdog`` (stdlib only).
+
+The flight recorder explains what the last N *requests* did; the
+sampling profiler (obs/prof.py) explains where time goes while things
+move. This module covers the third failure mode — nothing moves at all:
+a gang round that never completes, a dispatcher batch wedged inside a
+handler, a bench segment past its budget, an experiment trial whose rung
+report never lands. Processes register **named progress counters**; a
+counter that was armed (ticked at least once) and then goes silent past
+its deadline triggers one **stall dump** per episode: all-thread stacks
+(with the wedged frames), the sampler's collapsed flames, and the
+flight-recorder tail, written to the same on-error spool flightrec uses
+(``MMLSPARK_FLIGHTREC_DIR``, default ``<tmp>/mmlspark_flightrec``) as
+``stalldump-*.json``, and counted in
+``mmlspark_watchdog_stalls_total{source}``.
+
+Call-site contract::
+
+    from mmlspark_tpu_torch.obs import watchdog
+    watchdog.tick("elastic.round", deadline_s=300)   # auto-registers
+    ...                                              # every round
+    watchdog.disarm("elastic.round")                 # work finished
+
+``tick`` re-arms a disarmed counter; ``disarm`` pauses monitoring (an
+*idle* dispatcher is healthy — only silence while armed is a stall).
+``watchdog.scope(name, deadline_s)`` arms around a block. One dump per
+stall episode: a stalled counter dumps once, then waits for a tick
+before it can fire again (a 10-minute wedge is one file, not twenty).
+
+``SIGUSR2`` (opt-in via :func:`install_sigusr2`, installed by the fleet
+CLI roles and the bench child) writes the same dump on demand —
+``bench.py``'s harvest loop signals a stalled child and collects the
+dump *before* killing it, so a stalled segment names its wedged frame in
+the BENCH json instead of just going missing.
+
+Fault point ``obs.watchdog_dump`` fires on every stall-dump attempt
+(chaos can fail the spool write; the stall is still counted — losing
+the dump must never lose the signal).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, Iterator, Optional
+
+from mmlspark_tpu_torch.obs import tracing
+from mmlspark_tpu_torch.obs.registry import counter
+
+_M_STALLS = counter(
+    "mmlspark_watchdog_stalls_total",
+    "Registered progress counters that went silent past their deadline, "
+    "by counter name", labels=("source",),
+)
+
+DEFAULT_DEADLINE_S = 120.0
+# how many flight-recorder records ride along in a stall dump
+_FLIGHTREC_TAIL = 64
+
+
+class _Progress:
+    __slots__ = ("name", "deadline_s", "last_tick", "armed", "dumped",
+                 "ticks")
+
+    def __init__(self, name: str, deadline_s: float):
+        self.name = name
+        self.deadline_s = float(deadline_s)
+        self.last_tick = time.monotonic()
+        self.armed = True
+        self.dumped = False
+        self.ticks = 0
+
+
+def dump_stacks(reason: str, source: Optional[str] = None,
+                dump_dir: Optional[str] = None) -> Optional[str]:
+    """Write one stall dump (all-thread stacks + collapsed flames +
+    flight-recorder tail) into the flightrec spool. Returns the path, or
+    None when the write failed — a broken disk must not take the caller
+    down. Shared by the watchdog monitor, SIGUSR2, and tests."""
+    from mmlspark_tpu_torch.core import faults
+    from mmlspark_tpu_torch.obs import prof
+    from mmlspark_tpu_torch.obs.flightrec import FLIGHT
+
+    # chaos hook: an injected error here simulates a failed spool write
+    # (the caller counts the stall regardless)
+    faults.inject(
+        "obs.watchdog_dump", context={"reason": reason, "source": source}
+    )
+    payload = prof.threads_payload()
+    payload["reason"] = reason
+    payload["source"] = source
+    payload["collapsed"] = prof.collapsed_now()
+    if prof.PROFILER.samples:
+        # the sampler's aggregate names the wedged frame with history
+        # behind it, not just the instant of the dump
+        payload["profile"] = prof.PROFILER.profile_payload()
+    payload["flightrec_tail"] = FLIGHT.snapshot()[-_FLIGHTREC_TAIL:]
+    out_dir = dump_dir or FLIGHT.dump_dir
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        fname = (
+            f"stalldump-{time.strftime('%Y%m%d-%H%M%S')}"
+            f"-{os.getpid()}-{reason}.json"
+        )
+        final = os.path.join(out_dir, fname)
+        tmp = final + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(payload, f)
+        os.replace(tmp, final)  # a collector never sees a half dump
+    except OSError:
+        return None
+    return final
+
+
+class Watchdog:
+    """Monitor thread over the process's registered progress counters."""
+
+    def __init__(self, poll_s: float = 1.0):
+        self.poll_s = float(poll_s)
+        self._lock = threading.Lock()
+        self._counters: Dict[str, _Progress] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.stalls: Dict[str, int] = {}
+        self.last_dump: Optional[str] = None
+
+    # -- registration --------------------------------------------------------
+
+    def tick(self, name: str, deadline_s: float = DEFAULT_DEADLINE_S) -> None:
+        """Record progress on ``name`` (auto-registers and re-arms). The
+        monitor starts lazily on the first tick of the process."""
+        start = False
+        with self._lock:
+            p = self._counters.get(name)
+            if p is None:
+                p = self._counters[name] = _Progress(name, deadline_s)
+            else:
+                p.deadline_s = float(deadline_s)
+            p.last_tick = time.monotonic()
+            p.armed = True
+            p.dumped = False
+            p.ticks += 1
+            if self._thread is None or not self._thread.is_alive():
+                self._stop.clear()
+                self._thread = threading.Thread(
+                    target=self._loop, name="mmlspark-watchdog", daemon=True
+                )
+                start = True
+        if start:
+            self._thread.start()
+
+    def disarm(self, name: str) -> None:
+        """Pause monitoring of ``name`` until its next tick — the work it
+        tracked finished (or went legitimately idle)."""
+        with self._lock:
+            p = self._counters.get(name)
+            if p is not None:
+                p.armed = False
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._counters.pop(name, None)
+
+    def scope(self, name: str, deadline_s: float = DEFAULT_DEADLINE_S):
+        """``with watchdog.scope("modelstore.batch", 60):`` — armed for
+        the block, disarmed on exit (even via exception)."""
+        return _Scope(self, name, deadline_s)
+
+    def counters(self) -> dict:
+        """Registration table (debug/introspection)."""
+        with self._lock:
+            return {
+                n: {
+                    "deadline_s": p.deadline_s,
+                    "armed": p.armed,
+                    "ticks": p.ticks,
+                    "silent_s": round(time.monotonic() - p.last_tick, 3),
+                }
+                for n, p in self._counters.items()
+            }
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(2.0)
+        self._thread = None
+
+    def reset(self) -> None:
+        """Drop every counter and stall tally (test isolation)."""
+        with self._lock:
+            self._counters.clear()
+            self.stalls.clear()
+            self.last_dump = None
+
+    # -- monitoring ----------------------------------------------------------
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            now = time.monotonic()
+            stalled: list = []
+            with self._lock:
+                for p in self._counters.values():
+                    if (
+                        p.armed
+                        and not p.dumped
+                        and now - p.last_tick > p.deadline_s
+                    ):
+                        p.dumped = True  # one dump per stall episode
+                        stalled.append(p.name)
+            for name in stalled:
+                self._on_stall(name)
+
+    def _on_stall(self, name: str) -> None:
+        self.stalls[name] = self.stalls.get(name, 0) + 1
+        _M_STALLS.labels(source=name).inc()
+        try:
+            self.last_dump = dump_stacks("watchdog_stall", source=name)
+        except Exception:  # noqa: BLE001 — injected (or real) dump failure
+            self.last_dump = None
+
+
+class _Scope:
+    def __init__(self, wd: Watchdog, name: str, deadline_s: float):
+        self.wd, self.name, self.deadline_s = wd, name, deadline_s
+
+    def __enter__(self) -> "_Scope":
+        self.wd.tick(self.name, self.deadline_s)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.wd.disarm(self.name)
+
+
+# the process-wide watchdog every subsystem ticks
+WATCHDOG = Watchdog()
+
+
+def tick(name: str, deadline_s: float = DEFAULT_DEADLINE_S) -> None:
+    WATCHDOG.tick(name, deadline_s)
+
+
+def disarm(name: str) -> None:
+    WATCHDOG.disarm(name)
+
+
+def scope(name: str, deadline_s: float = DEFAULT_DEADLINE_S) -> Iterator:
+    return WATCHDOG.scope(name, deadline_s)
+
+
+def install_sigusr2() -> bool:
+    """SIGUSR2 -> write a stall dump on demand (fleet CLI roles and the
+    bench child call this; handlers only install from the main thread).
+    Returns whether the handler was installed."""
+    import signal
+
+    def on_sig(signum: int, frame: Any) -> None:
+        try:
+            path = dump_stacks("sigusr2")
+        except Exception:  # noqa: BLE001 — injected dump failure
+            path = None
+        print(f"watchdog: stack dump to {path}", flush=True)
+
+    try:
+        signal.signal(signal.SIGUSR2, on_sig)
+        return True
+    except (ValueError, OSError):  # non-main thread / unsupported platform
+        return False
+
+
+__all__ = [
+    "DEFAULT_DEADLINE_S",
+    "WATCHDOG",
+    "Watchdog",
+    "disarm",
+    "dump_stacks",
+    "install_sigusr2",
+    "scope",
+    "tick",
+]

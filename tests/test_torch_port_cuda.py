@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, GBDT and the pipeline compiler on the card.
+"""The port's CUDA kernels, GBDT, the pipeline compiler and serving on the card.
 
 Every test here is marked ``cuda`` and skips, inside a fixture, without a
 CUDA device. The file imports neither JAX nor the JAX package, so it also
@@ -16,8 +16,10 @@ PyTorch emulation (``*_emulated``: the same int64 arithmetic) bit for bit.
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -1437,3 +1439,156 @@ def test_vw_grad_step_is_the_pass_grad_phase(cuda_device, batch, k):
     assert sgd.launches["vw_grad"] == 1 and sgd.launches["vw_pass"] == 0
     assert torch.equal(_bits(g), _bits(sgd.grad_plain(*cpu, w, loss="squared", tau=0.5,
                                                       l2=0.01)))
+
+
+# -- serving on the card (serving/, serving/modelstore/) --------------------------
+#
+# A compiled pipeline hot-swapped while it serves: version 2's warm-up
+# captures its CUDA graphs while version 1's exec thread replays its own and
+# waits on their results; every reply must be version 1's or version 2's
+# answer, bitwise, and none may fail. And the card memory a version holds
+# (the store's resident bytes) against the rise of memory_allocated plus
+# graph-pool bytes at its load, and its return at unload, within
+# SERVE_MEM_MARGIN (the caching allocator rounds blocks to 512 bytes and
+# may leave a large block unsplit).
+
+SERVE_MEM_MARGIN = 4 << 20
+
+
+def _serve_tanh_half(x):
+    return torch.tanh(x * 0.5)
+
+
+def _card_mem():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    return torch.cuda.memory_allocated() + int(pools)
+
+
+def _served_pipeline(tmp_path, device):
+    """A fitted Featurize -> UDFTransformer -> LogisticRegression on the
+    card, saved as version 1 and, with the head's weights halved, as
+    version 2, each with a warmup.json of 16 rows; and the request rows."""
+    from mmlspark_tpu_torch import DataFrame, Pipeline, PipelineModel
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.stages import UDFTransformer
+
+    rng = np.random.default_rng(11)
+    cols = {f"x{i}": rng.standard_normal(256) for i in range(4)}
+    cols["vec"] = rng.standard_normal((256, 4)).astype(np.float32)
+    cols["label"] = rng.integers(0, 3, 256)
+    v1 = Pipeline([
+        Featurize(input_cols=["x0", "x1", "x2", "x3", "vec"], output_col="features"),
+        UDFTransformer(input_col="features", output_col="fs", vector_udf=_serve_tanh_half,
+                       jit_compatible=True, device=str(device)),
+        LogisticRegression(features_col="fs", label_col="label", max_iter=10,
+                           device=str(device)),
+    ]).fit(DataFrame.from_dict(cols))
+    lr = v1.get("stages")[-1]
+    v2 = PipelineModel(stages=list(v1.get("stages")[:-1]) + [
+        lr.copy({"weights": np.asarray(lr.get("weights")) * np.float32(0.5)})])
+    inputs = ["x0", "x1", "x2", "x3", "vec"]
+    rows = [{c: (cols[c][k].tolist() if c == "vec" else float(cols[c][k])) for c in inputs}
+            for k in range(8)]
+    for name, m in (("v1", v1), ("v2", v2)):
+        m.save(str(tmp_path / name))
+        (tmp_path / name / "warmup.json").write_text(json.dumps(
+            {c: np.asarray(cols[c][:16]).tolist() for c in inputs}))
+    want = {}
+    for name, m in (("v1", v1), ("v2", v2)):
+        comp = m.compile()
+        out = comp.transform(DataFrame.from_dict({c: np.asarray([r[c] for r in rows]) for c in inputs}))
+        want[name] = out["raw_prediction"]
+        for seg in comp.fused_segments:
+            seg.release()
+    return rows, want
+
+
+@pytest.mark.cuda
+def test_compiled_pipeline_hot_swap_while_serving(cuda_device, tmp_path):
+    import http.client
+    import threading
+
+    from mmlspark_tpu_torch.serving import WorkerServer
+    from mmlspark_tpu_torch.serving.modelstore import ModelDispatcher, ModelStore
+
+    rows, want = _served_pipeline(tmp_path, cuda_device)
+    bodies = [json.dumps(r).encode() for r in rows]
+    store = ModelStore(device="cuda")
+    store.load("p", f"pipeline:{tmp_path / 'v1'}")
+    srv = WorkerServer()
+    info = srv.start()
+    disp = ModelDispatcher(srv, store, default_model="p").start()
+    log, errs, stop = [], [], threading.Event()
+
+    def client():
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", info.port, timeout=60)
+            i = 0
+            while not stop.is_set():
+                k = i % len(bodies)
+                t0 = time.perf_counter()
+                conn.request("POST", "/", body=bodies[k])
+                r = conn.getresponse()
+                log.append((k, r.status, r.read(), t0))
+                i += 1
+        except Exception as e:  # surfaced by the assertion below
+            errs.append(e)
+
+    th = threading.Thread(target=client)
+    try:
+        th.start()
+        time.sleep(0.2)
+        v2 = store.load("p", f"pipeline:{tmp_path / 'v2'}", wait=True)
+        store.swap("p", v2)
+        t_flip = time.perf_counter()
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        th.join(60)
+        disp.stop()
+        srv.stop()
+    assert not errs and not th.is_alive()
+    assert {s for _, s, _, _ in log} == {200}
+    seen = set()
+    for k, _, body, t0 in log:
+        got = np.asarray(json.loads(body)["raw_prediction"], np.float32)
+        v = next(v for v in ("v1", "v2") if np.array_equal(got, want[v][k]))
+        assert t0 < t_flip or v == "v2"
+        seen.add(v)
+    assert seen == {"v1", "v2"} and disp.errors == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbdt", "vw", "pipeline"])
+def test_unload_frees_the_card_memory_the_store_counted(cuda_device, tmp_path, kind):
+    from mmlspark_tpu_torch.serving.modelstore import ModelStore
+
+    if kind == "gbdt":
+        x = np.random.default_rng(0).standard_normal((20_000, 16)).astype(np.float32)
+        b = train(x, (x[:, 0] > 0).astype(np.float64),
+                  TrainConfig(num_iterations=20, num_leaves=63), device=cuda_device)
+        (tmp_path / "m.json").write_text(b.to_model_string())
+        spec = f"gbdt:{tmp_path / 'm.json'}"
+    elif kind == "vw":
+        meta = json.dumps({"num_bits": 22, "loss": "logistic"}).encode()
+        np.savez(tmp_path / "m.npz", weights=np.ones(1 << 22, np.float32),
+                 meta=np.frombuffer(meta, np.uint8))
+        spec = f"vw:{tmp_path / 'm.npz'}"
+    else:
+        _served_pipeline(tmp_path, cuda_device)
+        spec = f"pipeline:{tmp_path / 'v1'}"
+    store = ModelStore(device="cuda")
+    before = _card_mem()
+    store.load("m", spec)
+    held = store.resident_bytes()
+    rise = _card_mem() - before
+    assert held > 0 and abs(rise - held) <= SERVE_MEM_MARGIN, (rise, held)
+    store.unload("m")
+    assert abs(_card_mem() - before) <= SERVE_MEM_MARGIN

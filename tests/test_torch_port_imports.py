@@ -54,6 +54,14 @@ def test_import_with_jax_blocked(tmp_path):
         "import mmlspark_tpu_torch.parallel, mmlspark_tpu_torch.core.faults\n"
         "from mmlspark_tpu_torch.parallel import collectives, distributed, sharding, mesh\n"
         "from mmlspark_tpu_torch.models.gbdt.voting import grow_tree_voting\n"
+        "import mmlspark_tpu_torch.serving, mmlspark_tpu_torch.serving.modelstore\n"
+        "from mmlspark_tpu_torch.serving import server, udfs, admission, query\n"
+        "from mmlspark_tpu_torch.serving.modelstore import store, loaders, dispatch\n"
+        "from mmlspark_tpu_torch.obs import flightrec, prof, watchdog\n"
+        "import mmlspark_tpu_torch.io.port_forwarding\n"
+        "from mmlspark_tpu_torch.serving import WorkerServer, ServingQuery, serve_transformer\n"
+        "from mmlspark_tpu_torch.serving.modelstore import (ModelStore, ModelDispatcher,\n"
+        "    HBMBudgetExceeded, build_loaded_model, tensor_nbytes)\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
