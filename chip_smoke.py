@@ -88,8 +88,15 @@ times; the trees/s cell at world 2 (data_parallel lossguide and
 depthwise, voting_parallel with K = 4) within 0.005 AUC of the one-device
 fits, both ranks' models byte-identical, voting's bytes a split under a
 third of data_parallel's; an integer-column fit whose world-2 model
-string must equal the one-device one; VW's V2 at world 2 within 1e-3 AUC
-of one device.
+string must equal the one-device one; then, on the same integer columns,
+every fit that needs all the ranks' rows beyond the histograms
+(``DIST_FITS``: GOSS, dart, early stopping, quantile and mape, lambdarank
+with and without early stopping, continued training, CSR input,
+``fused_rounds=4``), each traced, byte-identical on both ranks and equal
+to the same fit on one device byte for byte, best iteration included
+(CSR, whose one-device mapper fits the stored values alone: equal, or
+within 0.005 AUC with the reason recorded), each launching
+``plane_hist_fixed``; VW's V2 at world 2 within 1e-3 AUC of one device.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -482,12 +489,20 @@ _HIST_KERNEL = re.compile(r"hist_kernel<[^,>]+, (true|false)>")
 def traced_launches(prof) -> dict:
     """The device's ``hist_kernel`` events in a torch.profiler trace, by
     wrapper: the kernel's ``kMulti`` template argument tells
-    ``multi_plane_hist`` (true) from ``plane_hist`` (false). A CUDA graph's
-    replays show here one event per captured launch."""
+    ``multi_plane_hist`` (true) from ``plane_hist`` (false); the fixed-scale
+    entries (``*_fixed``) launch the same kernel. A CUDA graph's replays
+    show here one event per captured launch. The trace's raw events are
+    read where this torch has them (building ``prof.events()`` costs
+    seconds a fit)."""
     out = {"plane_hist": 0, "multi_plane_hist": 0}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = _HIST_KERNEL.search(e.name)
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        events = [(e.name(), e.device_type()) for e in prof.profiler.kineto_results.events()]
+    except AttributeError:
+        events = [(e.name, e.device_type) for e in prof.events()]
+    for name, dev in events:
+        if dev == cuda:
+            m = _HIST_KERNEL.search(name)
             if m:
                 out["multi_plane_hist" if m.group(1) == "true" else "plane_hist"] += 1
     return out
@@ -3180,31 +3195,142 @@ def b4_world1() -> dict:
     return {"times": times, "one_call": want}
 
 
-def _fit_rec(est, train_df, x_test, y_test) -> dict:
-    """Fit on this rank's rows with the counts at 0 just before; the
-    model string, trees/s, held-out AUC, the fixed-scale kernels' launches
-    and the elements and bytes all-reduced per split."""
+def _counted(fit, trace: bool = True) -> "tuple[object, dict]":
+    """``fit()`` on this rank's rows, with the launch and collective counts
+    at 0 just before, under torch.profiler if ``trace``: its result, and
+    its seconds (with ``trace`` the profiler's cost during the fit
+    included; ``trace_s``: stopping the profiler and counting its events,
+    after), the wrappers' launches, the trace's ``hist_kernel`` events and
+    the collectives' calls, elements and bytes by operation."""
+    from torch.profiler import ProfilerActivity, profile
+
     from mmlspark_tpu_torch.parallel import collectives
 
     torch.cuda.synchronize()
     H.reset_launch_counts()
     collectives.reset_counts()
-    t0 = time.perf_counter()
-    model = est.fit(train_df)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = dict(H.launches)
-    counts = {k: sum(v.values()) for k, v in collectives.counts.items()}
+    with (profile(activities=[ProfilerActivity.CUDA]) if trace
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    rec = {"fit_s": fit_s, "traced": trace, "launches": dict(H.launches),
+           "collectives": {k: dict(v) for k, v in collectives.counts.items()}}
+    if trace:
+        rec["traced_launches"] = traced_launches(prof)
+        rec["trace_s"] = time.perf_counter() - t0 - fit_s
+    return out, rec
+
+
+def _fit_rec(est, train_df, x_test, y_test, trace: bool = True) -> dict:
+    """Fit on this rank's rows (``_counted``); the model string, trees/s,
+    held-out AUC, the fixed-scale kernels' launches, wrappers' and traced,
+    and the elements and bytes all-reduced per split."""
+    model, rec = _counted(lambda: est.fit(train_df), trace)
+    counts = {k: sum(v.values()) for k, v in rec["collectives"].items()}
     trees = model.booster.trees
     splits = int(sum(int(np.sum(t.active)) for t in trees))
-    rec = {"fit_s": fit_s, "trees": len(trees), "trees_per_s": len(trees) / fit_s,
-           "splits": splits, "launches": launches,
-           "allreduce_elements_per_split": counts.get("elements", 0) / max(splits, 1),
-           "allreduce_bytes_per_split": counts.get("bytes", 0) / max(splits, 1),
-           "model": model.get("model_string")}
+    rec.update(trees=len(trees), trees_per_s=len(trees) / rec["fit_s"], splits=splits,
+               allreduce_elements_per_split=counts.get("elements", 0) / max(splits, 1),
+               allreduce_bytes_per_split=counts.get("bytes", 0) / max(splits, 1),
+               model=model.get("model_string"))
     if x_test is not None:
         rec.update(classifier_score(x_test, y_test)(model))
     return rec
+
+
+# the fits that need all the rows' state beyond the histograms (A4 step 1b): each runs
+# at world 2 on the integer columns and once on one device on all the rows:
+# name -> (label, TrainConfig fields, how train is called)
+DIST_QUERY = 20                     # documents a query (lambdarank): 10,000 queries
+# 10 rounds, not the trees/s cell's 20: twenty traced rounds of every fit would add
+# ~270 s to the script (each traced world-2 fit waits ~10 s more on the profiler)
+DIST_BASE = dict(num_iterations=10, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
+_DIST_ES = dict(learning_rate=0.6, early_stopping_round=2, metric="auc")
+DIST_FITS = {
+    "goss": ("binary", dict(boosting_type="goss"), {}),
+    "dart": ("binary", dict(boosting_type="dart"), {}),
+    "early_stopped": ("binary", _DIST_ES, {"valid": True}),
+    "quantile": ("regression", dict(objective="quantile", alpha=0.9), {}),
+    "mape": ("regression", dict(objective="mape"), {}),
+    "lambdarank": ("rank", dict(objective="lambdarank"), {}),
+    "lambdarank_es": ("rank", dict(objective="lambdarank", learning_rate=0.3,
+                                   early_stopping_round=2), {"valid": True}),
+    "continued": ("binary", dict(seed=1), {"init": True}),
+    "csr": ("binary", {}, {"csr": True}),
+    "fused": ("binary", {}, {"fused_rounds": 4}),
+}
+# where one device bins differently by design, its model is not the ranks': AUC instead
+DIST_BINS_DIFFER = {"csr": "one device fits CSR bins on the stored values alone, the ranks "
+                           "on their all-gathered densified sample (absent entries NaN), "
+                           "as the JAX package's multi-process branch does"}
+
+
+def dist_fit_data(n: int = N, seed: int = SEED + 20) -> dict:
+    """``int_dataset``'s rows with the labels and row sets of ``DIST_FITS``:
+    a regression target (positive, for mape), relevance 0-4, queries of
+    ``DIST_QUERY`` rows (whole inside a rank's block), a validation mask of
+    every fifth query, and the columns' values below 4 made absent (CSR)."""
+    x, y = int_dataset(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    noise = rng.normal(size=n)
+    gid = np.arange(n) // DIST_QUERY
+    return {"x": x, "binary": y,
+            "regression": (x[:, 0] * 0.5 + (x[:, 1] > 25) * 4.0 - (x[:, 2] % 3 == 0) * 2.0
+                           + noise + 10.0),
+            "rank": np.clip(np.round(x[:, 0] / 10 + (x[:, 1] > 25) + noise * 0.5), 0, 4),
+            "gid": gid, "valid": gid % 5 == 4,
+            "x_csr": np.where(x < 4, 0.0, x).astype(np.float32)}
+
+
+def _dist_train(name: str, data: dict, lo: int, hi: int, init: "Booster | None"):
+    """One fit of ``DIST_FITS`` on rows lo:hi through ``train`` on the card."""
+    import scipy.sparse as sp
+
+    label, cfg, how = DIST_FITS[name]
+    kw: dict = {"device": "cuda"}
+    if how.get("valid"):
+        kw["valid_mask"] = data["valid"][lo:hi]
+    if label == "rank":
+        kw["group_ids"] = data["gid"][lo:hi] - data["gid"][lo]   # the rank's own query ids
+    if how.get("init"):
+        kw["init_booster"] = init
+    if how.get("fused_rounds"):
+        kw["fused_rounds"] = how["fused_rounds"]
+    x = sp.csr_matrix(data["x_csr"][lo:hi]) if how.get("csr") else data["x"][lo:hi]
+    return train(x, data[label][lo:hi], TrainConfig(**{**DIST_BASE, **cfg}), **kw)
+
+
+def _dist_auc(name: str, booster, x_test, y_test) -> "float | None":
+    """Held-out AUC of a binary fit of ``DIST_FITS`` (CSR: absent entries NaN)."""
+    if DIST_FITS[name][0] != "binary":
+        return None
+    if DIST_FITS[name][2].get("csr"):
+        x_test = np.where(x_test < 4, np.nan, x_test).astype(np.float32)
+    return binary_auc(y_test, booster.predict_raw(x_test, device="cuda"))
+
+
+def dist_new_fits(lo: int, hi: int, init: "Booster", base_gather: int) -> dict:
+    """Every fit of ``DIST_FITS`` on this rank's rows lo:hi (``_counted``):
+    its model string, best iteration, trees grown and kept a second,
+    held-out AUC, launches (wrappers' and traced) and the bytes its
+    all-gathers move beyond ``base_gather``, the plain integer fit's (the
+    bin mapper's sample, the row counts), a kept tree."""
+    data = dist_fit_data()
+    x_test, y_test = int_dataset(N_TEST, SEED + 21)
+    out = {}
+    for name in DIST_FITS:
+        booster, rec = _counted(lambda: _dist_train(name, data, lo, hi, init))
+        # the trees this fit grew and kept (a continued fit's model holds init's too)
+        rounds = len(booster.trees) - (len(init.trees) if DIST_FITS[name][2].get("init") else 0)
+        gathered = rec["collectives"]["bytes"].get("all_gather", 0)
+        rec.update(trees=rounds, trees_per_s=rounds / rec["fit_s"],
+                   best_iteration=booster.best_iteration, model=booster.to_model_string(),
+                   auc=_dist_auc(name, booster, x_test, y_test),
+                   new_gather_bytes_per_round=(gathered - base_gather) / max(rounds, 1))
+        out[name] = rec
+    return out
 
 
 def vw_v2_block(rank: int, world: int) -> dict:
@@ -3244,7 +3370,9 @@ def vw_v2_block(rank: int, world: int) -> dict:
 def _dist_rank_work(rank: int, world: int) -> dict:
     """What each rank of a group runs on its block of the rows: B4's
     builds, its fixed-scale entries against their plain version and their
-    times, the trees/s cell's fits, the integer-column fit and V2."""
+    times, the trees/s cell's fits, the integer-column fit, the fits of
+    ``DIST_FITS`` on the integer columns (continuing the integer fit's
+    model) and V2."""
     import torch.distributed as dist
 
     from mmlspark_tpu_torch.parallel import cluster_summary, make_mesh
@@ -3271,11 +3399,16 @@ def _dist_rank_work(rank: int, world: int) -> dict:
     fits = {}
     for name, extra in (("lossguide", {}), ("depthwise", {"growth_policy": "depthwise"}),
                         ("voting", {"parallelism": "voting_parallel", "top_k": DIST_TOP_K})):
-        fits[name] = _fit_rec(LightGBMClassifier(**kw, **extra), tr, x_test, y_test)
+        # traced: the fits behind the B4 entries' launches (voting's are lossguide's)
+        fits[name] = _fit_rec(LightGBMClassifier(**kw, **extra), tr, x_test, y_test,
+                              trace=name != "voting")
     xi, yi = int_dataset(N)
     fits["integer_b64"] = _fit_rec(LightGBMClassifier(**kw, max_bin=63), DataFrame.from_dict(
         {"features": xi[lo:hi], "label": yi[lo:hi]}), None, None)
     out["fits"] = fits
+    base_gather = fits["integer_b64"]["collectives"]["bytes"].get("all_gather", 0)
+    out["new_fits"] = dist_new_fits(lo, hi, Booster.from_model_string(
+        fits["integer_b64"]["model"]), base_gather)
     out["vw"] = vw_v2_block(rank, world)
     return out
 
@@ -3334,8 +3467,14 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
     the fits' AUC at least 0.90 and within DIST_AUC_TOL, every rank's
     models byte-identical, voting's bytes a split under a third of
     data_parallel's, the integer model equal to one device's, V2 within
-    VW_AUC_TOL, and every fixed-scale entry launched by its fit. Returns
-    (the failures, the record)."""
+    VW_AUC_TOL, and every fixed-scale entry launched by its fit; ``new``:
+    each fit of ``DIST_FITS`` on one device (model string, best
+    iteration, AUC), which every rank's must equal byte for byte, best
+    iteration included (where one device bins differently by design,
+    ``DIST_BINS_DIFFER``, an AUC at least 0.90 and within DIST_AUC_TOL of
+    it, the reason recorded), each having launched ``plane_hist_fixed``
+    (the wrappers' count, and seen by the trace). Returns (the failures,
+    the record)."""
     fails = []
     if any(res["backend"] != ref["backend"] for res in ranks):
         fails.append(f"not every rank ran {ref['backend']}")
@@ -3370,6 +3509,34 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
                         ("depthwise", "multi_plane_hist_fixed")):
         if fits[fit]["launches"].get(kernel, 0) == 0:
             fails.append(f"the {fit} fit never launched {kernel}")
+    new_fits = {}
+    for name, one in ref["new"].items():
+        f = ranks[0]["new_fits"][name]
+        same = all((res["new_fits"][name]["model"], res["new_fits"][name]["best_iteration"])
+                   == (f["model"], f["best_iteration"]) for res in ranks)
+        rec = {k: v for k, v in f.items() if k != "model"}
+        rec.update(ranks_identical=same, model_equals_one_device=f["model"] == one["model"],
+                   one_device_best_iteration=one["best_iteration"],
+                   one_device_auc=one["auc"], one_device_fit_s=one["fit_s"])
+        if not same:
+            fails.append(f"{name}: the ranks' models differ")
+        if name in DIST_BINS_DIFFER and not rec["model_equals_one_device"]:
+            rec["compared_by_auc"] = DIST_BINS_DIFFER[name]
+            if not (f["auc"] >= 0.90 and abs(f["auc"] - one["auc"]) <= DIST_AUC_TOL):
+                fails.append(f"{name}: AUC {f['auc']} against one device {one['auc']}")
+        elif not (rec["model_equals_one_device"]
+                  and f["best_iteration"] == one["best_iteration"]):
+            fails.append(f"{name}: the model (best iteration {f['best_iteration']}) differs "
+                         f"from the one-device model (best iteration {one['best_iteration']})")
+        # the wrappers count every launch; the trace of a world-2 fit can drop a
+        # few kernel records (CUPTI's buffers under load), so it only has to see
+        # the kernel, and what it missed is recorded
+        wrapped = f["launches"].get("plane_hist_fixed", 0)
+        traced = f["traced_launches"]["plane_hist"]
+        rec["trace_missed"] = max(wrapped - traced, 0)
+        if not (wrapped > 0 and traced > 0):
+            fails.append(f"{name}: plane_hist_fixed launched {wrapped} times, traced {traced}")
+        new_fits[name] = rec
     vw2 = ranks[0]["vw"]
     vw_same = all(res["vw"]["weights"] == vw2["weights"] for res in ranks)
     if not (vw_same and abs(vw2["auc"] - ref["vw_auc"]) <= VW_AUC_TOL):
@@ -3380,33 +3547,53 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
            "b4_fixed_err": {f"rank{r}": res["b4_fixed_err"] for r, res in enumerate(ranks)},
            "b4": {name: {f"rank{r}": res["b4_times"][name] for r, res in enumerate(ranks)}
                   for name in ranks[0]["b4_times"]},
-           "fits": fits,
+           "fits": fits, "new_fits": new_fits,
            "vw_v2": {"auc": vw2["auc"], "one_device_auc": ref["vw_auc"],
                      "ranks_identical": vw_same, "fit_s": vw2["fit_s"],
                      "rows_fit_per_rank": vw2["rows_fit"]}}
     return fails, rec
 
 
+def dist_one_device(init: "Booster") -> dict:
+    """Every fit of ``DIST_FITS`` on one device on all the rows: model
+    string, best iteration, held-out AUC and seconds."""
+    data = dist_fit_data()
+    x_test, y_test = int_dataset(N_TEST, SEED + 21)
+    out = {}
+    for name in DIST_FITS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = _dist_train(name, data, 0, N, init)
+        torch.cuda.synchronize()
+        out[name] = {"model": booster.to_model_string(), "best_iteration": booster.best_iteration,
+                     "fit_s": time.perf_counter() - t0,
+                     "auc": _dist_auc(name, booster, x_test, y_test)}
+    return out
+
+
 def distributed_phase(runs: dict, vw_rec: dict) -> dict:
     """Phase ``distributed``: B4 at world 1 under NCCL here, then two gloo
     ranks on this card (spawned processes, 100,000 rows each) held by
-    ``check_ranks`` against the one-device fits of the earlier phases."""
+    ``check_ranks`` against the one-device fits of the earlier phases and
+    against ``DIST_FITS`` fitted here on one device."""
     t0 = time.perf_counter()
     w1 = b4_world1()
     xi, yi = int_dataset(N)
     one_int = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
                                  device="cuda", max_bin=63).fit(
         DataFrame.from_dict({"features": xi, "label": yi})).get("model_string")
+    new = dist_one_device(Booster.from_model_string(one_int))
     ranks, spawn_s = spawn_ranks(DIST_WORLD, "gloo", card_per_rank=False)
     fails, rec = check_ranks(ranks, {
         "backend": "gloo", "one_call": w1["one_call"], "integer": one_int,
         "auc": {p: runs[p]["auc"] for p in ("lossguide", "depthwise")},
-        "vw_auc": vw_rec["V2"]["auc"]})
+        "vw_auc": vw_rec["V2"]["auc"], "new": new})
     phase("distributed", part="world 2 (gloo, one card)", spawn_s=spawn_s, **rec,
           seconds=time.perf_counter() - t0)
     if fails:
         raise AssertionError("; ".join(fails))
-    return {"world1": w1["times"], "world2": rec["b4"], "fits": rec["fits"]}
+    return {"world1": w1["times"], "world2": rec["b4"], "fits": rec["fits"],
+            "new_fits": rec["new_fits"]}
 
 
 def main() -> None:
@@ -3535,7 +3722,8 @@ def main() -> None:
                 for m, v in t["shapes"].items()}
         kernels.append(rec)
     # B4: the fixed-scale entries, timed at world 1 (NCCL, all 200,000 rows); their
-    # launches are the world-2 fits' (rank 0), each rank's time beside
+    # launches are the world-2 fits' (rank 0; wrappers' and traced), each rank's time
+    # beside; the B=64 entry also runs every fit of DIST_FITS
     for name, fit, kernel, src in (
             ("plane_hist_fixed (B=256)", "lossguide", "plane_hist_fixed", "plane"),
             ("plane_hist_fixed (B=64)", "integer_b64", "plane_hist_fixed", "plane"),
@@ -3548,7 +3736,13 @@ def main() -> None:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "allreduce_ms": t["allreduce_ms"],
+            "traced_launches": dist_rec["fits"][fit]["traced_launches"][kernel[:-6]],
             "world2_ranks": dist_rec["world2"][name]})
+        if fit == "integer_b64":
+            kernels[-1]["new_fits_launches"] = {
+                f: {"launches": r["launches"][kernel],
+                    "traced_launches": r["traced_launches"][kernel[:-6]]}
+                for f, r in dist_rec["new_fits"].items()}
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -62,6 +62,12 @@ def _over_ranks(local: np.ndarray, op: str = "sum") -> np.ndarray:
     return fn(torch.from_numpy(np.ascontiguousarray(local))).numpy()
 
 
+def _rows_over_ranks(local: np.ndarray) -> np.ndarray:
+    """Every rank's rows of ``local`` in rank order (the labels a
+    percentile is taken over); their copy with one rank."""
+    return collectives.all_gather_rows(torch.from_numpy(np.ascontiguousarray(local))).numpy()
+
+
 class _LightGBMParams(
     HasFeaturesCol,
     HasLabelCol,
@@ -221,7 +227,9 @@ class _LightGBMParams(
         """Train on the device, continuing ``model_string`` when set.
         ``num_batches`` > 1 splits the rows into that many contiguous
         batches trained in turn, each continuing the booster of the one
-        before (``base_score`` only for the first fit of the chain)."""
+        before (``base_score`` only for the first fit of the chain). Over
+        ranks every rank cuts its own rows into ``num_batches`` batches, as
+        each JAX process does: batch i of the fit is every rank's i-th."""
         s = self.get("model_string")
         booster = Booster.from_model_string(s) if s else None
         nb = self.get("num_batches")
@@ -237,10 +245,6 @@ class _LightGBMParams(
                 "checkpoint_dir/resume_from are incompatible with num_batches > 1 "
                 "(per-segment round indices would collide in one checkpoint directory)"
             )
-        if nb and nb > 1 and group_rank_size()[1] > 1:
-            raise NotImplementedError(
-                "num_batches > 1 (continued training) over ranks is not ported to "
-                "mmlspark_tpu_torch yet (ROADMAP.md, A4 step 1b)")
         n = len(data["y"])
         bounds = np.linspace(0, n, nb + 1).astype(int) if nb and nb > 1 else np.array([0, n])
         for i in range(len(bounds) - 1):
@@ -459,9 +463,10 @@ class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
             if obj in objectives.LOG_LINK_KINDS:
                 base = float(np.log(np.clip(mean, 1e-9, None)))
             elif obj == "quantile":
-                base = float(np.percentile(y, self.get("alpha") * 100.0))
+                # over ranks: the percentile of every rank's labels
+                base = float(np.percentile(_rows_over_ranks(y), self.get("alpha") * 100.0))
             elif obj in ("regression_l1", "mape"):
-                base = float(np.median(y))
+                base = float(np.median(_rows_over_ranks(y)))
             else:
                 base = mean
         booster = self._fit_batches(data, self._config(obj), base)

@@ -20,10 +20,12 @@ drawn before the first round and reach the device in one copy.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from mmlspark_tpu_torch.parallel import collectives
 
 BAGGING_STREAM = 1
 GOSS_STREAM = 2
@@ -94,23 +96,34 @@ def uniform(seed: int, it, stream: int, n: int, device: torch.device,
 
 
 def goss_weights(g_abs: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
-                 top_rate: float, other_rate: float) -> torch.Tensor:
+                 top_rate: float, other_rate: float, ranks: Any = None) -> torch.Tensor:
     """Gradient-based one-side sampling weights: among rows with w > 0,
     every row whose |g| reaches the ``top_rate`` share's threshold keeps
     weight 1 (a value threshold: ties admit extra rows, as in the JAX
     package), a random ``other_rate / (1 - top_rate)`` share of the rest
     gets (1 - top_rate) / other_rate, the remainder 0. In f32 throughout,
-    as the reference computes it; no host sync."""
+    as the reference computes it; no host sync.
+
+    ``ranks`` (a fit over two or more ranks): the threshold and the
+    eligible count are those of every rank's rows, as the JAX package's
+    sort over the process-spanning rows gives them: ``ranks.gather`` gives
+    every rank the masked |g| of all the rows in global order and the
+    counts are all-reduced, so the threshold's bits are one rank's on all
+    the rows."""
     # the rates as f32 (host tensors: no copy to the device); a Python
     # float that holds an f32 value enters a device op as that f32
     tr = torch.tensor(top_rate, dtype=torch.float32)
     orr = torch.tensor(other_rate, dtype=torch.float32)
     eligible = w > 0
-    n_eligible = torch.clamp_min(eligible.sum(), 1)
-    n_top = torch.clamp_min((n_eligible.float() * float(tr)).to(torch.int32), 1)
+    n_eligible = eligible.sum()
     masked = torch.where(eligible, g_abs, -torch.inf)
-    srt = torch.sort(masked, descending=True).values
-    at = torch.clamp(n_top - 1, 0, masked.shape[0] - 1).long().view(1)
+    pool = masked
+    if ranks is not None:
+        n_eligible, pool = collectives.allreduce_sum(n_eligible), ranks.gather(masked)
+    n_eligible = torch.clamp_min(n_eligible, 1)
+    n_top = torch.clamp_min((n_eligible.float() * float(tr)).to(torch.int32), 1)
+    srt = torch.sort(pool, descending=True).values
+    at = torch.clamp(n_top - 1, 0, pool.shape[0] - 1).long().view(1)
     is_top = eligible & (masked >= srt.index_select(0, at))
     # each non-top row is kept with probability b / (1 - a) and amplified
     # by (1 - a) / b: its expected histogram weight is exactly 1

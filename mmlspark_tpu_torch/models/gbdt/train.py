@@ -42,17 +42,25 @@ per-round loop, which reads the host between rounds.
 Multi-rank training (the JAX package's multi-process branch): when the
 default ``torch.distributed`` group has two or more ranks, each rank calls
 ``train`` with its own rows, as each JAX process does. The bin mapper is
-fitted on an all-gathered sample, bag draws are keyed to the rows' global
-positions, every histogram and leaf sum is built over all the ranks
+fitted on an all-gathered sample (a CSR sample densified, absent entries
+NaN), row draws (bagging, GOSS) are keyed to the rows' global positions,
+every histogram and leaf sum is built over all the ranks
 (``data_parallel``: ``ops/histogram.py``'s distributed form; or
 ``voting_parallel``: ``voting.grow_tree_voting``), and every rank grows the
-same trees: the boosters are byte-identical across ranks. The rounds run
-eagerly (a collective is not captured in a CUDA graph). Boosting ``gbdt``
-and ``rf``, bagging, the binary, multiclass and Newton-valued regression
-objectives, both growth policies and categorical features run that way;
-GOSS, dart, the renewed objectives, lambdarank, validation rows,
-checkpoints, continued training and CSR input raise ``NotImplementedError``
-at two ranks or more (ROADMAP.md, A4 step 1b). With one rank
+same trees: the boosters are byte-identical across ranks. Whatever else
+needs all the rows is gathered in global row order, so that every rank
+makes the same host decision from the same arrays: GOSS's top-rate
+threshold (every rank's masked |g|, the eligible count all-reduced), the
+renewed objectives' leaf percentiles (every rank's leaf, residual and
+weight), and the validation metric (labels, mask and query ids once, the
+scores every round; query ids offset by rank, ``gid * world + rank``, so
+two ranks' query 0 stay two queries). Dart's drops are host draws, the
+same on every rank, and its replays score the rank's own rows, as do a
+continued fit's starting scores and LambdaRank's gradients (a query's
+rows on one rank, the reference's partition contract). The rounds run
+eagerly (a collective is not captured in a CUDA graph). Checkpoint/resume
+and pre-binned input are single-process only and raise ``ValueError`` at
+two ranks or more, as in the JAX package. With one rank
 ``voting_parallel`` falls back to ``data_parallel``, as in the JAX package.
 Elastic gang training is not ported yet (ROADMAP.md, A4 step 2).
 """
@@ -160,13 +168,6 @@ def _objective_p1(cfg: TrainConfig) -> float:
         "poisson": cfg.poisson_max_delta_step,
         "tweedie": cfg.tweedie_variance_power,
     }.get(cfg.objective, 0.0)
-
-
-def _unported_multirank(what: str, world: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} at {world} ranks is not ported to mmlspark_tpu_torch yet "
-        "(ROADMAP.md, A4 step 1b)"
-    )
 
 
 _DELEGATE_HOOKS = ("before_train_iteration", "after_train_iteration", "get_learning_rate")
@@ -281,40 +282,70 @@ def _densify(x: Any) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _check_multirank(cfg: TrainConfig, world: int, *, sparse_input: bool, valid: Any,
-                     init_booster: Any, checkpointing: bool, fused_rounds: int) -> None:
-    """What a fit over two or more ranks does not run yet raises."""
-    refused = [
-        (cfg.boosting_type == "goss", "GOSS (a global top-rate threshold)"),
-        (valid is not None and bool(np.any(valid)), "validation rows / early stopping"),
-        (cfg.objective in objectives.RENEWED_KINDS,
-         f"objective {cfg.objective!r} (a global weighted percentile)"),
-        (cfg.boosting_type == "dart", "dart"),
-        (cfg.objective == "lambdarank", "lambdarank"),
-        (checkpointing, "checkpoint/resume"),
-        (init_booster is not None and bool(init_booster.trees), "continued training"),
-        (sparse_input, "CSR input"),
-        (int(fused_rounds) > 1,
-         "fused_rounds > 1 (a collective captured in the round's CUDA graph)"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise _unported_multirank(what, world)
+def _check_multirank(*, pre_binned: bool, checkpointing: bool) -> None:
+    """What a fit over two or more ranks refuses, with the JAX package's
+    errors: pre-binned input and checkpoint/resume are single-process
+    only."""
+    if pre_binned:
+        raise ValueError("pre-binned input is single-process only")
+    if checkpointing:
+        raise ValueError(
+            "GBDT checkpoint/resume is single-process only (multi-rank runs "
+            "re-rendezvous through torch.distributed instead)"
+        )
+
+
+class _RankRows:
+    """This rank's rows among all the ranks' rows, which stand in rank
+    order as the JAX package's process-stacked global rows: ``at`` is the
+    global position of the rank's first row in the padded layout (rank *
+    share, share the largest rank's row count: row draws are keyed to it),
+    ``counts`` every rank's row count. ``gather`` and ``gather32`` give
+    every rank the same rows in global order, padding dropped."""
+
+    def __init__(self, n: int, dev: torch.device):
+        self.rank = group_rank_size()[0]
+        self.counts = [int(c) for c in
+                       collectives.all_gather(torch.tensor([n], dtype=torch.int64))]
+        self.at = self.rank * multihost_pad_target(n, make_mesh(device=dev))
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return collectives.all_gather_rows(t, counts=self.counts)
+
+    def gather32(self, *ts: torch.Tensor) -> tuple:
+        """Several (n,) tensors of 32-bit types in one collective: their
+        bits side by side as int32 columns."""
+        cols = torch.stack([t.view(torch.int32) for t in ts], 1)
+        got = self.gather(cols)
+        return tuple(got[:, i].contiguous().view(t.dtype) for i, t in enumerate(ts))
+
+    def any(self, flag: bool) -> bool:
+        """One decision for every rank: whether any rank's ``flag`` holds."""
+        return bool(collectives.allreduce_max(torch.tensor([int(flag)], dtype=torch.int64)))
 
 
 def _multirank_mapper(x: np.ndarray, cfg: TrainConfig, cat_features: tuple,
                       world: int, dev: torch.device) -> BinMapper:
     """Bin bounds identical on every rank: the mapper is fitted on a
     NaN-padded sample of ``max(1, 50,000 // world)`` rows a rank
-    (``default_rng(seed).choice``), all-gathered (NaN rows are ignored by
-    the quantile fit), with each categorical column's global maximum
-    planted in every rank's sample, as the JAX package's multi-process
-    branch builds it."""
+    (``default_rng(seed).choice``; CSR rows densified, absent entries NaN),
+    all-gathered (NaN rows are ignored by the quantile fit), with each
+    categorical column's global maximum planted in every rank's sample, as
+    the JAX package's multi-process branch builds it."""
     n, d = x.shape
+    sparse_input = is_sparse(x)
+    if cat_features and sparse_input:
+        # the one-device mapper's error: the densified sample must not
+        # accept what one process would refuse
+        raise ValueError(
+            "categorical features require dense input (sparse columns have no "
+            "stable category<->bin identity for absent entries)"
+        )
     k_s = max(1, 50_000 // world)
     samp = np.full((k_s, d), np.nan, np.float32)
     take = np.random.default_rng(cfg.seed).choice(n, min(n, k_s), replace=False)
-    samp[: len(take)] = np.asarray(x[take], np.float32)
+    # a CSR sample densified: absent entries NaN, the missing bin's values
+    samp[: len(take)] = _densify(x[take]) if sparse_input else np.asarray(x[take], np.float32)
     if cat_features:
         # the categorical range must cover every category of every rank,
         # and its check is one decision for all ranks
@@ -542,15 +573,13 @@ def train(
                 f"{x.mapper.max_bin} but cfg.max_bin={cfg.max_bin}; "
                 "bin codes would overflow the histogram space"
             )
-    rank, world = group_rank_size()
-    if pre_binned and world > 1:
-        raise ValueError("pre-binned input is single-process only")
+    world = group_rank_size()[1]
     dev = resolve_device(device)
+    ranks = None   # this rank's place among the ranks' rows (two ranks or more)
     if world > 1:
-        _check_multirank(cfg, world, sparse_input=sparse_input, valid=valid_mask,
-                         init_booster=init_booster,
-                         checkpointing=bool(checkpoint_dir or resume_from),
-                         fused_rounds=fused_rounds)
+        _check_multirank(pre_binned=pre_binned,
+                         checkpointing=bool(checkpoint_dir or resume_from))
+        ranks = _RankRows(x.shape[0], dev)
     elif cfg.parallelism == "voting_parallel":
         log.info("voting_parallel needs >1 data shard; falling back to data_parallel")
     host_reads["count"] = 0
@@ -589,6 +618,15 @@ def train(
         cat_np[list(cat_features)] = True
         cat_mask = torch.from_numpy(cat_np).to(dev)
     valid = None if valid_mask is None else np.asarray(valid_mask, bool).reshape(n)
+    # validation: every round's metric on the device, read once per chunk
+    # (dart too: its metric reaches a delegate, though it never stops early)
+    eval_on = valid is not None and bool(valid.any())
+    if ranks is not None:
+        # one decision for every rank: a rank without validation rows still
+        # takes every round's metric collective
+        eval_on = ranks.any(eval_on)
+        if eval_on and valid is None:
+            valid = np.zeros(n, bool)
     w = sample_weight if sample_weight is not None else np.ones(n, np.float32)
     if valid is not None:
         w = np.where(valid, 0.0, w)  # validation rows never train
@@ -605,9 +643,9 @@ def train(
         bagging_freq = 0
     use_bag = bagging_freq > 0 and bagging_fraction < 1.0
     # a rank's rows sit at global positions rank * share + i (share: the
-    # largest rank's row count), so its bag draws are the JAX package's
-    # draws over the padded global rows
-    bag_at = rank * multihost_pad_target(n, make_mesh(device=dev)) if world > 1 and use_bag else 0
+    # largest rank's row count), so its bag and GOSS draws are the JAX
+    # package's draws over the padded global rows
+    row_at = 0 if ranks is None else ranks.at
     patience = cfg.early_stopping_round
     if is_dart and patience > 0:
         # dropout rescales trees inside any best-iteration prefix, so no
@@ -636,11 +674,17 @@ def train(
     p1 = torch.tensor(p1_host, dtype=torch.float32).to(dev)
 
     rank = None    # device layout of the query groups (lambdarank)
+    rank_fits = False
     if cfg.objective == "lambdarank":
         rank = _rank_pads(group_ids, None, dev)
+        rank_fits = rank is not None
+        if ranks is not None:
+            # one path for every rank: the host's if any rank's groups
+            # do not fit the device layout
+            rank_fits = not ranks.any(not rank_fits)
     # dart refits from host scores each round, as the reference's
     # per-round loop does; so do groups the device layout cannot hold
-    host_rank = cfg.objective == "lambdarank" and (rank is None or is_dart)
+    host_rank = cfg.objective == "lambdarank" and (not rank_fits or is_dart)
 
     def gradients(s: torch.Tensor) -> tuple:
         if cfg.objective == "binary":
@@ -728,7 +772,7 @@ def train(
         # the bag in force at ``start``: redrawn from its round, and held
         # against the one the checkpoint saved
         r0 = (start - 1) // bagging_freq * bagging_freq
-        bag = (sampling.uniform(cfg.seed, r0, sampling.BAGGING_STREAM, n, dev, bag_at)
+        bag = (sampling.uniform(cfg.seed, r0, sampling.BAGGING_STREAM, n, dev, row_at)
                < bagging_fraction).float()
         if resumed.bag is None or not np.array_equal(_to_host(bag), resumed.bag):
             raise ValueError(
@@ -736,18 +780,28 @@ def train(
                 f"round {r0} — refusing to resume"
             )
 
-    # validation: every round's metric on the device, read once per chunk
-    # (dart too: its metric reaches a delegate, though it never stops early)
-    eval_on = valid is not None and bool(valid.any())
+    # over ranks the metric is computed on every rank's rows gathered in
+    # global order: labels, mask and query ids once, the scores every round
     if eval_on:
         kind, eval_k = evaluation.eval_kind(cfg.objective, cfg.metric, cfg.eval_at)
         stopper = evaluation.EarlyStopping(kind, patience)
         if resumed is not None:
             stopper.best, stopper.best_iter = resumed.best_val, resumed.best_iter
             stopper.since = resumed.rounds_no_improve
-        valid_w = torch.from_numpy(valid.astype(np.float32)).to(dev)
-        host_ndcg = kind == "ndcg" and rank is None
-        rank_eval = _rank_pads(group_ids, valid, dev) if kind == "ndcg" and not host_ndcg else None
+        ev_y, ev_valid, ev_gid, y_ev = y, valid, group_ids, y_enc
+        if ranks is not None:
+            gid_l = (np.zeros(n) if group_ids is None
+                     else np.asarray(group_ids, np.float64) * world + ranks.rank)
+            cols = ranks.gather(torch.from_numpy(
+                np.stack([y.astype(np.float64), valid.astype(np.float64), gid_l], 1))).numpy()
+            ev_y, ev_valid, ev_gid = cols[:, 0], cols[:, 1] > 0.5, cols[:, 2].astype(np.int64)
+            y_ev = torch.from_numpy(
+                np.eye(k, dtype=np.float32)[ev_y.astype(np.int64)] if k > 1
+                else ev_y.astype(np.float32)).to(dev)
+        valid_w = torch.from_numpy(ev_valid.astype(np.float32)).to(dev)
+        rank_eval = (_rank_pads(ev_gid, ev_valid, dev)
+                     if kind == "ndcg" and rank_fits else None)
+        host_ndcg = kind == "ndcg" and rank_eval is None
         # a delegate reads every round's metric as it comes
         chunk = (1 if host_ndcg or delegate is not None
                  else T if patience == 0 else min(T, max(16, patience)))
@@ -758,12 +812,15 @@ def train(
         )
 
         def metric(s: torch.Tensor) -> Any:
+            if ranks is not None:
+                s = ranks.gather(s)
             if host_ndcg:
                 return objectives.grouped_ndcg(
-                    _to_host(s)[valid], y[valid], np.asarray(group_ids)[valid], k=eval_k)
+                    _to_host(s)[ev_valid], ev_y[ev_valid], np.asarray(ev_gid)[ev_valid],
+                    k=eval_k)
             if kind == "ndcg":
-                return objectives.grouped_ndcg_device(s, y_enc, *rank_eval, k=eval_k)
-            return evaluation.device_metric(s, y_enc, valid_w, kind, p1)
+                return objectives.grouped_ndcg_device(s, y_ev, *rank_eval, k=eval_k)
+            return evaluation.device_metric(s, y_ev, valid_w, kind, p1)
 
     s_rec = 5 * (L - 1)  # offset of the leaf values in a packed record
     has_cat = cat_mask is not None
@@ -819,8 +876,12 @@ def train(
             w_sel = torch.where(w_grow > 0, w_it, 0.0)
             if cfg.objective == "mape":
                 w_sel = w_sel / torch.clamp_min(y_enc.abs(), 1.0)
+            leaf, resid = grown.row_leaf, y_enc - eff
+            if ranks is not None:
+                # the percentile of every rank's rows, in global order
+                leaf, resid, w_sel = ranks.gather32(leaf.to(torch.int32), resid, w_sel)
             renewed = objectives.leaf_quantile_renewal(
-                grown.row_leaf, y_enc - eff, w_sel, L, q_renew) * sp.learning_rate
+                leaf, resid, w_sel, L, q_renew) * sp.learning_rate
             grown = grown._replace(
                 leaf_values=torch.where(grown.leaf_counts > 0, renewed, 0.0))
         return grown
@@ -829,8 +890,9 @@ def train(
         g_abs = g.abs()
         if k > 1:
             g_abs = g_abs.sum(1)
-        u = sampling.uniform(cfg.seed, it, sampling.GOSS_STREAM, n, dev)
-        return w_it * sampling.goss_weights(g_abs, w_it, u, cfg.top_rate, cfg.other_rate)
+        u = sampling.uniform(cfg.seed, it, sampling.GOSS_STREAM, n, dev, row_at)
+        return w_it * sampling.goss_weights(g_abs, w_it, u, cfg.top_rate, cfg.other_rate,
+                                            ranks=ranks)
 
     def eval_scores(it_plus_1: torch.Tensor) -> torch.Tensor:
         # rf averages its running sum; the round count is a device scalar
@@ -865,7 +927,7 @@ def train(
             it = it_dev
             w_it = w_dev
             if use_bag:
-                u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, bag_at)
+                u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, row_at)
                 bag.copy_(torch.where(it % bagging_freq == 0, (u < bagging_fraction).float(), bag))
                 w_it = w_dev * bag
             g, h = (g_rf, h_rf) if is_rf else gradients(scores)
@@ -947,7 +1009,7 @@ def train(
             w_it = w_dev
             if use_bag:
                 if it % bagging_freq == 0:
-                    u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, bag_at)
+                    u = sampling.uniform(cfg.seed, it, sampling.BAGGING_STREAM, n, dev, row_at)
                     bag = (u < bagging_fraction).float()
                 w_it = w_dev * bag
             drop = draws.drops[it]

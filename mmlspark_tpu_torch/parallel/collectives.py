@@ -121,6 +121,25 @@ def all_gather(x: torch.Tensor, group: Any = None, tiled: bool = True) -> torch.
     return out.reshape((size * x.shape[0],) + tuple(x.shape[1:])) if tiled else out
 
 
+def all_gather_rows(x: torch.Tensor, group: Any = None,
+                    counts: Optional[list] = None) -> torch.Tensor:
+    """Every rank's rows of ``x`` (axis 0) concatenated in rank order,
+    where the ranks may hold different row counts (``counts``: every
+    rank's, when the caller knows them; else one all-gather more): each
+    rank pads its rows to the largest count for one all-gather, and the
+    padding is dropped."""
+    if not dist.is_initialized():
+        return x.clone()
+    if counts is None:
+        counts = [int(c) for c in all_gather(torch.tensor([x.shape[0]], dtype=torch.int64),
+                                             group)]
+    m = max(counts)
+    if x.shape[0] < m:
+        x = torch.cat([x, x.new_zeros((m - x.shape[0],) + tuple(x.shape[1:]))])
+    got = all_gather(x, group, tiled=False)
+    return torch.cat([got[r, :c] for r, c in enumerate(counts)])
+
+
 def reduce_scatter(x: torch.Tensor, group: Any = None) -> torch.Tensor:
     """Sum over ranks of ``x`` (world * m, ...), of which this rank keeps
     block ``rank`` (m, ...) (``psum_scatter(tiled=True)``)."""

@@ -197,29 +197,21 @@ def test_sharded_build_timed_observes_its_seconds():
     np.testing.assert_array_equal(out.numpy(), H.plane_histogram_plain(bins, stats, None, 64))
 
 
-@pytest.mark.parametrize("what,kw", [
-    ("GOSS", dict(cfg=dict(boosting_type="goss"))),
-    ("validation", dict(valid=np.array([False, True]))),
-    ("quantile", dict(cfg=dict(objective="quantile"))),
-    ("regression_l1", dict(cfg=dict(objective="regression_l1"))),
-    ("dart", dict(cfg=dict(boosting_type="dart"))),
-    ("lambdarank", dict(cfg=dict(objective="lambdarank"))),
-    ("checkpoint", dict(checkpointing=True)),
-    ("continued", dict(init_booster=type("B", (), {"trees": [object()]})())),
-    ("CSR", dict(sparse_input=True)),
-    ("fused_rounds", dict(fused_rounds=2)),
+@pytest.mark.parametrize("what", [
+    "GOSS", "validation", "quantile", "regression_l1", "dart", "lambdarank", "checkpoint",
+    "continued", "CSR", "fused_rounds",
 ])
-def test_multirank_refusals_name_their_roadmap_item(what, kw):
-    """What a fit over ranks does not run yet raises, naming A4 step 1b."""
-    args = dict(sparse_input=False, valid=None, init_booster=None, checkpointing=False,
-                fused_rounds=0)
-    cfg = TrainConfig(**kw.pop("cfg", {}))
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match="A4 step 1b") as ei:
-        _check_multirank(cfg, 2, **args)
-    assert what.split("_")[0].lower() in str(ei.value).lower()
-    _check_multirank(TrainConfig(), 2, sparse_input=False, valid=np.zeros(2, bool),
-                     init_booster=None, checkpointing=False, fused_rounds=1)
+def test_multirank_refusals_name_their_roadmap_item(ranks2, what):
+    """What a fit over ranks refused before A4 step 1b now runs: a small
+    fit of each kind through ``train`` gives one model on every rank.
+    Checkpoint/resume is still refused, with the JAX package's ValueError
+    (single-process only)."""
+    if what == "checkpoint":
+        with pytest.raises(ValueError, match="single-process only"):
+            _check_multirank(pre_binned=False, checkpointing=True)
+        return
+    got = [res["estimators"]["accepted"][what] for res in ranks2]
+    assert got[0] and all(g == got[0] for g in got)
 
 
 # -- the parallel layer over ranks ------------------------------------------
@@ -239,6 +231,12 @@ def test_collectives_over_ranks(ranks):
         np.testing.assert_array_equal(c["gather_stacked"], np.stack(xs))
         np.testing.assert_array_equal(c["reduce_scatter"], np.sum(xi, 0)[4 * r:4 * r + 4])
         np.testing.assert_array_equal(c["broadcast"], xs[-1])
+        # ranks of 1, 2, ... rows: every rank's rows in rank order, no padding
+        np.testing.assert_array_equal(
+            c["gather_rows"], np.concatenate([np.arange(q + 1) * 10 + q for q in range(world)]))
+        np.testing.assert_array_equal(
+            c["gather_rows_counted"],
+            np.concatenate([np.full((q + 1, 2), float(q)) for q in range(world)]))
 
 
 def test_ring_permute_over_ranks(ranks):
@@ -411,9 +409,13 @@ def test_estimator_models_equal_across_ranks(ranks, fit):
 
 
 def test_estimator_refusals_over_ranks(ranks2):
-    refused = ranks2[0]["estimators"]["refused"]
-    assert sorted(refused) == ["dart", "fused", "goss", "quantile"]
-    assert all("A4 step 1b" in msg for msg in refused.values())
+    """The estimator fits the port refused over ranks before A4 step 1b
+    (goss, dart, fused_rounds > 1, quantile) run, and every rank gets one
+    model."""
+    ran = [res["estimators"]["ran"] for res in ranks2]
+    assert sorted(ran[0]) == ["dart", "fused", "goss", "quantile"]
+    for what in ran[0]:
+        assert ran[0][what] and all(r[what] == ran[0][what] for r in ran)
 
 
 @pytest.mark.parametrize("loss", ["squared", "hinge"])

@@ -109,6 +109,67 @@ def est_data() -> tuple:
     return x, y.astype(np.float64)
 
 
+FIT_N, FIT_D, FIT_GROUP = 1024, 6, 16   # blocks of 512 / 256 rows at 2 / 4 ranks; queries of 16
+FIT_BASE = dict(num_iterations=6, num_leaves=7, min_data_in_leaf=5, max_bin=63, seed=3)
+_ES = dict(num_iterations=30, learning_rate=0.5, early_stopping_round=2)
+# the multi-rank fits: name -> (label, TrainConfig fields, how the fit is called)
+FITS = {
+    "goss": ("binary", dict(boosting_type="goss", top_rate=0.3, other_rate=0.2), {}),
+    "goss_multiclass": ("multiclass", dict(objective="multiclass", num_class=3,
+                                           boosting_type="goss"), {}),
+    "goss_l2": ("regression", dict(objective="regression", boosting_type="goss"), {}),
+    "dart": ("binary", dict(boosting_type="dart", drop_rate=0.5, skip_drop=0.0), {}),
+    "es_logloss": ("binary", _ES, {"valid": True}),
+    "es_auc": ("binary", dict(_ES, metric="auc"), {"valid": True}),
+    "es_error": ("binary", dict(_ES, metric="binary_error"), {"valid": True}),
+    "es_multiclass": ("multiclass", dict(_ES, objective="multiclass", num_class=3),
+                      {"valid": True}),
+    "es_l2": ("regression", dict(_ES, objective="regression"), {"valid": True}),
+    "es_quantile": ("regression", dict(_ES, objective="quantile", alpha=0.7), {"valid": True}),
+    "es_rf": ("binary", dict(boosting_type="rf", bagging_fraction=0.6, bagging_freq=1,
+                             num_iterations=10), {"valid": True}),
+    "quantile": ("regression", dict(objective="quantile", alpha=0.7), {}),
+    # rows split 1:2(:3:4): the padding to the largest block stays out of the
+    # percentile and the metric (regression: no CPU tail-lane rounding)
+    "quantile_uneven": ("regression", dict(objective="quantile", alpha=0.7), {"uneven": True}),
+    "es_l2_uneven": ("regression", dict(_ES, objective="regression"),
+                     {"valid": True, "uneven": True}),
+    "regression_l1": ("regression", dict(objective="regression_l1"), {}),
+    "mape": ("regression", dict(objective="mape"), {}),
+    "lambdarank": ("rank", dict(objective="lambdarank"), {}),
+    "lambdarank_es": ("rank", dict(_ES, objective="lambdarank", learning_rate=0.3),
+                      {"valid": True}),
+    "continued": ("binary", dict(seed=4, num_iterations=4), {"init": True}),
+    "csr": ("binary", {}, {"csr": True}),
+    "fused": ("binary", {}, {"fused_rounds": 4}),
+}
+
+
+def fit_data() -> dict:
+    """Integer columns (fewer distinct values than bins: every sample
+    gives one mapper) in blocks of whole 64-row vector widths at 2 and 4
+    ranks, with binary, 3-class, regression and relevance labels, query
+    ids (queries of ``FIT_GROUP`` rows, so every query lies inside a block)
+    and a validation mask of whole queries."""
+    r = np.random.default_rng(13)
+    n = FIT_N
+    x = r.integers(0, 24, (n, FIT_D)).astype(np.float32)
+    score = (x[:, 0] - 12) * 0.25 + (x[:, 1] > 14) - (x[:, 2] % 4 == 0) * 0.6
+    noisy = score + r.normal(size=n) * 0.6
+    gid = np.arange(n) // FIT_GROUP
+    return {
+        "x": x,
+        "binary": (noisy > 0).astype(np.float64),
+        "multiclass": np.digitize(noisy, [-0.7, 0.6]).astype(np.float64),
+        "regression": np.round(noisy * 4.0) + 10.0,
+        "rank": np.clip(np.round(noisy + 1.0), 0, 3),
+        "gid": gid,
+        "valid": gid % 4 == 3,
+        # CSR: the columns' small values absent (the missing bin)
+        "x_csr": np.where(x < 6, 0.0, x).astype(np.float32),
+    }
+
+
 def wide_binary(n: int = WIDE_N, d: int = WIDE_D, seed: int = 0) -> tuple:
     """``tests/test_voting.py``'s data."""
     r = np.random.default_rng(seed)
@@ -202,6 +263,9 @@ def _collectives(rank: int, world: int) -> dict:
         "gather": _np(C.all_gather(x)), "gather_stacked": _np(C.all_gather(x, tiled=False)),
         "reduce_scatter": _np(C.reduce_scatter(xi)),
         "ring": _np(C.ring_permute(x)), "ring_back": _np(C.ring_permute(x, shift=-1)),
+        "gather_rows": _np(C.all_gather_rows(torch.arange(rank + 1) * 10 + rank)),
+        "gather_rows_counted": _np(C.all_gather_rows(
+            torch.full((rank + 1, 2), float(rank)), counts=list(range(1, world + 1)))),
         "broadcast": _np(C.broadcast(x, src=world - 1)),
         "shard_sum": _np(shard_sum(ones)), "shard_mapped": _np(mapped(ones.reshape(8, 1) * 3)),
         "shard_batch": _np(sb["a"]), "multihost": _np(mh[0]),
@@ -331,19 +395,102 @@ def _estimators(rank: int, world: int) -> dict:
             num_iterations=3, num_leaves=5, min_data_in_leaf=5, device="cpu").fit(
             DataFrame.from_dict({"features": x[blk], "label": x[blk, 0] * 0.5 + y[blk]})
         ).get("model_string")
-        refused = {}
+        # the fits the port refused over ranks before A4 step 1b: each now
+        # runs, and every rank gets one model
+        ran = {}
         for what, kw in (("goss", {"boosting_type": "goss"}), ("dart", {"boosting_type": "dart"}),
                          ("fused", {"fused_rounds": 4})):
-            try:
-                LightGBMClassifier(num_iterations=2, device="cpu", **kw).fit(df)
-            except NotImplementedError as e:
-                refused[what] = str(e)
+            ran[what] = LightGBMClassifier(num_iterations=2, min_data_in_leaf=5, device="cpu",
+                                           **kw).fit(df).get("model_string")
+        ran["quantile"] = LightGBMRegressor(
+            objective="quantile", num_iterations=2, min_data_in_leaf=5, device="cpu").fit(
+            DataFrame.from_dict({"features": x[blk], "label": y[blk]})).get("model_string")
+        out["ran"] = ran
+        out["accepted"] = _accepted(rank, world)
+    return out
+
+
+def _accepted(rank: int, world: int) -> dict:
+    """One small fit through ``train`` for each kind of fit the port
+    refused over ranks before A4 step 1b: each model string."""
+    import scipy.sparse as sp
+
+    from mmlspark_tpu_torch.models.gbdt import TrainConfig, train
+
+    x, y = est_data()
+    blk = blocks(EST_N, world, uneven=False)[rank]
+    x, y = x[blk], y[blk]
+    base = dict(num_iterations=2, num_leaves=5, min_data_in_leaf=5)
+    valid = np.arange(len(y)) % 4 == 3
+    gid = np.arange(len(y)) // 16
+    fits = {
+        "GOSS": (dict(boosting_type="goss"), {}),
+        "validation": (dict(early_stopping_round=1), {"valid_mask": valid}),
+        "quantile": (dict(objective="quantile"), {}),
+        "regression_l1": (dict(objective="regression_l1"), {}),
+        "dart": (dict(boosting_type="dart", skip_drop=0.0), {}),
+        "lambdarank": (dict(objective="lambdarank"), {"group_ids": gid}),
+        "CSR": ({}, {}),
+        "fused_rounds": ({}, {"fused_rounds": 2}),
+    }
+    out = {}
+    for what, (cfg, kw) in fits.items():
+        xx = sp.csr_matrix(x) if what == "CSR" else x
+        out[what] = train(xx, y, TrainConfig(**base, **cfg), device="cpu", **kw)
+    out["continued"] = train(x, y, TrainConfig(**base, seed=1), init_booster=out["GOSS"],
+                             device="cpu")
+    return {k: b.to_model_string() for k, b in out.items()}
+
+
+def multirank_fits(rank: int, world: int) -> dict:
+    """Every fit of ``FITS`` through ``train`` on this rank's block of
+    ``fit_data``, and the estimator's ``num_batches`` chain: each model
+    string, tree count and best iteration, and the refusals' messages."""
+    import scipy.sparse as sp
+
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.models.gbdt import LightGBMRegressor, TrainConfig, train
+
+    data = fit_data()
+    out: dict = {}
+    boosters: dict = {}
+    for name, (label, cfg, how) in FITS.items():
+        blk = blocks(FIT_N, world, uneven=bool(how.get("uneven")))[rank]
+        x = data["x"][blk]
+        kw = {"device": "cpu"}
+        if how.get("valid"):
+            kw["valid_mask"] = data["valid"][blk]
+        if label == "rank":
+            kw["group_ids"] = data["gid"][blk] - data["gid"][blk][0]   # a rank's own ids
+        if how.get("init"):
+            kw["init_booster"] = boosters["goss"]
+        if how.get("fused_rounds"):
+            kw["fused_rounds"] = how["fused_rounds"]
+        xx = sp.csr_matrix(data["x_csr"][blk]) if how.get("csr") else x
+        b = train(xx, data[label][blk], TrainConfig(**{**FIT_BASE, **cfg}), **kw)
+        boosters[name] = b
+        out[name] = {"model": b.to_model_string(), "trees": len(b.trees),
+                     "best": b.best_iteration}
+    blk = blocks(FIT_N, world, uneven=False)[rank]
+    x = data["x"][blk]
+    m = LightGBMRegressor(num_batches=2, device="cpu", **FIT_BASE).fit(
+        DataFrame.from_dict({"features": x, "label": data["regression"][blk]}))
+    out["num_batches"] = {"model": m.get("model_string"), "trees": len(m.booster.trees),
+                          "best": m.booster.best_iteration}
+    y = data["binary"][blk]
+    refused = {}
+    for what, kw in (("checkpoint", {"checkpoint_dir": "unused"}),
+                     ("resume", {"resume_from": "unused"})):
         try:
-            LightGBMRegressor(objective="quantile", num_iterations=2, device="cpu").fit(
-                DataFrame.from_dict({"features": x[blk], "label": y[blk]}))
-        except NotImplementedError as e:
-            refused["quantile"] = str(e)
-        out["refused"] = refused
+            train(x, y, TrainConfig(**FIT_BASE), device="cpu", **kw)
+        except ValueError as e:
+            refused[what] = str(e)
+    try:
+        train(sp.csr_matrix(data["x_csr"][blk]), y,
+              TrainConfig(**FIT_BASE, categorical_features=(3,)), device="cpu")
+    except ValueError as e:
+        refused["csr_categorical"] = str(e)
+    out["refused"] = refused
     return out
 
 
