@@ -40,7 +40,7 @@ categorical columns, their JSON and LightGBM-text round trips scored
 bitwise equal on the card, a categorical card-vs-CPU fit, continued
 training (``model_string``, ``num_batches``), a checkpointed GOSS and a
 bagged fit stopped at round 12 and resumed byte for byte, exact and
-approximate SHAP on 1,000 rows, and the card's Threefry draws against the
+approximate SHAP on 250 rows, and the card's Threefry draws against the
 CPU's bit for bit. Last, image featurization (no kernel of its own: its
 convolutions, resize and normalisation are PyTorch ops): a ResNet-50 at
 224 on the card in f32 (TF32 off) and bf16 against the port's CPU f32;
@@ -84,9 +84,9 @@ distributed form (the fixed-scale kernel entries plus int64 all-reduces)
 at world 1 under NCCL in this process and at world 2 as two spawned gloo
 processes on this card, bitwise one ``plane_hist`` / ``multi_plane_hist``
 call on all 200,000 rows, with each rank's kernel, all-reduce and build
-times; the trees/s cell at world 2 (data_parallel lossguide and
-depthwise, voting_parallel with K = 4) within 0.005 AUC of the one-device
-fits, both ranks' models byte-identical, voting's bytes a split under a
+times; the trees/s cell at world 2 (10 rounds; data_parallel lossguide and
+depthwise, voting_parallel with K = 4) within 0.005 AUC of one-device
+fits of the same depth, both ranks' models byte-identical, voting's bytes a split under a
 third of data_parallel's; an integer-column fit whose world-2 model
 string must equal the one-device one; then, on the same integer columns,
 every fit that needs all the ranks' rows beyond the histograms
@@ -100,7 +100,7 @@ within 0.005 AUC with the reason recorded), each launching
 Last, phase ``elastic``: the elastic gang through its entry points, a
 registry (``fleet.run_registry``) in this process and ``python -m
 mmlspark_tpu_torch.serving.fleet train --device cuda`` members on this card,
-on the trees/s cell's rows (an ``npz:`` file), 63 leaves, 10 rounds,
+on the trees/s cell's rows (an ``npz:`` file), 63 leaves, 8 rounds,
 checkpoints every 2: world-2 gangs (lossguide over the ring reducer and
 over the mesh, depthwise over the ring), whose members' models must be
 byte-identical and equal to the same fit on one device here (their int64
@@ -128,7 +128,7 @@ each scoring bitwise as its direct spec. Last, phase ``fleet``: a
 registry, two ``fleet worker --device cuda`` processes sharing this one card
 under the supervisor of ``fleet supervise`` (each serving the trees/s
 booster as ``gbdt:``, V2's classifier as ``vw:`` and ``echo``), and ``fleet
-gateway`` processes in front: 8 keep-alive clients send 2,000 requests a
+gateway`` processes in front: 8 keep-alive clients send 1,000 requests a
 run routed by ``x-mmlspark-model``, every reply 200 and bitwise the
 in-process call, p50/p99 a model direct to a worker and through the
 gateway; ``vw_margin`` counted in one more worker run in this process on the
@@ -137,7 +137,29 @@ mid-load (no request lost, respawned with a new boot stamp and routed to
 again, the seconds from the kill); ``rolling_restart`` under load (every
 reply 200); a gateway with ``--hedge-ms`` (replies bitwise); one request's
 trace across the gateway->worker hop; ``fleet top``'s columns; the SLO
-gauges on both roles.
+gauges on both roles. Last, phases ``online``, ``tune`` and ``chaos`` on the
+same registry and supervised workers, with one more worker in this process
+and ``fleet online``'s loop in this process. Phase
+``online``: V2's 80,000 training rows POSTed to ``/ingest`` in ordered chunks
+of 1,024 (logistic, lr 0.5, batch 64, 2^18 weights; ``vw_pass`` counted here)
+while 4 keep-alive clients score ``vw-online`` (``vw_margin`` counted in this
+process's worker); the last snapshot bitwise one card ``train_sparse_sgd``
+over the rows in ingest order (and within 1e-5 * max|w| of the CPU plain
+version's), every reply after it bitwise the in-process scoring, 0 non-2xx,
+publications and freshness p50/p99; then an artifact-mode loop
+(``--replicas 1``), bitwise. Phase ``tune``: ``fleet tune`` over 4 ``fleet
+trial --device cuda`` processes on the trees/s cell's rows (63 leaves, rungs
+at 2, 4, 8 rounds, eta 2): promotion sets equal ``asha.promote`` of the
+reports, the winner refitted fresh here has the committed digest and is
+served as ``champion`` bitwise by every worker, the trials' histogram
+launches from their status files. Phase ``chaos``: ``fleet chaos`` twice
+with one seed on that fleet under load (latency with jitter on worker 0's
+proxied link, worker 0 SIGSTOPped and SIGCONTed): every invariant green,
+``online_conservation`` and ``experiment_conservation`` included, every
+reply 200, the same schedule digest both times. For time, depth is cut in
+``card_vs_cpu`` (5 rounds), the world-2 fits (10; ``DIST_FITS`` 5, its
+early-stopping fits 10), the gangs (8) and the fleet's load runs (1,000
+requests), and phase ``elastic`` runs its gangs side by side in two waves.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -148,8 +170,10 @@ CPU. Without a CUDA device the script exits nonzero before any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import json
 import os
@@ -200,7 +224,11 @@ T_START = time.perf_counter()
 
 
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, "t": time.perf_counter() - T_START, **kv}), flush=True)
+    """A phase's JSON line on stdout, and on stderr where the run has got to."""
+    t = time.perf_counter() - T_START
+    print(json.dumps({"phase": name, "t": t, **kv}), flush=True)
+    part = f" {kv['part']}" if isinstance(kv.get("part"), str) else ""
+    print(f"chip_smoke: {name}{part} done at {t:.1f} s", file=sys.stderr, flush=True)
 
 
 def card() -> str:
@@ -983,15 +1011,18 @@ def classifier_score(x_test, y_test):
     return score
 
 
+CARD_VS_CPU_ROUNDS = 5              # depth cut from 20 for the script's time (the CPU fit)
+
+
 def card_vs_cpu(x_test, y_test, categorical: bool = False) -> dict:
-    """The same 20,000-row, 20-round fit on the card and on the CPU (plain
-    versions): held-out AUCs within 0.002."""
+    """The same 20,000-row, CARD_VS_CPU_ROUNDS-round fit on the card and on the
+    CPU (plain versions): held-out AUCs within 0.002."""
     if categorical:
         x, y = categorical_dataset(N_CPU, seed=SEED + 9)
     else:
         x, y = dataset(N_CPU, seed=SEED + 1)
-    cfg = TrainConfig(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
-                      categorical_features=CAT_COLS if categorical else ())
+    cfg = TrainConfig(num_iterations=CARD_VS_CPU_ROUNDS, num_leaves=63, min_data_in_leaf=20,
+                      seed=0, categorical_features=CAT_COLS if categorical else ())
     p = float(np.clip(y.mean(), 1e-6, 1 - 1e-6))
     base = float(np.log(p / (1 - p)))
     t0 = time.perf_counter()
@@ -1008,7 +1039,7 @@ def card_vs_cpu(x_test, y_test, categorical: bool = False) -> dict:
         total += len(eq)
     auc_gpu = binary_auc(y_test, gpu.predict_raw(x_test, device=DEV))
     auc_cpu = binary_auc(y_test, cpu.predict_raw(x_test, device="cpu"))
-    rec = {"rows": len(y), "rounds": 20, "categorical": categorical, "identical_split_share": same / total,
+    rec = {"rows": len(y), "rounds": CARD_VS_CPU_ROUNDS, "categorical": categorical, "identical_split_share": same / total,
            "auc_card": auc_gpu, "auc_cpu": auc_cpu, "fit_s_card": gpu_s, "fit_s_cpu": cpu_s}
     phase("card_vs_cpu", **rec)
     if abs(auc_gpu - auc_cpu) > 0.002:
@@ -2545,7 +2576,10 @@ def vw(smi: str) -> dict:
     v1 = vw_v1(texts, y)
     v2 = vw_v2(texts)
     fdf = v2.pop("fdf")
-    serve = {"model": v2.pop("classifier"), "rows": fdf["features"][-VW_HOLDOUT:][:64]}
+    serve = {"model": v2.pop("classifier"), "rows": fdf["features"][-VW_HOLDOUT:][:64],
+             # phase online's feedback: V2's rows and planted labels, in order
+             "online": {"features": fdf["features"],
+                        "label": (fdf["label_str"] == "pos").astype(np.float64)}}
     train = fdf.select("features", "score").with_column(
         "label", lambda p: (p["score"] > 0).astype(np.float64))
     times = vw_times(train)
@@ -3291,10 +3325,17 @@ def _fit_rec(est, train_df, x_test, y_test, trace: bool = True) -> dict:
 # at world 2 on the integer columns and once on one device on all the rows:
 # name -> (label, TrainConfig fields, how train is called)
 DIST_QUERY = 20                     # documents a query (lambdarank): 10,000 queries
-# 10 rounds, not the trees/s cell's 20: twenty traced rounds of every fit would add
-# ~270 s to the script (each traced world-2 fit waits ~10 s more on the profiler)
-DIST_BASE = dict(num_iterations=10, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
-_DIST_ES = dict(learning_rate=0.6, early_stopping_round=2, metric="auc")
+# 5 rounds, not the trees/s cell's 20: depth cut for the script's time (twenty traced
+# rounds of every fit would add ~270 s, each traced world-2 fit waits ~10 s more on the
+# profiler; cut from 10 when phases online, tune and chaos came). The early-stopping
+# fits keep 10: they stop after their 6th and 7th rounds, and must stop (``check_ranks``)
+DIST_BASE = dict(num_iterations=5, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
+DIST_ES_ROUNDS = 10
+# the trees/s cell's fits and the integer fit at world 2 (and their one-device
+# references): 10 rounds, not the cell's 20, a depth cut for the script's time
+DIST_MAIN_ROUNDS = 10
+_DIST_ES = dict(learning_rate=0.6, early_stopping_round=2, metric="auc",
+                num_iterations=DIST_ES_ROUNDS)
 DIST_FITS = {
     "goss": ("binary", dict(boosting_type="goss"), {}),
     "dart": ("binary", dict(boosting_type="dart"), {}),
@@ -3303,7 +3344,8 @@ DIST_FITS = {
     "mape": ("regression", dict(objective="mape"), {}),
     "lambdarank": ("rank", dict(objective="lambdarank"), {}),
     "lambdarank_es": ("rank", dict(objective="lambdarank", learning_rate=0.3,
-                                   early_stopping_round=2), {"valid": True}),
+                                   early_stopping_round=2, num_iterations=DIST_ES_ROUNDS),
+                      {"valid": True}),
     "continued": ("binary", dict(seed=1), {"init": True}),
     "csr": ("binary", {}, {"csr": True}),
     "fused": ("binary", {}, {"fused_rounds": 4}),
@@ -3349,6 +3391,12 @@ def _dist_train(name: str, data: dict, lo: int, hi: int, init: "Booster | None")
     return train(x, data[label][lo:hi], TrainConfig(**{**DIST_BASE, **cfg}), **kw)
 
 
+def _dist_rounds(name: str, booster, init: "Booster") -> int:
+    """The trees a fit of ``DIST_FITS`` grew and kept (a continued fit's model
+    holds init's too): its rounds, all its classes being one."""
+    return len(booster.trees) - (len(init.trees) if DIST_FITS[name][2].get("init") else 0)
+
+
 def _dist_auc(name: str, booster, x_test, y_test) -> "float | None":
     """Held-out AUC of a binary fit of ``DIST_FITS`` (CSR: absent entries NaN)."""
     if DIST_FITS[name][0] != "binary":
@@ -3369,8 +3417,7 @@ def dist_new_fits(lo: int, hi: int, init: "Booster", base_gather: int) -> dict:
     out = {}
     for name in DIST_FITS:
         booster, rec = _counted(lambda: _dist_train(name, data, lo, hi, init))
-        # the trees this fit grew and kept (a continued fit's model holds init's too)
-        rounds = len(booster.trees) - (len(init.trees) if DIST_FITS[name][2].get("init") else 0)
+        rounds = _dist_rounds(name, booster, init)
         gathered = rec["collectives"]["bytes"].get("all_gather", 0)
         rec.update(trees=rounds, trees_per_s=rounds / rec["fit_s"],
                    best_iteration=booster.best_iteration, model=booster.to_model_string(),
@@ -3442,7 +3489,8 @@ def _dist_rank_work(rank: int, world: int) -> dict:
     x_all, y_all = dataset(N + N_TEST)
     x, y, x_test, y_test = x_all[lo:hi], y_all[lo:hi], x_all[N:], y_all[N:]
     tr = DataFrame.from_dict({"features": x, "label": y})
-    kw = dict(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0, device="cuda")
+    kw = dict(num_iterations=DIST_MAIN_ROUNDS, num_leaves=63, min_data_in_leaf=20, seed=0,
+              device="cuda")
     fits = {}
     for name, extra in (("lossguide", {}), ("depthwise", {"growth_policy": "depthwise"}),
                         ("voting", {"parallelism": "voting_parallel", "top_k": DIST_TOP_K})):
@@ -3520,8 +3568,9 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
     iteration included (where one device bins differently by design,
     ``DIST_BINS_DIFFER``, an AUC at least 0.90 and within DIST_AUC_TOL of
     it, the reason recorded), each having launched ``plane_hist_fixed``
-    (the wrappers' count, and seen by the trace). Returns (the failures,
-    the record)."""
+    (the wrappers' count, and seen by the trace), and each early-stopping
+    fit stopped before its ``num_iterations`` on every rank and on one
+    device. Returns (the failures, the record)."""
     fails = []
     if any(res["backend"] != ref["backend"] for res in ranks):
         fails.append(f"not every rank ran {ref['backend']}")
@@ -3575,6 +3624,14 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
                   and f["best_iteration"] == one["best_iteration"]):
             fails.append(f"{name}: the model (best iteration {f['best_iteration']}) differs "
                          f"from the one-device model (best iteration {one['best_iteration']})")
+        cap = {**DIST_BASE, **DIST_FITS[name][1]}
+        if cap.get("early_stopping_round"):
+            # the stop itself: every rank and one device cut the fit before its cap
+            ran = [res["new_fits"][name]["trees"] for res in ranks] + [one["trees"]]
+            rec.update(num_iterations=cap["num_iterations"], one_device_trees=one["trees"])
+            if not all(t < cap["num_iterations"] for t in ran):
+                fails.append(f"{name}: no early stop within {cap['num_iterations']} rounds "
+                             f"(trees: ranks and one device {ran})")
         # the wrappers count every launch; the trace of a world-2 fit can drop a
         # few kernel records (CUPTI's buffers under load), so it only has to see
         # the kernel, and what it missed is recorded
@@ -3603,7 +3660,7 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
 
 def dist_one_device(init: "Booster") -> dict:
     """Every fit of ``DIST_FITS`` on one device on all the rows: model
-    string, best iteration, held-out AUC and seconds."""
+    string, best iteration, trees kept, held-out AUC and seconds."""
     data = dist_fit_data()
     x_test, y_test = int_dataset(N_TEST, SEED + 21)
     out = {}
@@ -3613,27 +3670,32 @@ def dist_one_device(init: "Booster") -> dict:
         booster = _dist_train(name, data, 0, N, init)
         torch.cuda.synchronize()
         out[name] = {"model": booster.to_model_string(), "best_iteration": booster.best_iteration,
-                     "fit_s": time.perf_counter() - t0,
+                     "fit_s": time.perf_counter() - t0, "trees": _dist_rounds(name, booster, init),
                      "auc": _dist_auc(name, booster, x_test, y_test)}
     return out
 
 
-def distributed_phase(runs: dict, vw_rec: dict) -> dict:
+def distributed_phase(x, y, x_test, y_test, vw_rec: dict) -> dict:
     """Phase ``distributed``: B4 at world 1 under NCCL here, then two gloo
     ranks on this card (spawned processes, 100,000 rows each) held by
-    ``check_ranks`` against the one-device fits of the earlier phases and
-    against ``DIST_FITS`` fitted here on one device."""
+    ``check_ranks`` against one-device fits here of the same depth
+    (DIST_MAIN_ROUNDS; ``DIST_FITS``'s own) and V2's fit of phase ``vw``."""
     t0 = time.perf_counter()
     w1 = b4_world1()
+    kw = dict(num_iterations=DIST_MAIN_ROUNDS, num_leaves=63, min_data_in_leaf=20, seed=0,
+              device="cuda")
+    score = classifier_score(x_test, y_test)
+    one_auc = {p: score(LightGBMClassifier(**kw, **extra).fit(
+        DataFrame.from_dict({"features": x, "label": y})))["auc"]
+        for p, extra in (("lossguide", {}), ("depthwise", {"growth_policy": "depthwise"}))}
     xi, yi = int_dataset(N)
-    one_int = LightGBMClassifier(num_iterations=20, num_leaves=63, min_data_in_leaf=20, seed=0,
-                                 device="cuda", max_bin=63).fit(
+    one_int = LightGBMClassifier(**kw, max_bin=63).fit(
         DataFrame.from_dict({"features": xi, "label": yi})).get("model_string")
     new = dist_one_device(Booster.from_model_string(one_int))
     ranks, spawn_s = spawn_ranks(DIST_WORLD, "gloo", card_per_rank=False)
     fails, rec = check_ranks(ranks, {
         "backend": "gloo", "one_call": w1["one_call"], "integer": one_int,
-        "auc": {p: runs[p]["auc"] for p in ("lossguide", "depthwise")},
+        "auc": one_auc,
         "vw_auc": vw_rec["V2"]["auc"], "new": new})
     phase("distributed", part="world 2 (gloo, one card)", spawn_s=spawn_s, **rec,
           seconds=time.perf_counter() - t0)
@@ -3645,7 +3707,7 @@ def distributed_phase(runs: dict, vw_rec: dict) -> dict:
 
 # -- phase elastic: the elastic gang (fleet registry + fleet train members) ------------
 
-ELASTIC_ROUNDS = 10                 # as DIST_FITS: the gang's fits are cut to 10 rounds
+ELASTIC_ROUNDS = 8                  # the gang's fits: depth cut from 20 (10, then 8 for time)
 ELASTIC_HEARTBEAT_S = 1.0           # a member's beat; a member busy in a round still beats
 ELASTIC_TTL_S = 5.0                 # the registry drops a member silent this long
 ELASTIC_KILL_ROUND = 4              # the drill's victim stalls entering this round
@@ -3661,6 +3723,9 @@ def elastic_cfg(policy: str) -> TrainConfig:
     return TrainConfig(objective="binary", num_iterations=ELASTIC_ROUNDS, num_leaves=63,
                        learning_rate=0.1, min_data_in_leaf=20, seed=0, max_bin=255,
                        growth_policy=policy)
+
+
+_ELASTIC_PROCS: list = []          # every member spawned: elastic_phase kills what outlives it
 
 
 def _elastic_member(reg_url: str, tmp: str, name: str, world: int, policy: str, mode: str,
@@ -3686,7 +3751,9 @@ def _elastic_member(reg_url: str, tmp: str, name: str, world: int, policy: str, 
              "--status-file", os.path.join(tmp, f"status-{name}.json"), *extra]
     env = dict(os.environ, PYTHONPATH=ROOT)
     with open(os.path.join(tmp, f"err-{name}.txt"), "w") as err:
-        return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    _ELASTIC_PROCS.append(proc)
+    return proc
 
 
 def _elastic_wait(procs: dict, tmp: str, t0: float) -> dict:
@@ -3726,23 +3793,26 @@ def _member_rec(m: dict, kernel: str) -> dict:
             "peak_rss_bytes": st["peak_rss_bytes"]}
 
 
-def _elastic_gang(reg_url: str, tmp: str, policy: str, mode: str, one: "str | None",
-                  fails: list, world: int = 2, tag: "str | None" = None, extra: tuple = (),
-                  data: "str | None" = None) -> dict:
-    """A world-``world`` gang to its end: its members' models equal each
+def _gang_spawn(reg_url: str, tmp: str, policy: str, mode: str, world: int = 2,
+                tag: "str | None" = None, extra: tuple = (), data: "str | None" = None) -> dict:
+    """Spawns a world-``world`` gang's members (``_gang_end`` waits for them)."""
+    tag = tag or f"{policy}-{mode}"
+    names = [f"{tag}-{chr(ord('a') + i)}" for i in range(world)]
+    return {"tag": tag, "policy": policy, "world": world, "t0": time.perf_counter(),
+            "procs": {n: _elastic_member(reg_url, tmp, n, world, policy, mode, tag, extra=extra,
+                                         data=data) for n in names}}
+
+
+def _gang_end(gang: dict, tmp: str, one: "str | None", fails: list) -> dict:
+    """A gang of ``_gang_spawn`` to its end: its members' models equal each
     other and ``one`` (the one-device fit; None: no such check), each
     launched its fixed-scale kernel (``plane_hist`` at world 1); the
     record of each member."""
-    tag = tag or f"{policy}-{mode}"
-    kernel = "multi_plane_hist_fixed" if policy == "depthwise" else "plane_hist_fixed"
+    tag, world = gang["tag"], gang["world"]
+    kernel = "multi_plane_hist_fixed" if gang["policy"] == "depthwise" else "plane_hist_fixed"
     if world == 1:
         kernel = kernel.replace("_fixed", "")
-    t0 = time.perf_counter()
-    procs = {f"{tag}-{chr(ord('a') + i)}": _elastic_member(reg_url, tmp, f"{tag}-{chr(ord('a') + i)}",
-                                                            world, policy, mode, tag, extra=extra,
-                                                            data=data)
-             for i in range(world)}
-    got = _elastic_wait(procs, tmp, t0)
+    got = _elastic_wait(gang["procs"], tmp, gang["t0"])
     models = {m["model"] for m in got["members"].values()}
     rec = {"world": world, "wall_s": got["wall_s"], "members_identical": len(models) == 1,
            "equals_one_device": None if one is None else models == {one},
@@ -3823,15 +3893,20 @@ def _elastic_drill(reg_url: str, tmp: str, one: str, fails: list) -> dict:
     return rec
 
 
-def _voting_gang(reg_url: str, tmp: str, full: dict, x_test, y_test, fails: list) -> dict:
+def _voting_spawn(reg_url: str, tmp: str) -> dict:
     """World 2 over the ring in voting mode (``--tree-parallelism voting
-    --top-k 4``) on the npz rows: the members byte-equal; a member's
+    --top-k 4``) on the npz rows (``_voting_gang`` checks it)."""
+    return _gang_spawn(reg_url, tmp, "lossguide", "ring", tag="voting-ring",
+                       extra=("--tree-parallelism", "voting", "--top-k", str(ELASTIC_TOP_K)))
+
+
+def _voting_gang(gang: dict, tmp: str, full: dict, x_test, y_test, fails: list) -> dict:
+    """The voting gang of ``_voting_spawn``: the members byte-equal; a member's
     payload against the full lossguide ring gang's (a (d,) f64 ballot and
     (2, 2K, B, 3) int64 cells a split against a (d*B, 3) plane: ~0.25 at d
     = 64, K = 4, B = 256); held-out AUC within ELASTIC_AUC_TOL of the full
     gang's; ``plane_hist_fixed`` launches and vote rounds a member."""
-    rec = _elastic_gang(reg_url, tmp, "lossguide", "ring", None, fails, tag="voting-ring",
-                        extra=("--tree-parallelism", "voting", "--top-k", str(ELASTIC_TOP_K)))
+    rec = _gang_end(gang, tmp, None, fails)
     model = rec.pop("model")
     vote_b = {n: m["payload_bytes"] for n, m in rec["member"].items()}
     full_b = {n: m["payload_bytes"] for n, m in full["member"].items()}
@@ -3878,7 +3953,13 @@ def _streaming_gangs(reg_url: str, tmp: str, fails: list) -> dict:
     """``stream-synth:200000x64:3:65536`` at world 2 and world 1, and
     ``stream-csv:`` of the same rows written to a CSV at world 1: every
     booster byte-equal to ``train`` on one device on the world-1
-    BinnedDataset; the CSV's ingested bins equal the synth ones."""
+    BinnedDataset; the CSV's ingested bins equal the synth ones. The
+    stream-synth members are spawned first and fit while the CSV is written
+    here (separate services); the CSV member follows it."""
+    w2 = _gang_spawn(reg_url, tmp, "lossguide", "ring", tag="stream-w2", data=STREAM_SPEC)
+    t3 = time.perf_counter()
+    procs = {"stream-w1": _elastic_member(reg_url, tmp, "stream-w1", 1, "lossguide", "ring",
+                                          "stream-w1", data=STREAM_SPEC)}
     t0 = time.perf_counter()
     binned, y = _ingest(STREAM_SPEC)
     ingest_here_s = time.perf_counter() - t0
@@ -3888,6 +3969,8 @@ def _streaming_gangs(reg_url: str, tmp: str, fails: list) -> dict:
     t2 = time.perf_counter()
     csv_path = _stream_csv(tmp)
     csv_spec, csv_write_s = f"stream-csv:{csv_path}:label", time.perf_counter() - t2
+    procs["stream-csv-w1"] = _elastic_member(reg_url, tmp, "stream-csv-w1", 1, "lossguide",
+                                             "ring", "stream-csv-w1", data=csv_spec)
     csv_bins, csv_y = _ingest(csv_spec)
     bins_equal = bool(np.array_equal(csv_bins.bins, binned.bins) and np.array_equal(csv_y, y)
                       and all(np.array_equal(a, b) for a, b in
@@ -3895,12 +3978,7 @@ def _streaming_gangs(reg_url: str, tmp: str, fails: list) -> dict:
     del csv_bins, binned
     if not bins_equal:
         fails.append("stream-csv: the ingested bins differ from stream-synth's")
-    gangs = {"stream_w2": _elastic_gang(reg_url, tmp, "lossguide", "ring", one, fails,
-                                        tag="stream-w2", data=STREAM_SPEC)}
-    # the two world-1 members side by side (separate services)
-    t3 = time.perf_counter()
-    procs = {n: _elastic_member(reg_url, tmp, n, 1, "lossguide", "ring", n, data=spec)
-             for n, spec in (("stream-w1", STREAM_SPEC), ("stream-csv-w1", csv_spec))}
+    gangs = {"stream_w2": _gang_end(w2, tmp, one, fails)}
     got = _elastic_wait(procs, tmp, t3)
     for n, m in got["members"].items():
         rec = {"world": 1, "wall_s": got["wall_s"], "equals_one_device": m["model"] == one,
@@ -4044,10 +4122,12 @@ def elastic_phase(smi: str) -> dict:
     members on this card (the trees/s cell's rows, written to an ``npz:``
     file): world-2 gangs, lossguide over the ring and the mesh and
     depthwise over the ring, each byte-equal to the same fit on one device
-    here; the host-loss drill; then the no-shared-disk modes: the voting
-    gang, the streaming gangs (``stream-synth:``, ``stream-csv:``), the
-    artifact drill (per-host directories, a snapshot pulled by digest) and
-    ``artifact:`` model specs in a ModelStore."""
+    here, and the voting gang, all four side by side; then, side by side,
+    the host-loss drill, the artifact drill (per-host directories, a
+    snapshot pulled by digest) and the streaming gangs (``stream-synth:``,
+    ``stream-csv:``); last ``artifact:`` model specs in a ModelStore. Side
+    by side, the members share the card and the host's cores: their
+    seconds are read under that contention."""
     import tempfile
 
     from mmlspark_tpu_torch.serving import fleet
@@ -4063,11 +4143,15 @@ def elastic_phase(smi: str) -> dict:
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     reg = fleet.run_registry(host="127.0.0.1", port=0, ttl_s=ELASTIC_TTL_S)
     fails: list = []
+    t0_gangs = time.perf_counter()
     try:
         np.savez(os.path.join(tmp, "data.npz"), x=x, y=y)
-        gangs = {f"{p}_{m}": _elastic_gang(reg.url, tmp, p, m, one[p], fails)
-                 for p, m in (("lossguide", "ring"), ("lossguide", "mesh"),
-                              ("depthwise", "ring"))}
+        # wave 1: the four npz gangs side by side (8 members, separate services)
+        spawned = {f"{p}_{m}": _gang_spawn(reg.url, tmp, p, m)
+                   for p, m in (("lossguide", "ring"), ("lossguide", "mesh"),
+                                ("depthwise", "ring"))}
+        voting = _voting_spawn(reg.url, tmp)
+        gangs = {k: _gang_end(g, tmp, one[g["policy"]], fails) for k, g in spawned.items()}
         ring, mesh = gangs["lossguide_ring"], gangs["lossguide_mesh"]
         bytes_ = {k: sum(m["payload_bytes"] for m in g["member"].values())
                   for k, g in (("ring", ring), ("mesh", mesh))}
@@ -4076,19 +4160,24 @@ def elastic_phase(smi: str) -> dict:
         gangs["depthwise_ring"].pop("model")
         if not bytes_["ring"] < bytes_["mesh"]:
             fails.append(f"ring payload {bytes_['ring']} B is not under mesh's {bytes_['mesh']} B")
-        drill = _elastic_drill(reg.url, tmp, one["lossguide"], fails)
-        t1 = time.perf_counter()
-        gangs["voting_ring"] = _voting_gang(reg.url, tmp, ring, x_test, y_test, fails)
+        gangs["voting_ring"] = _voting_gang(voting, tmp, ring, x_test, y_test, fails)
         ring.pop("model")
+        t1 = time.perf_counter()
+        # wave 2: the two host-loss drills and the streaming gangs side by side
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            drill_f = pool.submit(_elastic_drill, reg.url, tmp, one["lossguide"], fails)
+            art_f = pool.submit(_artifact_drill, reg.url, tmp, one["lossguide"], fails)
+            streaming = _streaming_gangs(reg.url, tmp, fails)
+            drill, art_drill = drill_f.result(), art_f.result()
         t2 = time.perf_counter()
-        streaming = _streaming_gangs(reg.url, tmp, fails)
-        t3 = time.perf_counter()
-        art_drill = _artifact_drill(reg.url, tmp, one["lossguide"], fails)
-        t4 = time.perf_counter()
         art_specs = _artifact_specs(tmp, one["lossguide"], x_test, fails)
-        part_s = {"voting": t2 - t1, "streaming": t3 - t2, "artifact_drill": t4 - t3,
-                  "artifact_specs": time.perf_counter() - t4}
+        part_s = {"wave1_gangs": t1 - t0_gangs, "wave2_drills_streaming": t2 - t1,
+                  "artifact_specs": time.perf_counter() - t2}
     finally:
+        for p in _ELASTIC_PROCS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         reg.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     rec = {"rows": N, "d": D, "rounds": ELASTIC_ROUNDS, "heartbeat_s": ELASTIC_HEARTBEAT_S,
@@ -4106,7 +4195,8 @@ def elastic_phase(smi: str) -> dict:
 # -- phase fleet: registry, supervised workers on the card, gateways ----------------------
 
 FLEET_CLIENTS = 8                   # concurrent keep-alive clients
-FLEET_REQUESTS = 2000               # requests a load run, split between gbdt: and vw:
+FLEET_REQUESTS = 1000               # requests a load run, split between gbdt: and vw: (cut
+                                    # from 2,000 for the script's time)
 FLEET_MODELS = ("gbdt", "vw")
 FLEET_HEDGE_MS = 1.0                # the hedging gateway's delay
 FLEET_BOOT_S = 240.0                # a worker must be routable within this of its spawn
@@ -4120,15 +4210,15 @@ FLEET_ADMISSION_FLOOR_MS = 1000
 def _fleet_client(port: int, bodies: dict, c: int, n: "int | None", stop, out: list,
                   models: tuple) -> None:
     """One keep-alive client: request i goes to model models[(i + c) % len(models)]
-    (``x-mmlspark-model``) with row (7 c + i) % SERVE_ROWS, until ``n`` requests
-    are sent or ``stop`` is set; appends (model, row, status, body, ms)."""
+    (``x-mmlspark-model``) with row (7 c + i) % len(bodies[model]), until ``n``
+    requests are sent or ``stop`` is set; appends (model, row, status, body, ms)."""
     import http.client
 
     conn = None
     i = 0
     while (n is None or i < n) and not (stop is not None and stop.is_set()):
         model = models[(i + c) % len(models)]
-        k = (7 * c + i) % SERVE_ROWS
+        k = (7 * c + i) % len(bodies[model])
         t0 = time.perf_counter()
         try:
             if conn is None:
@@ -4148,18 +4238,18 @@ def _fleet_client(port: int, bodies: dict, c: int, n: "int | None", stop, out: l
 
 
 def _fleet_load(ports: list, bodies: dict, n: "int | None", stop=None,
-                models: tuple = FLEET_MODELS) -> list:
-    """``n`` requests from FLEET_CLIENTS concurrent clients, client c on
+                models: tuple = FLEET_MODELS, clients: int = FLEET_CLIENTS) -> list:
+    """``n`` requests from ``clients`` concurrent clients, client c on
     ``ports[c % len(ports)]`` (or, with ``stop``, until it is set; the call
     then returns at once with the running threads and their shared list)."""
     import threading
 
     out: list = []
-    per = None if n is None else -(-n // FLEET_CLIENTS)
+    per = None if n is None else -(-n // clients)
     threads = [threading.Thread(target=_fleet_client,
                                 args=(ports[c % len(ports)], bodies, c, per, stop, out,
                                       models), daemon=True)
-               for c in range(FLEET_CLIENTS)]
+               for c in range(clients)]
     for t in threads:
         t.start()
     if stop is not None:
@@ -4220,11 +4310,11 @@ def _sample(parsed: dict, name: str) -> float:
     return obs.sum_samples(parsed, name)
 
 
-def _wait(cond, timeout_s: float, what: str) -> float:
+def _wait(cond, timeout_s: float, what: str, where: str = "fleet") -> float:
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout_s:
-            raise AssertionError(f"fleet: {what} within {timeout_s:g} s")
+            raise AssertionError(f"{where}: {what} within {timeout_s:g} s")
         time.sleep(0.05)
     return time.perf_counter() - t0
 
@@ -4251,14 +4341,27 @@ def _gateway_up(url: str, bodies: dict, backends: int) -> bool:
     return True
 
 
-def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> dict:
+def fleet_stop(kept: dict) -> None:
+    """Stops what ``fleet_phase`` hands on (its registry and its supervised
+    workers), restores PYTHONPATH and removes the fleet's directory."""
+    if kept.get("sup") is not None:
+        kept["sup"].stop()
+    kept["reg"].stop()
+    if kept["env_pp"] is None:
+        os.environ.pop("PYTHONPATH", None)
+    else:
+        os.environ["PYTHONPATH"] = kept["env_pp"]
+    shutil.rmtree(kept["dir"], ignore_errors=True)
+
+
+def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> "tuple[dict, dict]":
     """Phase ``fleet``: the serving fleet through its entry points. A
     registry in this process (``fleet.run_registry``), two ``fleet worker
     --device cuda`` processes on this one card under ``fleet supervise``'s
     supervisor (``fleet.run_supervise`` in this process), each serving the
     trees/s cell's booster (``gbdt:``), V2's classifier (``vw:``) and
     ``echo``; a ``fleet gateway`` process in front. Checks: 8 keep-alive
-    clients, 2,000 requests a run routed by ``x-mmlspark-model``, every reply
+    clients, 1,000 requests a run routed by ``x-mmlspark-model``, every reply
     200 and bitwise the in-process call, p50/p99 a model with the clients
     split straight over the two workers and through the gateway; ``vw_margin`` counted in an extra worker run in
     this process (``fleet.run_worker``) on the same traffic; a worker
@@ -4267,7 +4370,11 @@ def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> dict:
     (every reply 200); a second gateway with ``--hedge-ms`` (bitwise); one
     request's trace assembled across the gateway->worker hop (``fleet
     trace``); ``fleet top``'s p99, error and SLO columns; the SLO gauges on
-    both roles' ``/metrics``."""
+    both roles' ``/metrics``. Returns the record and what phases ``online``,
+    ``tune`` and ``chaos`` go on using: the registry, the supervisor and its two
+    workers' ports (each worker with its own ``--artifact-dir``), PYTHONPATH as
+    it was and the fleet's directory, all for ``fleet_stop``; on a failure it
+    stops them itself."""
     import threading
 
     from mmlspark_tpu_torch import obs
@@ -4311,12 +4418,15 @@ def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> dict:
     env_pp = os.environ.get("PYTHONPATH")
     os.environ["PYTHONPATH"] = ROOT + (os.pathsep + env_pp if env_pp else "")
     reg = fleet.run_registry(host="127.0.0.1", port=0, ttl_s=10.0)
-    sup = gws = None
+    kept = {"reg": reg, "sup": None, "ports": ports, "env_pp": env_pp, "dir": d}
+    gws = None
     extra = None
+    ok = False
     try:
-        ts = time.perf_counter()
-        sup = fleet.run_supervise(reg.url, [f"{worker_args} --port {p}" for p in ports],
-                                  probe_s=0.5, backoff_s=0.5, wedge_after=20)
+        sup = kept["sup"] = fleet.run_supervise(
+            reg.url, [f"{worker_args} --port {p} --artifact-dir {d}/worker{k}_art"
+                      for k, p in enumerate(ports)],
+            probe_s=0.5, backoff_s=0.5, wedge_after=20)
         gw_port, hedge_port = _free_port(), _free_port()
         gws = {"gateway": _fleet_role(["gateway", "--registry", reg.url, "--host", "127.0.0.1",
                                        "--port", str(gw_port), "--dispatchers", "8"],
@@ -4463,6 +4573,7 @@ def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> dict:
             "requests_total", "retries_total", "failures_total", "backend_backpressure_total",
             "conn_reuse_total", "conn_opened_total")}
         rec["supervisor"] = sup.status()
+        ok = True
     finally:
         if extra is not None:
             extra[2].set()
@@ -4476,25 +4587,499 @@ def fleet_phase(smi: str, gbdt_string: str, vw_serve: dict, x_test) -> dict:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        if sup is not None:
-            sup.stop()
-        reg.stop()
-        if env_pp is None:
-            os.environ.pop("PYTHONPATH", None)
-        else:
-            os.environ["PYTHONPATH"] = env_pp
-    logs = {}
-    for name in ("gateway", "hedging"):
-        with open(os.path.join(d, f"{name}.log")) as f:
-            logs[name] = f.read()[-600:]
+        if not ok:
+            fleet_stop(kept)
     if fails:
-        rec["logs"] = logs
-    shutil.rmtree(d, ignore_errors=True)
+        for name in ("gateway", "hedging"):
+            with open(os.path.join(d, f"{name}.log")) as f:
+                rec.setdefault("logs", {})[name] = f.read()[-600:]
+        fleet_stop(kept)
     rec["seconds"] = time.perf_counter() - t0
     phase("fleet", **rec)
     if fails:
         raise AssertionError("fleet: " + "; ".join(fails))
+    return rec, kept
+
+
+# -- phases online, tune and chaos: continuous learning, ASHA, a chaos scenario -------------
+
+ONLINE_FIT = VW_ROWS - VW_HOLDOUT   # V2's 80,000 training rows, ingested in order
+ONLINE_CHUNK = 1024                 # rows an /ingest POST
+ONLINE_CLIENTS = 4                  # keep-alive clients scoring vw-online while it learns
+ONLINE_ART_CHUNKS = 8               # the artifact-mode run's POSTs (--replicas 1)
+ONLINE_BOOT_S = 240.0               # the fleet's workers must serve within this of their spawn
+ONLINE_SERVED_ROWS = 64             # held-out rows each worker scores per bitwise check
+ONLINE_AFTER = 2000                 # requests after the last publication, held bitwise
+ONLINE_MODEL = ("vw-online",)
+TUNE_TRIALS, TUNE_SEED, TUNE_MIN, TUNE_MAX, TUNE_ETA = 4, 0, 2, 8, 2
+TUNE_SPACE = {"num_leaves": [63], "min_data_in_leaf": [10, 20, 40],
+              "learning_rate": {"low": 0.05, "high": 0.3, "log": True}}
+TUNE_DEADLINE_S = 600
+CHAOS_SEED = 17
+CHAOS_PROXIED = 300                 # sequential requests through the proxied link, a run
+CHAOS_CLEAR_S = 6.0                 # the scenario clears the link's rules here: the proxied
+                                    # requests must all be sent before it
+CHAOS_SCENARIO = {"seed": CHAOS_SEED, "steps": [
+    {"at_s": 0.0, "action": "rules", "link": "w0",
+     "rules": [{"kind": "latency", "delay_ms": 2, "jitter_ms": 3, "direction": "c2s"}]},
+    {"at_s": 1.0, "action": "signal", "target": "worker0", "signal": "SIGSTOP"},
+    {"at_s": 2.0, "action": "signal", "target": "worker0", "signal": "SIGCONT"},
+    {"at_s": 3.5, "action": "check"},
+    {"at_s": CHAOS_CLEAR_S, "action": "clear", "link": "w0"},
+    {"at_s": 8.5, "action": "check", "final": True}]}
+# the laws the scenario's checks evaluate on this fleet (registry, workers, the online
+# loop's ingress, the tune controller's status file; no gateway, no trainer status)
+CHAOS_LAWS = ("worker_conservation", "modelstore_refs_drain", "admission_drain",
+              "online_conservation", "generation_monotonic", "experiment_conservation",
+              "single_promotion", "artifact_quarantine")
+
+
+def _ingest_body(online: dict, lo: int, hi: int) -> bytes:
+    """``POST /ingest``'s body: V2's rows lo:hi with their labels."""
+    feats, lab = online["features"], online["label"]
+    return json.dumps({"rows": [{"i": np.asarray(feats[r]["i"]).tolist(),
+                                 "v": np.asarray(feats[r]["v"], np.float32).tolist(),
+                                 "label": float(lab[r])} for r in range(lo, hi)]}).encode()
+
+
+def _held_bodies(online: dict) -> list:
+    """Scoring bodies for V2's held-out rows."""
+    return [json.dumps({"i": np.asarray(r["i"]).tolist(),
+                        "v": np.asarray(r["v"], np.float32).tolist()}).encode()
+            for r in online["features"][ONLINE_FIT:]]
+
+
+def _vw_arrays(online: dict, lo: int, hi: int) -> tuple:
+    """The online trainer's featurization of V2's rows lo:hi in one call:
+    padded (idx, val) with the Constant, labels as +-1 (logistic)."""
+    from mmlspark_tpu_torch.vw.estimators import _append_constant
+    from mmlspark_tpu_torch.vw.sparse import pad_sparse_batch
+
+    idx, val = _append_constant(*pad_sparse_batch(online["features"][lo:hi]), VW_BITS)
+    return idx, val, np.where(online["label"][lo:hi] > 0, 1.0, -1.0).astype(np.float32)
+
+
+def _post(port: int, path: str, body: bytes, timeout: float = 120.0) -> tuple:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("POST", path, body=body, headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _snapshot_examples(loop) -> int:
+    """Examples the loop's newest publication covers (its snapshot's meta)."""
+    if not loop.publish_results:
+        return -1
+    with np.load(loop.publish_results[-1]["path"]) as z:
+        return int(json.loads(bytes(z["meta"]))["examples"])
+
+
+def _served_bitwise(ports: list, bodies: list, want, model: str, fails: list,
+                    what: str) -> int:
+    """Every worker answers ``model`` for the first ONLINE_SERVED_ROWS held-out rows
+    with ``want``'s margins bit for bit; returns the replies checked."""
+    n = 0
+    for p in ports:
+        for k in range(ONLINE_SERVED_ROWS):
+            status, body = _post(p, f"/models/{model}", bodies[k])
+            if status != 200 or json.loads(body)["margin"] != float(want[k]):
+                fails.append(f"{what}: worker :{p} row {k} gave {status} {body[:80]!r}, "
+                             f"want {float(want[k])}")
+                return n
+            n += 1
+    return n
+
+
+def online_phase(smi: str, reg, ports: list, loop_parts: tuple, online: dict,
+                 d: str) -> dict:
+    """Phase ``online``: ``fleet online``'s loop (``fleet.run_online``, in this process,
+    so its ``vw_pass`` launches are counted here) learns V2's 80,000 training rows,
+    POSTed to its ``/ingest`` in ordered chunks of 1,024, and publishes every 2 s
+    (the role's defaults: logistic, lr 0.5, batch 64, 2^18 weights) to the fleet's
+    three workers (two ``fleet worker --device cuda`` processes and one in this
+    process, which counts ``vw_margin``) while 4 keep-alive clients score
+    ``vw-online`` on V2's held-out rows; then ONLINE_AFTER more requests. Checks:
+    the last snapshot's weights bitwise one card ``train_sparse_sgd`` over the rows
+    in ingest order, and within VW_EXP_TOL * max|w| of the CPU plain version's;
+    every reply after the last publication bitwise the in-process scoring of that
+    snapshot (card and CPU plain); 0 non-2xx. Then a short artifact-mode run
+    (``--artifact-dir``, ``--replicas 1``, 8,192 rows): its snapshot confirmed on a
+    second holder, bitwise the card fit, every worker serving it bitwise."""
+    import threading
+
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.serving import fleet
+    from mmlspark_tpu_torch.vw import learner as VL
+
+    t0 = time.perf_counter()
+    stream, loop, _ = loop_parts
+    port = stream._ingress.port
+    held = _held_bodies(online)
+    bodies = {ONLINE_MODEL[0]: held}
+    hidx, hval, _ = _vw_arrays(online, ONLINE_FIT, VW_ROWS)
+    fails: list = []
+    rec: dict = {"nvidia_smi": smi, "rows": ONLINE_FIT, "chunk": ONLINE_CHUNK,
+                 "clients": ONLINE_CLIENTS, "workers": "2 processes + 1 in this process",
+                 "num_bits": VW_BITS, "batch": loop.trainer.batch, "loss": loop.trainer.loss,
+                 "publish_every_s": loop.publish_every_s}
+
+    # the main path: ingest in order while the clients score every publication
+    sgd.reset_launch_counts()
+    t_ingest = time.perf_counter()
+    status, body = _post(port, "/ingest", _ingest_body(online, 0, ONLINE_CHUNK))
+    if status != 200:
+        raise AssertionError(f"online: the first ingest gave {status} {body[:200]!r}")
+    rec["first_servable_s"] = _wait(
+        lambda: all(_post(p, "/models/vw-online", held[0])[0] == 200 for p in ports),
+        ONLINE_BOOT_S, "the first publication was not served by every worker", "online")
+    stop = threading.Event()
+    threads, during = _fleet_load(ports, bodies, None, stop, ONLINE_MODEL, ONLINE_CLIENTS)
+    for lo in range(ONLINE_CHUNK, ONLINE_FIT, ONLINE_CHUNK):
+        status, body = _post(port, "/ingest", _ingest_body(online, lo,
+                                                           min(lo + ONLINE_CHUNK, ONLINE_FIT)))
+        if status != 200:
+            fails.append(f"ingest of rows {lo}: {status} {body[:200]!r}")
+    rec["ingest_s"] = time.perf_counter() - t_ingest
+    _wait(lambda: _snapshot_examples(loop) == ONLINE_FIT, 300.0,
+          "no publication covered every ingested row", "online")
+    rec["ingest_to_last_publication_s"] = time.perf_counter() - t_ingest
+    stop.set()
+    for t in threads:
+        t.join()
+    after = _fleet_load(ports, bodies, ONLINE_AFTER, None, ONLINE_MODEL, ONLINE_CLIENTS)
+    launches = dict(sgd.launches)
+    rec["launches"] = launches
+    pub = loop.publisher
+    rec["publications"] = pub.publishes
+    rec["publish_failures"] = pub.failures
+    fresh = [f * 1e3 for f in pub.freshness_history]
+    rec["freshness"] = _quantiles(fresh)
+    rec["examples"] = loop.trainer.examples
+    if launches["vw_pass"] < 1 or launches["vw_margin"] < 1:
+        fails.append(f"the online path launched no vw_pass or no vw_margin: {launches}")
+
+    # the last snapshot against one call, on the card and the CPU
+    path = loop.publish_results[-1]["path"]
+    with np.load(path) as z:
+        w = np.asarray(z["weights"], np.float32)
+    idx, val, y = _vw_arrays(online, 0, ONLINE_FIT)
+    kw = dict(loss="logistic", lr=0.5, batch=64, distributed=False)
+    card = VL.train_sparse_sgd(idx, val, y, None, VW_BITS, device=DEV, **kw)
+    cpu = VL.train_sparse_sgd(idx, val, y, None, VW_BITS, device="cpu", **kw)
+    err = float(np.abs(w - cpu).max())
+    rec["snapshot"] = {"path": os.path.basename(path), "bitwise_one_card_call": _bits_equal(w, card),
+                       "max_abs_err_cpu": err, "tol": VW_EXP_TOL * float(np.abs(cpu).max())}
+    if not _bits_equal(w, card):
+        fails.append("the last snapshot differs from one card train_sparse_sgd call")
+    if not err <= VW_EXP_TOL * np.abs(cpu).max():
+        fails.append(f"the last snapshot is {err} from the CPU plain version")
+
+    # the replies after the last publication: the in-process scoring of that snapshot
+    want = VL.predict_margin(hidx, hval, w, device=DEV)
+    want_cpu = VL.predict_margin(hidx, hval, w, device="cpu")
+    if not _bits_equal(want, want_cpu):
+        fails.append("in-process scoring of the snapshot: card != CPU plain")
+    non_200 = [(k, s, b[:100]) for _, k, s, b, _ in during + after if s != 200]
+    bad = [k for _, k, s, b, _ in after
+           if s == 200 and json.loads(b)["margin"] != float(want[k])]
+    if non_200:
+        fails.append(f"{len(non_200)} replies were not 200: {non_200[:3]}")
+    if bad:
+        fails.append(f"{len(bad)} replies after the last publication are not bitwise: {bad[:5]}")
+    rec["replies"] = {"across_publications": len(during), "after_last_publication": len(after),
+                      "non_200": len(non_200), "after_bitwise": not bad,
+                      "latency_across": _quantiles([t for *_, t in during]),
+                      "latency_after": _quantiles([t for *_, t in after])}
+
+    # artifact mode: a second loop, snapshots replicated to one other holder first
+    art = fleet.run_online(registry_url=reg.url, model="vw-online-art", host="127.0.0.1",
+                           port=0, snapshot_dir=os.path.join(d, "snaps_art"), heartbeat_s=0.5,
+                           artifact_dir=os.path.join(d, "online_art"), replicas=1,
+                           device=DEV.type)
+    try:
+        n_art = ONLINE_ART_CHUNKS * ONLINE_CHUNK
+        t_art = time.perf_counter()
+        for lo in range(0, n_art, ONLINE_CHUNK):
+            status, body = _post(art[0]._ingress.port, "/ingest",
+                                 _ingest_body(online, lo, lo + ONLINE_CHUNK))
+            if status != 200:
+                fails.append(f"artifact-mode ingest of rows {lo}: {status} {body[:200]!r}")
+        _wait(lambda: _snapshot_examples(art[1]) == n_art, 120.0,
+              "the artifact-mode loop did not publish every row", "online")
+        res = art[1].publish_results[-1]
+        with np.load(res["path"]) as z:
+            w_art = np.asarray(z["weights"], np.float32)
+        idx, val, y = _vw_arrays(online, 0, n_art)
+        card_art = VL.train_sparse_sgd(idx, val, y, None, VW_BITS, device=DEV, **kw)
+        want_art = VL.predict_margin(hidx, hval, w_art, device=DEV)
+        rec["artifact_mode"] = {
+            "rows": n_art, "seconds": time.perf_counter() - t_art,
+            "publications": art[1].publisher.publishes, "replicas": res["replicas"],
+            "targets": res["targets"], "bitwise_one_card_call": _bits_equal(w_art, card_art),
+            "served_bitwise": _served_bitwise(ports, held, want_art, "vw-online-art", fails,
+                                              "artifact mode")}
+        if not res["replicas"] or res["targets"] < len(ports):
+            fails.append(f"artifact mode: replicas {res['replicas']}, targets {res['targets']}")
+        if not _bits_equal(w_art, card_art):
+            fails.append("artifact mode: the snapshot differs from one card call")
+    finally:
+        art[2].stop()
+    rec["seconds"] = time.perf_counter() - t0
+    phase("online", **rec)
+    if fails:
+        raise AssertionError("online: " + "; ".join(fails))
     return rec
+
+
+def tune_phase(smi: str, reg, ports: list, x, y, x_test, y_test, d: str) -> dict:
+    """Phase ``tune``: ``fleet tune`` (a process) runs ASHA over 4 ``fleet trial
+    --device cuda`` charges on this card, on the trees/s cell's rows (200,000 x 64
+    to train, the 50,000 held out to score; 63 leaves, rungs at 2, 4 and 8 rounds,
+    eta 2), and publishes the winner to the fleet's workers as ``champion``.
+    Checks: each rung's promotion set is ``asha.promote`` of the reports; the
+    winner refitted fresh to 8 rounds in this process has the committed digest;
+    every worker serves ``champion`` bitwise the in-process booster; each trial
+    launched the histogram kernels (its status file's counts)."""
+    import glob
+
+    from mmlspark_tpu_torch.experiments import asha, records
+    from mmlspark_tpu_torch.experiments.controller import sample_trials, space_from_json
+    from mmlspark_tpu_torch.serving import fleet
+
+    t0 = time.perf_counter()
+    fails: list = []
+    train_path, valid_path = os.path.join(d, "train.npz"), os.path.join(d, "valid.npz")
+    np.savez(train_path, x=x, y=y)
+    np.savez(valid_path, x=x_test, y=y_test)
+    status_path = os.path.join(d, "tune.json")
+    argv = ["tune", "--registry", reg.url, "--experiment", "tune",
+            "--trials", str(TUNE_TRIALS), "--space", json.dumps(TUNE_SPACE),
+            "--data", f"npz:{train_path}", "--valid", f"npz:{valid_path}",
+            "--min-iters", str(TUNE_MIN), "--max-iters", str(TUNE_MAX), "--eta", str(TUNE_ETA),
+            "--seed", str(TUNE_SEED), "--workdir", os.path.join(d, "tune"),
+            "--status-file", status_path, "--publish-model", "champion",
+            "--device", DEV.type, "--deadline-s", str(TUNE_DEADLINE_S)]
+    log = os.path.join(d, "tune.log")
+    proc = _fleet_role(argv, log)
+    try:
+        rc = proc.wait(TUNE_DEADLINE_S + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    tune_s = time.perf_counter() - t0
+    with open(log) as f:
+        tail = f.read()[-2000:]
+    if rc != 0:
+        raise AssertionError(f"tune: fleet tune exited {rc}: {tail}")
+    with open(status_path) as f:
+        st = json.load(f)
+    state = records.read_state(reg.url, "tune")
+    survivors = sorted(sample_trials(space_from_json(TUNE_SPACE), TUNE_TRIALS, TUNE_SEED))
+    rungs = {}
+    for rung, bound in enumerate(st["boundaries"]):
+        promoted, board = asha.promote(state.rung_metrics(survivors, rung), TUNE_ETA, TUNE_SEED)
+        rungs[str(bound)] = {"promoted": promoted, "leaderboard": board}
+        if not (promoted == st["rungs"][str(rung)] == state.rungs[rung]["promoted"]):
+            fails.append(f"rung {rung}: promoted {st['rungs'][str(rung)]}, asha.promote "
+                         f"of the reports gives {promoted}")
+        survivors = promoted
+    winner = st["winner"]
+    if not st["published"] or st["running"] or st["trials_spawned"] != (
+            st["completed"] + st["demoted"] + st["rescheduled"]):
+        fails.append(f"tune's status: {st}")
+
+    # the trials' own launches (their fleet train status files)
+    launches = {}
+    for path in sorted(glob.glob(os.path.join(d, "tune", "t*", "i*", "status.json"))):
+        with open(path) as f:
+            member = json.load(f)
+        trial = os.path.relpath(path, os.path.join(d, "tune")).split(os.sep)[0]
+        launches[trial] = {k: v for k, v in member.get("launches", {}).items()
+                           if "hist" in k}
+    if sorted(launches) != sorted(sample_trials(space_from_json(TUNE_SPACE), TUNE_TRIALS,
+                                                TUNE_SEED)) or not all(
+            sum(v.values()) > 0 for v in launches.values()):
+        fails.append(f"a trial launched no histogram kernel: {launches}")
+
+    # the winner refitted fresh to max_iters, and served
+    t_fresh = time.perf_counter()
+    booster = fleet.run_train(reg.url, "fresh", f"npz:{train_path}", os.path.join(d, "fresh"),
+                              partitions=4, world_size=1, service_name="tune-fresh",
+                              num_iterations=TUNE_MAX, checkpoint_every=1, heartbeat_s=0.5,
+                              seed=TUNE_SEED, allow_growback=False, device=DEV.type,
+                              **winner["params"])
+    fresh_s = time.perf_counter() - t_fresh
+    model = booster.to_model_string()
+    digest = hashlib.sha256(model.encode()).hexdigest()
+    if digest != winner["model"]:
+        fails.append(f"the fresh refit's digest {digest} is not the committed {winner['model']}")
+    rows = x_test[:ONLINE_SERVED_ROWS]
+    want = Booster.from_model_string(model).predict(rows, device=DEV)
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in rows]
+    served = _served_bitwise(ports, bodies, want, "champion", fails, "champion")
+    rec = {"nvidia_smi": smi, "trials": TUNE_TRIALS, "space": TUNE_SPACE,
+           "rows": len(y), "held_out": len(y_test), "boundaries": st["boundaries"],
+           "eta": TUNE_ETA, "seed": TUNE_SEED, "tune_s": tune_s, "rungs": rungs,
+           "status": {k: st[k] for k in ("trials_spawned", "completed", "demoted",
+                                          "rescheduled", "running", "published")},
+           "winner": {k: winner[k] for k in ("trial", "metric", "params", "model")},
+           "fresh_refit": {"seconds": fresh_s, "digest_equal": digest == winner["model"]},
+           "champion_served_bitwise": served, "launches": launches,
+           "status_file": status_path}
+    rec["seconds"] = time.perf_counter() - t0
+    phase("tune", **{k: v for k, v in rec.items() if k != "status_file"})
+    if fails:
+        rec["log"] = tail
+        raise AssertionError("tune: " + "; ".join(fails))
+    return rec
+
+
+def _chaos_run(reg, ports: list, sup, proxy_port: int, ingest_port: int,
+               tune_status: str, online: dict, held: list, d: str, tag: str) -> dict:
+    """One ``fleet chaos`` run of CHAOS_SCENARIO: worker 0's link through a seeded
+    proxy (``--proxy w0=...``), latency with jitter, worker 0 SIGSTOPped and
+    SIGCONTed (worker 0: the supervisor's first charge, its process now), a check
+    during the load and a final one after it. The load: one
+    client sends CHAOS_PROXIED requests through the proxy, one after another on one
+    connection (the same bytes every run, so the same schedule), ONLINE_CLIENTS
+    others score on the other workers and 8 chunks of feedback are ingested."""
+    import http.client
+    import socket
+    import threading
+
+    out_path = os.path.join(d, f"chaos-{tag}.out")
+    proc = _fleet_role(["chaos", "--scenario", json.dumps(CHAOS_SCENARIO),
+                        "--proxy", f"w0={proxy_port}:127.0.0.1:{ports[0]}",
+                        "--pid", f"worker0={sup.charges[0].proc.pid}", "--registry", reg.url,
+                        "--online", f"http://127.0.0.1:{ingest_port}",
+                        "--experiment-status-file", tune_status], out_path)
+
+    def up() -> bool:
+        try:
+            socket.create_connection(("127.0.0.1", proxy_port), timeout=1).close()
+            return True
+        except OSError:
+            return False
+
+    _wait(up, 60.0, "the proxy did not come up", "chaos")
+    t_up = time.monotonic()
+    stop = threading.Event()
+    threads, got = _fleet_load(ports[1:], {ONLINE_MODEL[0]: held}, None, stop, ONLINE_MODEL,
+                               ONLINE_CLIENTS)
+    ingest = threading.Thread(target=lambda: [
+        _post(ingest_port, "/ingest", _ingest_body(online, lo, lo + ONLINE_CHUNK))
+        for lo in range(0, ONLINE_ART_CHUNKS * ONLINE_CHUNK, ONLINE_CHUNK)], daemon=True)
+    ingest.start()
+    proxied = []
+    conn = http.client.HTTPConnection("127.0.0.1", proxy_port, timeout=120)
+    for k in range(CHAOS_PROXIED):
+        t = time.monotonic()
+        conn.request("POST", "/models/vw-online", body=held[k],
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        r.read()
+        proxied.append((r.status, (time.monotonic() - t) * 1e3))
+    conn.close()
+    proxied_s = time.monotonic() - t_up
+    stop.set()
+    for t in threads:
+        t.join()
+    ingest.join()
+    rc = proc.wait(120)
+    with open(out_path) as f:
+        text = f.read()
+    try:
+        printed = json.loads(text[text.index("{"):])
+    except ValueError:
+        raise AssertionError(f"chaos: fleet chaos printed no JSON (rc {rc}): {text[-2000:]}")
+    statuses = [s for s, _ in proxied] + [s for _, _, s, _, _ in got]
+    return {"rc": rc, "violations": printed["violations"], "schedules": printed["schedules"],
+            "journal": [{k: v for k, v in e.items() if k in ("action", "t_rel_s", "violations",
+                                                              "signal", "link")}
+                        for e in printed["journal"]],
+            "proxied_s": proxied_s, "proxied_ms": _quantiles([ms for _, ms in proxied]),
+            "requests": len(statuses), "non_200": sum(s != 200 for s in statuses)}
+
+
+def chaos_phase(smi: str, reg, ports: list, sup, ingest_port: int,
+                tune_status: str, online: dict, d: str) -> dict:
+    """Phase ``chaos``: ``fleet chaos`` (a process) runs CHAOS_SCENARIO twice with the
+    same seed on the online fleet under load; every check of both runs green (the
+    laws of CHAOS_LAWS, ``online_conservation`` on the online loop's ingress and
+    ``experiment_conservation`` on phase tune's status file among them), every reply
+    200, and the proxy's schedule digest the same in both runs."""
+    t0 = time.perf_counter()
+    held = _held_bodies(online)
+    proxy_port = _free_port()   # both runs listen here: the requests' Host header is the same
+    runs = {tag: _chaos_run(reg, ports, sup, proxy_port, ingest_port, tune_status, online,
+                            held, d, tag) for tag in ("a", "b")}
+    fails = []
+    for tag, r in runs.items():
+        checks = [e.get("violations") for e in r["journal"] if e["action"] == "check"]
+        if r["rc"] != 0 or r["violations"] or checks != [0, 0]:
+            fails.append(f"run {tag}: rc {r['rc']}, violations {r['violations']}")
+        if r["non_200"]:
+            fails.append(f"run {tag}: {r['non_200']} of {r['requests']} replies were not 200")
+        if r["proxied_s"] >= CHAOS_CLEAR_S:
+            fails.append(f"run {tag}: the proxied requests outlasted the rules "
+                         f"({r['proxied_s']:.1f} s)")
+    if runs["a"]["schedules"] != runs["b"]["schedules"]:
+        fails.append(f"the same seed gave other schedules: {runs['a']['schedules']} vs "
+                     f"{runs['b']['schedules']}")
+    rec = {"nvidia_smi": smi, "scenario": CHAOS_SCENARIO, "laws": CHAOS_LAWS,
+           "proxied_requests": CHAOS_PROXIED, "runs": runs,
+           "same_schedule": runs["a"]["schedules"] == runs["b"]["schedules"],
+           "seconds": time.perf_counter() - t0}
+    phase("chaos", **rec)
+    if fails:
+        raise AssertionError("chaos: " + "; ".join(fails))
+    return rec
+
+
+def continuous(smi: str, kept: dict, online: dict, x, y, x_test, y_test) -> dict:
+    """The phases ``online``, ``tune`` and ``chaos`` on what phase ``fleet`` handed
+    on (``kept``: its registry and its two supervised ``fleet worker --device
+    cuda`` processes, each with an ``--artifact-dir``), with one more worker in
+    this process (``fleet.run_worker``, serving ``echo`` until the phases
+    publish to it) and ``fleet online``'s loop in this process
+    (``fleet.run_online``: logistic, lr 0.5, batch 64, 2^18 weights, a
+    publication every 2 s). What they write goes under the fleet's directory;
+    the worker and the loop started here are stopped here."""
+    from mmlspark_tpu_torch.serving import fleet
+
+    reg, d = kept["reg"], kept["dir"]
+    ports = list(kept["ports"])
+    inproc = loop_parts = None
+    try:
+        inproc = fleet.run_worker(reg.url, model="echo", host="127.0.0.1", heartbeat_s=0.5,
+                                  artifact_dir=os.path.join(d, "worker_in_art"),
+                                  admission_initial_limit=64,
+                                  admission_min_target_ms=FLEET_ADMISSION_FLOOR_MS,
+                                  device=DEV.type)
+        ports.append(inproc[0].port)
+        _wait(lambda: len(reg.services("serving")) == 3, ONLINE_BOOT_S,
+              "the three workers did not register", "online")
+        loop_parts = fleet.run_online(registry_url=reg.url, host="127.0.0.1", port=0,
+                                      snapshot_dir=os.path.join(d, "snaps"), heartbeat_s=0.5,
+                                      device=DEV.type)
+        out = {"online": online_phase(smi, reg, ports, loop_parts, online, d)}
+        out["tune"] = tune_phase(smi, reg, ports, x, y, x_test, y_test, d)
+        out["chaos"] = chaos_phase(smi, reg, ports, kept["sup"], loop_parts[0]._ingress.port,
+                                   out["tune"]["status_file"], online, d)
+        return out
+    finally:
+        if loop_parts is not None:
+            loop_parts[2].stop()
+        if inproc is not None:
+            inproc[2].set()
+            inproc[1].stop()
+            inproc[0].stop()
 
 
 def main() -> None:
@@ -4570,9 +5155,13 @@ def main() -> None:
     serve_rec = serving(smi, repo, runs["lossguide"]["model_string"], vw_serve,
                         pipe_rec["p1_serve"], x_test)
     shutil.rmtree(repo, ignore_errors=True)
-    dist_rec = distributed_phase(runs, vw_rec)
+    dist_rec = distributed_phase(x, y, x_test, y_test, vw_rec)
     elastic_rec = elastic_phase(smi)
-    fleet_rec = fleet_phase(smi, runs["lossguide"]["model_string"], vw_serve, x_test)
+    fleet_rec, kept = fleet_phase(smi, runs["lossguide"]["model_string"], vw_serve, x_test)
+    try:
+        cont = continuous(smi, kept, vw_serve["online"], x, y, x_test, y_test)
+    finally:
+        fleet_stop(kept)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -4616,6 +5205,9 @@ def main() -> None:
             rec["serving_launches"] = serve_rec["launches"]["vw_margin"]
             # the fleet's in-process worker, on the fleet phase's counted traffic
             rec["fleet_launches"] = fleet_rec["counted"]["launches"]["vw_margin"]
+        if name in ("vw_pass", "vw_margin"):
+            # phase online's main path: the loop's trainer and the in-process worker
+            rec["online_launches"] = cont["online"]["launches"][name]
         if name in ("vw_grad", "vw_apply"):
             rec.update(runs_inside="vw_pass", standalone_launches=v2_launches[name])
         if "chain_floor_ms" in t:
@@ -4659,6 +5251,13 @@ def main() -> None:
                 f: {"launches": r["launches"][kernel],
                     "traced_launches": r["traced_launches"][kernel[:-6]]}
                 for f, r in dist_rec["new_fits"].items()}
+    # phase tune's trials (lossguide, B = 256), from their status files: the wrappers
+    # count each trial process's one eager round, not the rounds its CUDA graph replays
+    for k in kernels:
+        if k["name"] in ("plane_hist (B=256)", "plane_hist_fixed (B=256)"):
+            key = k["name"].split(" ")[0]
+            k["tune_eager_launches"] = {t: n.get(key, 0)
+                                        for t, n in cont["tune"]["launches"].items()}
     phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

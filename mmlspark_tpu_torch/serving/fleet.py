@@ -1,9 +1,11 @@
-"""Fleet entrypoint: the registry, serving, supervision and training roles.
+"""Fleet entrypoint: the registry, serving, supervision, training,
+continuous-learning, tuning and chaos roles.
 
 The PyTorch port of ``mmlspark_tpu.serving.fleet``. The unit of deployment
 is a registry, model workers on the card, a gateway in front of them and a
 supervisor that keeps them alive. Each role is one process, with the JAX
-role's argv plus ``--device`` on ``worker`` and ``train``:
+role's argv plus ``--device`` on ``worker``, ``train``, ``online``,
+``tune`` and ``trial``:
 
     python -m mmlspark_tpu_torch.serving.fleet registry --port 9090
     python -m mmlspark_tpu_torch.serving.fleet worker \\
@@ -15,18 +17,30 @@ role's argv plus ``--device`` on ``worker`` and ``train``:
     python -m mmlspark_tpu_torch.serving.fleet train \\
         --registry http://registry:9090/ --name host-a --data npz:/d.npz \\
         --ckpt-dir /shared/ck --world-size 2 --heartbeat-s 1
+    python -m mmlspark_tpu_torch.serving.fleet online \\
+        --registry http://registry:9090/ --port 9300 --snapshot-dir /s
+    python -m mmlspark_tpu_torch.serving.fleet tune \\
+        --registry http://registry:9090/ --experiment e1 --trials 6
+    python -m mmlspark_tpu_torch.serving.fleet chaos \\
+        --scenario plan.json --proxy gw=9400:127.0.0.1:8080
 
 Workers register with the driver registry once their models are loaded
 and warmed, and heartbeat by re-registering; the gateway discovers them by
 polling the registry (``serving/distributed.py``), so workers can
-join, leave and restart without touching the gateway. A ``worker`` or
-``train`` process runs on the card (``--device cuda``, the default; it
-raises without one) unless given ``--device cpu``. The gateway, registry
-and supervisor are host processes and touch no tensor.
+join, leave and restart without touching the gateway. A ``worker``,
+``train``, ``online`` or ``trial`` process runs on the card (``--device
+cuda``, the default; it raises without one, before it binds) unless given
+``--device cpu``; ``tune`` passes its ``--device`` to the trials it
+spawns. The gateway, registry, supervisor, experiment controller and
+chaos conductor are host processes and touch no tensor.
 
-The verbs ``model``, ``top``, ``trace``, ``traces`` and ``profile`` drive
-and inspect a running fleet over HTTP. The JAX CLI's ``online``, ``tune``,
-``trial`` and ``chaos`` roles are not in this parser (ROADMAP.md, A7).
+``online`` trains the VW learner on ingested feedback (``vw_pass`` on the
+card) and publishes snapshots to the workers, which score them through
+``vw_margin``. ``tune`` runs ASHA over ``trial`` processes, each training
+through ``fleet train``'s GBDT member. ``chaos`` drives a seeded scenario
+of wire faults and signals against a running fleet and checks its
+invariants. The verbs ``model``, ``top``, ``trace``, ``traces`` and
+``profile`` drive and inspect a running fleet over HTTP.
 """
 
 
@@ -1128,6 +1142,162 @@ def _strip_port(worker_args: str) -> str:
     return " ".join(out)
 
 
+def run_online(
+    registry_url: Optional[str] = None,
+    model: str = "vw-online",
+    host: str = "0.0.0.0",
+    port: int = 0,
+    service_name: str = "serving",
+    worker_urls: Optional[list] = None,
+    snapshot_dir: Optional[str] = None,
+    publish_every_s: float = 2.0,
+    freshness_slo_ms: float = 5000.0,
+    heartbeat_s: float = 5.0,
+    advertise_host: Optional[str] = None,
+    num_bits: int = 18,
+    loss: str = "logistic",
+    lr: float = 0.5,
+    batch: int = 64,
+    label_col: str = "label",
+    features_col: str = "features",
+    text_col: Optional[str] = None,
+    distributed: bool = False,
+    artifact_dir: Optional[str] = None,
+    publish_epoch: Optional[int] = None,
+    replicas: int = 0,
+    device: Optional[str] = None,
+) -> tuple:
+    """``fleet online``: run the continuous-learning loop as a fleet
+    role. Starts the HTTP ingest ingress (``POST /ingest``; ``GET
+    /metrics`` inline), trains the device-resident VW learner on every
+    ingested micro-batch, and every ``publish_every_s`` publishes a
+    versioned ``vw:`` snapshot through the zero-drop load -> warm ->
+    swap path on every rostered worker (and/or explicit
+    ``--worker-url``\\ s). Registers under ``<service>-online`` so
+    ``fleet top`` and the deploy smoke's freshness gate find it; the
+    freshness SLO engine runs in-process and exports burn-rate gauges.
+
+    ``--artifact-dir`` switches publication to **artifact mode** (no
+    shared filesystem): snapshots are published as
+    ``artifact:vw:<name>@<sha256>`` specs, served ranged off this
+    process's ingest ingress and advertised on its heartbeats — workers
+    pull the bytes over HTTP, hash-verified and resumable
+    (docs/artifacts.md). ``--replicas N`` adds replication-before-ack:
+    each snapshot must be confirmed on N other artifact holders before
+    any worker is driven to load it (docs/robustness.md).
+
+    ``device``: where the learner's state lives and its passes run
+    (None = the card; it raises without one, before anything binds).
+    ``distributed``: over a ``torch.distributed`` group of two or more
+    ranks, the learner averages its state over them after every pass;
+    with one process it is the single-device program.
+
+    Returns ``(stream, loop, stopper)``."""
+    import dataclasses
+
+    from mmlspark_tpu_torch import obs
+    from mmlspark_tpu_torch.core.device import resolve_device
+    from mmlspark_tpu_torch.online import (
+        FeedbackStream,
+        OnlineLearningLoop,
+        OnlineTrainer,
+        Publisher,
+    )
+    from mmlspark_tpu_torch.serving.registry import DriverRegistry
+
+    if not registry_url and not worker_urls:
+        raise ValueError("fleet online needs --registry and/or --worker-url")
+    dev = resolve_device(device)  # no card and no --device cpu: raise, bind nothing
+    stream = FeedbackStream()
+    info = stream.serve(host=host, port=port, name=f"{service_name}-online")
+    obs.set_process_label(
+        f"{service_name}-online@{advertise_host or info.host}:{info.port}"
+    )
+    trainer = OnlineTrainer(
+        num_bits=num_bits, loss=loss, lr=lr, batch=batch,
+        label_col=label_col, features_col=features_col, text_col=text_col,
+        distributed=distributed, device=dev,
+    )
+    art_store = None
+    artifact_url = None
+    if artifact_dir:
+        from mmlspark_tpu_torch.serving import artifacts as artifacts_mod
+
+        art_store = artifacts_mod.ArtifactStore(artifact_dir)
+        # snapshots serve ranged off the SAME ingest ingress (the
+        # /metrics contract: inline, never queued or counted)
+        artifacts_mod.attach(stream._ingress, art_store)
+        artifact_url = (
+            f"http://{advertise_host or info.host}:{info.port}"
+        )
+    publisher = Publisher(
+        model=model, snapshot_dir=snapshot_dir,
+        worker_urls=worker_urls, registry_url=registry_url,
+        service_name=service_name,
+        artifact_store=art_store, artifact_url=artifact_url,
+        epoch=publish_epoch, replicas=replicas,
+    )
+    loop = OnlineLearningLoop(
+        stream, trainer, publisher, publish_every_s=publish_every_s,
+        freshness_budget_ms=freshness_slo_ms or None,
+    ).start()
+    if advertise_host:
+        info = dataclasses.replace(info, host=advertise_host)
+    stop = threading.Event()
+    registry_urls = split_registry_urls(registry_url)
+    beat_timeout_s = beat_timeout(heartbeat_s)
+
+    def beat() -> None:
+        while not stop.is_set():
+            fresh = info
+            if art_store is not None:
+                # advertise the snapshot artifacts each beat so workers
+                # can also resolve peers from the roster (the spec's
+                # embedded URL hint is merely the fast path)
+                fresh = dataclasses.replace(
+                    info, artifacts=tuple(art_store.refs())
+                )
+            for url in registry_urls:
+                try:
+                    if not stop.is_set():
+                        # explicit short timeout: a blackholed registry
+                        # must not park the heartbeat thread
+                        DriverRegistry.register(
+                            url, fresh, timeout=beat_timeout_s,
+                        )
+                except Exception as e:  # noqa: BLE001 — may be restarting
+                    print(
+                        f"online: register to {url} failed: {e}",
+                        file=sys.stderr, flush=True,
+                    )
+            stop.wait(heartbeat_s)
+
+    beat_t = threading.Thread(target=beat, name="online-heartbeat", daemon=True)
+    beat_t.start()
+
+    class _OnlineStopper:
+        def stop(self) -> None:
+            if stop.is_set():
+                return
+            stop.set()
+            beat_t.join(12.0)
+            loop.stop(final_publish=True)
+            stream.close()
+            for url in registry_urls:
+                try:
+                    DriverRegistry.deregister(url, info)
+                except Exception:  # noqa: BLE001 — registry may be gone
+                    pass
+
+        set = stop
+
+    print(
+        f"online: ingest http://{info.host}:{info.port}/ingest -> model "
+        f"{model!r}, publish every {publish_every_s}s", flush=True,
+    )
+    return stream, loop, _OnlineStopper()
+
+
 def supervisor_status_from_registry(
     registry_url: str, service_name: str = "serving",
 ) -> Optional[str]:
@@ -1434,6 +1604,74 @@ def main(argv: Optional[list] = None) -> None:
         "assumed shared. Fencing (boot stamps, epoch tokens, "
         "majority-claim deferral) applies to remote placements verbatim",
     )
+    on = sub.add_parser(
+        "online",
+        help="continuous-learning loop: HTTP feedback ingest -> online "
+        "VW training -> zero-drop publication to the fleet's workers "
+        "(docs/online-learning.md)",
+    )
+    on.add_argument("--registry", default=None)
+    on.add_argument(
+        "--device", default="cuda",
+        help="the learner's device: cuda (default; raises without a card) "
+        "or cpu",
+    )
+    on.add_argument(
+        "--worker-url", action="append", default=[],
+        help="explicit worker base URL to publish to (repeatable; "
+        "adds to the registry roster)",
+    )
+    on.add_argument("--model", default="vw-online")
+    on.add_argument("--host", default="0.0.0.0")
+    on.add_argument("--port", type=int, default=0,
+                    help="HTTP ingest port (POST /ingest; GET /metrics)")
+    on.add_argument("--service-name", default="serving")
+    on.add_argument("--snapshot-dir", default=None)
+    on.add_argument("--publish-every-s", type=float, default=2.0)
+    on.add_argument(
+        "--freshness-slo-ms", type=float, default=5000.0,
+        help="freshness budget: example-ingested -> model-servable over "
+        "this burns the SLO error budget (0 disables the engine)",
+    )
+    on.add_argument("--heartbeat-s", type=float, default=5.0)
+    on.add_argument("--advertise-host", default=None)
+    on.add_argument(
+        "--publish-epoch", type=int, default=None,
+        help="fencing token stamped on every publication: workers "
+        "reject load/swap bodies whose epoch is older than the highest "
+        "seen (docs/robustness.md split brain)",
+    )
+    on.add_argument("--num-bits", type=int, default=18)
+    on.add_argument("--loss", default="logistic")
+    on.add_argument("--lr", type=float, default=0.5)
+    on.add_argument("--batch", type=int, default=64)
+    on.add_argument("--label-col", default="label")
+    on.add_argument("--features-col", default="features")
+    on.add_argument(
+        "--text-col", default=None,
+        help="hash this text column through the VW featurizer instead "
+        "of reading pre-hashed sparse rows",
+    )
+    on.add_argument(
+        "--distributed", action="store_true",
+        help="over a torch.distributed group of two or more ranks, "
+        "average the learner's state over them after every pass "
+        "(multi-card training); one process runs the single-device program",
+    )
+    on.add_argument(
+        "--artifact-dir", default=None,
+        help="publish snapshots as content-addressed artifacts served "
+        "off the ingest ingress (no shared filesystem): workers pull "
+        "artifact:vw:<name>@<sha256> over HTTP, hash-verified + "
+        "resumable (docs/artifacts.md)",
+    )
+    on.add_argument(
+        "--replicas", type=int, default=0,
+        help="replication-before-ack (artifact mode): each snapshot "
+        "must be confirmed on this many OTHER artifact holders before "
+        "any worker loads it — a SIGKILLed publisher host never "
+        "strands the only copy (docs/robustness.md)",
+    )
     tn = sub.add_parser(
         "train",
         help="one elastic training host: gang membership over the "
@@ -1525,6 +1763,96 @@ def main(argv: Optional[list] = None) -> None:
         help="the member's device: cuda (default; raises without a card) "
         "or cpu",
     )
+    tu = sub.add_parser(
+        "tune",
+        help="ASHA experiment controller: schedule trials as supervisor "
+        "charges, promote the top 1/eta per rung via generation-CAS "
+        "records, auto-publish the winner into serving "
+        "(mmlspark_tpu_torch/experiments/; docs/experiments.md)",
+    )
+    tu.add_argument("--registry", required=True)
+    tu.add_argument("--experiment", default="exp",
+                    help="experiment name (prefixes every registry record)")
+    tu.add_argument("--trials", type=int, default=6)
+    tu.add_argument(
+        "--space", default=None,
+        help="search-space JSON: {param: [choices]} or "
+        '{param: {"low": .., "high": .., "log"?: true, "int"?: true}} '
+        "(default: the stock GBDT space)",
+    )
+    tu.add_argument("--data", default="synth:512x8:1")
+    tu.add_argument("--valid", default="synth:256x8:99",
+                    help="held-out eval spec (same grammar as --data)")
+    tu.add_argument("--min-iters", type=int, default=2)
+    tu.add_argument("--max-iters", type=int, default=8)
+    tu.add_argument("--eta", type=int, default=2)
+    tu.add_argument("--seed", type=int, default=0)
+    tu.add_argument("--lower-is-better", action="store_true")
+    tu.add_argument("--workdir", default=None)
+    tu.add_argument(
+        "--spawn-cmd", default=None,
+        help="trial placement template, supervisor semantics: bare "
+        "{argv} splices, embedded {argv} substitutes the shell-quoted "
+        "command (fleet supervise --spawn-cmd docs)",
+    )
+    tu.add_argument(
+        "--placement", default=None,
+        help="trial placement provider, supervisor grammar: 'local', "
+        "'ssh:<host>', 'k8s:<image>[@<namespace>]', or a raw wrapper "
+        "template (fleet supervise --placement docs)",
+    )
+    tu.add_argument("--tick-s", type=float, default=0.25)
+    tu.add_argument("--heartbeat-s", type=float, default=0.5)
+    tu.add_argument("--poll-s", type=float, default=0.25)
+    tu.add_argument("--decision-timeout-s", type=float, default=120.0)
+    tu.add_argument("--partitions", type=int, default=4)
+    tu.add_argument("--max-reschedules", type=int, default=5)
+    tu.add_argument(
+        "--publish-model", default=None,
+        help="serve the winner under this model name via the "
+        "epoch-fenced Publisher path (load -> warm -> swap on every "
+        "roster worker); omit to only CAS the winner record",
+    )
+    tu.add_argument("--publish-service", default="serving")
+    tu.add_argument("--publish-epoch", type=int, default=None)
+    tu.add_argument("--status-file", default=None,
+                    help="atomic JSON status (the invariant checker "
+                    "joins these; docs/experiments.md)")
+    tu.add_argument("--deadline-s", type=float, default=600.0)
+    tu.add_argument(
+        "--device", default="cuda",
+        help="the trials' device: cuda (default; each trial raises "
+        "without a card) or cpu",
+    )
+    tl = sub.add_parser(
+        "trial",
+        help="one ASHA trial charge (spawned by fleet tune; trains "
+        "through rung boundaries, CAS-reports metrics, self-reaps on "
+        "demotion)",
+    )
+    tl.add_argument("--registry", required=True)
+    tl.add_argument("--experiment", required=True)
+    tl.add_argument("--trial", required=True)
+    tl.add_argument("--params", required=True,
+                    help="sampled hyperparameter JSON (controller-built)")
+    tl.add_argument("--data", required=True)
+    tl.add_argument("--valid", required=True)
+    tl.add_argument("--workdir", required=True)
+    tl.add_argument("--min-iters", type=int, default=2)
+    tl.add_argument("--max-iters", type=int, default=8)
+    tl.add_argument("--eta", type=int, default=2)
+    tl.add_argument("--seed", type=int, default=0)
+    tl.add_argument("--lower-is-better", action="store_true")
+    tl.add_argument("--heartbeat-s", type=float, default=0.5)
+    tl.add_argument("--poll-s", type=float, default=0.25)
+    tl.add_argument("--decision-timeout-s", type=float, default=120.0)
+    tl.add_argument("--partitions", type=int, default=4)
+    tl.add_argument("--status-file", default=None)
+    tl.add_argument(
+        "--device", default="cuda",
+        help="the trial's device: cuda (default; raises without a card) "
+        "or cpu",
+    )
     t = sub.add_parser(
         "top", help="scrape /metrics across the fleet, print a summary"
     )
@@ -1581,6 +1909,52 @@ def main(argv: Optional[list] = None) -> None:
         help="sampling window between the two scrapes",
     )
     add_trace_endpoint_flags(pf)
+    ch = sub.add_parser(
+        "chaos",
+        help="drive a timed hostile-wire scenario against a live fleet: "
+        "seeded TCP chaos proxies + process signals + the invariant "
+        "checker (mmlspark_tpu_torch/chaos/; docs/chaos.md)",
+    )
+    ch.add_argument(
+        "--scenario", required=True,
+        help="scenario JSON (inline or a file path): seed + timed steps "
+        "(rules / clear / signal / check / sleep / mark)",
+    )
+    ch.add_argument(
+        "--proxy", action="append", default=[],
+        metavar="NAME=LISTEN_PORT:TARGET_HOST:TARGET_PORT",
+        help="one chaos proxy the scenario's rules/clear steps address "
+        "by NAME (repeatable); point the fleet link at LISTEN_PORT",
+    )
+    ch.add_argument(
+        "--pid", action="append", default=[], metavar="NAME=PID",
+        help="one process the scenario's signal steps address by NAME "
+        "(repeatable)",
+    )
+    ch.add_argument("--gateway", default=None,
+                    help="gateway base URL for the check step's invariants")
+    ch.add_argument("--registry", default=None,
+                    help="registry base URL (resolves worker /metrics "
+                    "endpoints for the invariant checker)")
+    ch.add_argument("--service-name", default="serving")
+    ch.add_argument("--seed", type=int, default=None,
+                    help="override the scenario's seed")
+    ch.add_argument(
+        "--status-file", action="append", default=[], metavar="PATH",
+        help="one elastic-trainer status JSON for the check step's "
+        "single_writer law (repeatable; docs/chaos.md)",
+    )
+    ch.add_argument(
+        "--online", default=None, metavar="URL",
+        help="a fleet online process's base URL: the check step's "
+        "online_conservation law scrapes its /metrics",
+    )
+    ch.add_argument(
+        "--experiment-status-file", action="append", default=[],
+        metavar="PATH",
+        help="one fleet tune --status-file for the check step's "
+        "experiment_conservation and single_promotion laws (repeatable)",
+    )
     m = sub.add_parser(
         "model",
         help="model lifecycle control against a worker or gateway "
@@ -1616,6 +1990,16 @@ def main(argv: Optional[list] = None) -> None:
 
         FaultPlan.from_spec(args.fault_plan).install()
         print(f"fleet: fault plan armed ({args.fault_plan})", flush=True)
+    if args.role == "chaos":
+        from mmlspark_tpu_torch.chaos.conductor import run_chaos_cli
+
+        raise SystemExit(run_chaos_cli(
+            args.scenario, args.proxy, args.pid,
+            gateway_url=args.gateway, registry_url=args.registry,
+            service_name=args.service_name, seed=args.seed,
+            status_files=args.status_file, online_url=args.online,
+            experiment_status_files=args.experiment_status_file,
+        ))
     if args.role == "model":
         raise SystemExit(run_model_verb(
             args.action, args.url, name=args.name, spec=args.spec,
@@ -1689,6 +2073,54 @@ def main(argv: Optional[list] = None) -> None:
             sketch_bits=args.sketch_bits,
             device=args.device,
         )
+    elif args.role == "tune":
+        from mmlspark_tpu_torch.experiments.controller import (
+            ExperimentController,
+            space_from_json,
+        )
+
+        ctrl = ExperimentController(
+            args.registry, args.experiment, n_trials=args.trials,
+            space=(
+                space_from_json(json.loads(args.space))
+                if args.space else None
+            ),
+            data=args.data, valid=args.valid,
+            min_iters=args.min_iters, max_iters=args.max_iters,
+            eta=args.eta, seed=args.seed,
+            higher_is_better=not args.lower_is_better,
+            workdir=args.workdir, spawn_cmd=args.spawn_cmd,
+            placement=args.placement,
+            tick_s=args.tick_s, heartbeat_s=args.heartbeat_s,
+            poll_s=args.poll_s,
+            decision_timeout_s=args.decision_timeout_s,
+            partitions=args.partitions,
+            max_reschedules=args.max_reschedules,
+            publish_model=args.publish_model,
+            publish_service=args.publish_service,
+            publish_epoch=args.publish_epoch,
+            status_file=args.status_file, deadline_s=args.deadline_s,
+            device=args.device,
+        )
+        try:
+            ctrl.run()
+        finally:
+            ctrl.close()
+    elif args.role == "trial":
+        from mmlspark_tpu_torch.experiments.trial import run_trial
+
+        _install_forensics()
+        raise SystemExit(run_trial(
+            args.registry, args.experiment, args.trial,
+            json.loads(args.params), args.data, args.valid, args.workdir,
+            min_iters=args.min_iters, max_iters=args.max_iters,
+            eta=args.eta, seed=args.seed,
+            higher_is_better=not args.lower_is_better,
+            heartbeat_s=args.heartbeat_s, poll_s=args.poll_s,
+            decision_timeout_s=args.decision_timeout_s,
+            partitions=args.partitions, status_file=args.status_file,
+            device=args.device,
+        ))
     elif args.role == "registry":
         _install_forensics()
         reg = run_registry(
@@ -1740,6 +2172,25 @@ def main(argv: Optional[list] = None) -> None:
             placement=args.placement,
         )
         _serve_forever([sup])
+    elif args.role == "online":
+        _install_forensics()
+        _stream, _loop, stopper = run_online(
+            registry_url=args.registry, model=args.model, host=args.host,
+            port=args.port, service_name=args.service_name,
+            worker_urls=args.worker_url or None,
+            snapshot_dir=args.snapshot_dir,
+            publish_every_s=args.publish_every_s,
+            freshness_slo_ms=args.freshness_slo_ms,
+            heartbeat_s=args.heartbeat_s,
+            advertise_host=args.advertise_host, num_bits=args.num_bits,
+            loss=args.loss, lr=args.lr, batch=args.batch,
+            label_col=args.label_col, features_col=args.features_col,
+            text_col=args.text_col, distributed=args.distributed,
+            artifact_dir=args.artifact_dir,
+            publish_epoch=args.publish_epoch,
+            replicas=args.replicas, device=args.device,
+        )
+        _serve_forever([stopper])
     else:
         _install_forensics()
         gw = run_gateway(

@@ -84,6 +84,17 @@ def test_import_with_jax_blocked(tmp_path):
         "from mmlspark_tpu_torch.serving.fleet import (run_worker, run_gateway,\n"
         "    run_supervise, run_top, run_trace, run_traces_slowest, run_profile,\n"
         "    run_model_verb)\n"
+        "from mmlspark_tpu_torch.online import (FeedbackStream, OnlineLearningLoop,\n"
+        "    OnlineTrainer, PublishError, Publisher)\n"
+        "from mmlspark_tpu_torch.online import feedback, loop, publisher, trainer\n"
+        "from mmlspark_tpu_torch.automl import RandomSpace, DefaultHyperparams, hyperparams\n"
+        "from mmlspark_tpu_torch.experiments import (asha, records, ExperimentState,\n"
+        "    ExperimentController, run_trial)\n"
+        "from mmlspark_tpu_torch.experiments import controller, trial\n"
+        "from mmlspark_tpu_torch.chaos import (ChaosConductor, InvariantChecker, Scenario,\n"
+        "    Violation, conductor, invariants)\n"
+        "from mmlspark_tpu_torch.chaos.conductor import run_chaos_cli\n"
+        "from mmlspark_tpu_torch.serving.fleet import run_online\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
@@ -104,10 +115,18 @@ def test_import_with_jax_blocked(tmp_path):
     "mmlspark_tpu_torch.obs.traces", "mmlspark_tpu_torch.obs.slo",
     "mmlspark_tpu_torch.serving.distributed", "mmlspark_tpu_torch.online.autoscaler",
     "mmlspark_tpu_torch.serving.supervisor", "mmlspark_tpu_torch.serving.fleet",
+    "mmlspark_tpu_torch.online.trainer", "mmlspark_tpu_torch.online.feedback",
+    "mmlspark_tpu_torch.online.publisher", "mmlspark_tpu_torch.online.loop",
+    "mmlspark_tpu_torch.online", "mmlspark_tpu_torch.automl.hyperparams",
+    "mmlspark_tpu_torch.experiments.asha", "mmlspark_tpu_torch.experiments.records",
+    "mmlspark_tpu_torch.experiments.trial", "mmlspark_tpu_torch.experiments.controller",
+    "mmlspark_tpu_torch.experiments", "mmlspark_tpu_torch.chaos.invariants",
+    "mmlspark_tpu_torch.chaos.conductor", "mmlspark_tpu_torch.chaos",
 ])
 def test_no_shared_disk_modules_import_alone(module):
-    """Each module of the gang's no-shared-disk modes and of the serving
-    fleet, alone in a fresh interpreter, loads neither JAX nor the JAX
+    """Each module of the gang's no-shared-disk modes, of the serving
+    fleet, of continuous learning, of the experiments and of the chaos
+    conductor, alone in a fresh interpreter, loads neither JAX nor the JAX
     package."""
     code = (
         "import importlib, sys\n"
@@ -134,9 +153,11 @@ def test_gbdt_exports_every_name_of_the_jax_package():
 
 # names of the JAX package's ``__all__`` the port does not export yet: none
 # (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported; so are
-# A4 step 1, ``parallel``, and A7 step 2's fleet, ``serving``)
+# A4 step 1, ``parallel``, and A7, ``serving``, ``online``, ``experiments``
+# and ``chaos``)
 A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
-                "obs": set(), "parallel": set(), "serving": set()}
+                "obs": set(), "parallel": set(), "serving": set(), "online": set(),
+                "experiments": set(), "chaos": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
