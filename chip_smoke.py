@@ -84,7 +84,7 @@ distributed form (the fixed-scale kernel entries plus int64 all-reduces)
 at world 1 under NCCL in this process and at world 2 as two spawned gloo
 processes on this card, bitwise one ``plane_hist`` / ``multi_plane_hist``
 call on all 200,000 rows, with each rank's kernel, all-reduce and build
-times; the trees/s cell at world 2 (10 rounds; data_parallel lossguide and
+times; the trees/s cell at world 2 (5 rounds; data_parallel lossguide and
 depthwise, voting_parallel with K = 4) within 0.005 AUC of one-device
 fits of the same depth, both ranks' models byte-identical, voting's bytes a split under a
 third of data_parallel's; an integer-column fit whose world-2 model
@@ -100,7 +100,7 @@ within 0.005 AUC with the reason recorded), each launching
 Last, phase ``elastic``: the elastic gang through its entry points, a
 registry (``fleet.run_registry``) in this process and ``python -m
 mmlspark_tpu_torch.serving.fleet train --device cuda`` members on this card,
-on the trees/s cell's rows (an ``npz:`` file), 63 leaves, 8 rounds,
+on the trees/s cell's rows (an ``npz:`` file), 63 leaves, 6 rounds,
 checkpoints every 2: world-2 gangs (lossguide over the ring reducer and
 over the mesh, depthwise over the ring), whose members' models must be
 byte-identical and equal to the same fit on one device here (their int64
@@ -128,7 +128,7 @@ each scoring bitwise as its direct spec. Last, phase ``fleet``: a
 registry, two ``fleet worker --device cuda`` processes sharing this one card
 under the supervisor of ``fleet supervise`` (each serving the trees/s
 booster as ``gbdt:``, V2's classifier as ``vw:`` and ``echo``), and ``fleet
-gateway`` processes in front: 8 keep-alive clients send 1,000 requests a
+gateway`` processes in front: 8 keep-alive clients send 500 requests a
 run routed by ``x-mmlspark-model``, every reply 200 and bitwise the
 in-process call, p50/p99 a model direct to a worker and through the
 gateway; ``vw_margin`` counted in one more worker run in this process on the
@@ -156,10 +156,29 @@ launches from their status files. Phase ``chaos``: ``fleet chaos`` twice
 with one seed on that fleet under load (latency with jitter on worker 0's
 proxied link, worker 0 SIGSTOPped and SIGCONTed): every invariant green,
 ``online_conservation`` and ``experiment_conservation`` included, every
-reply 200, the same schedule digest both times. For time, depth is cut in
-``card_vs_cpu`` (5 rounds), the world-2 fits (10; ``DIST_FITS`` 5, its
-early-stopping fits 10), the gangs (8) and the fleet's load runs (1,000
-requests), and phase ``elastic`` runs its gangs side by side in two waves.
+reply 200, the same schedule digest both times. Last, three paths that
+run no hand-written kernel (their launch counts are read and reported).
+Phase ``vit``: flax's seeded ViT-B/16 drawn on the card against flax's
+own per-leaf sums and within 4 ulp of the CPU's draw; ring attention over
+two gloo ranks on this card (the ViT-B/16 encoder with 197 tokens padded
+to 198 against the dense one, and a causal + kv_mask ring at 1 x 16,384 x
+12 x 64 against dense attention, f32, TF32 off); ``ImageFeaturizer
+("ViTB16")`` on 512 images at batch 128 (images/s; 8 of them against the
+CPU) and one batch under ``trace()`` (launches a batch); 50 ``zoo:ViTB16``
+requests through a WorkerServer, bitwise. Phase ``sequence``: the BiLSTM
+tagger (embed 64, hidden 64) on the card against the CPU on the same
+weights, 200 ``train_tagger`` steps (held-out token accuracy > 0.9), its
+``packed_apply_fn`` served through ``TorchModel``. Phase ``explain_knn``:
+``ImageLIME`` (512 samples) on 4 images explaining the ViT-B/16
+featurizer, and on ViTTiny (f32) the card against the CPU (the same label
+maps and states, coefficients within 1e-4 * max); ``TabularLIME`` on 16
+rows explaining the trees/s booster; ``KNN`` and ``ConditionalKNN`` over a
+100,000 x 768 index with duplicated rows, 1,024 queries, at one chunk and
+four, against the CPU; ``ProfiledRun`` over ``ImageFeaturizer("ViTB16")
+-> KNNModel``. For time, depth is cut in ``card_vs_cpu`` (5 rounds), the
+world-2 fits (5; ``DIST_FITS`` 5, its early-stopping fits 10), the gangs
+(6) and the fleet's load runs (500 requests), and phase ``elastic`` runs
+its gangs side by side in two waves.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -173,6 +192,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import importlib
 import json
@@ -1391,6 +1411,18 @@ def _rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), np.asarray(tree)
+
+
+def _ulp(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64)).max())
+
+
 def seeded_init() -> dict:
     """flax's seeded init of a ResNet-50 (what the zoo materialises for a
     model without a checkpoint) drawn on the card against the CPU's: every
@@ -1398,24 +1430,16 @@ def seeded_init() -> dict:
     tests/test_torch_port_zoo.py)."""
     from mmlspark_tpu_torch.models import resnet as R
 
-    def leaves(tree, path=()):
-        if isinstance(tree, dict):
-            for k in sorted(tree):
-                yield from leaves(tree[k], path + (k,))
-        else:
-            yield "/".join(path), np.asarray(tree)
-
     t0 = time.perf_counter()
-    card = dict(leaves(R.init_flax_variables(R.resnet50(), seed=0, device=DEV)))
+    card = dict(_leaves(R.init_flax_variables(R.resnet50(), seed=0, device=DEV)))
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = dict(leaves(R.init_flax_variables(R.resnet50(), seed=0, device="cpu")))
+    cpu = dict(_leaves(R.init_flax_variables(R.resnet50(), seed=0, device="cpu")))
     cpu_s = time.perf_counter() - t0
     worst, same, total = 0, 0, 0
     for k, a in cpu.items():
         b = card[k]
-        worst = max(worst, int(np.abs(a.view(np.int32).astype(np.int64)
-                                      - b.view(np.int32).astype(np.int64)).max()))
+        worst = max(worst, _ulp(a, b))
         same += int((a == b).sum())
         total += a.size
     rec = {"max_ulp": worst, "bitwise_share": same / total, "values": total,
@@ -3332,8 +3356,9 @@ DIST_QUERY = 20                     # documents a query (lambdarank): 10,000 que
 DIST_BASE = dict(num_iterations=5, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
 DIST_ES_ROUNDS = 10
 # the trees/s cell's fits and the integer fit at world 2 (and their one-device
-# references): 10 rounds, not the cell's 20, a depth cut for the script's time
-DIST_MAIN_ROUNDS = 10
+# references): 5 rounds, not the cell's 20, a depth cut for the script's time (cut
+# to 10, then to 5 when phases vit, sequence and explain_knn came)
+DIST_MAIN_ROUNDS = 5
 _DIST_ES = dict(learning_rate=0.6, early_stopping_round=2, metric="auc",
                 num_iterations=DIST_ES_ROUNDS)
 DIST_FITS = {
@@ -3509,7 +3534,7 @@ def _dist_rank_work(rank: int, world: int) -> dict:
 
 
 def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
-               card_per_rank: bool) -> None:
+               card_per_rank: bool, work: str = "_dist_rank_work") -> None:
     """A spawned rank: joins the group (``file://`` rendezvous at ``rdv``)
     on card ``rank`` (``card_per_rank``) or all on card 0 (NCCL refuses two
     ranks on one card: gloo there) and writes its result for the parent."""
@@ -3522,15 +3547,17 @@ def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
     distributed.initialize(f"file://{rdv}", world, rank,
                            device=f"cuda:{rank if card_per_rank else 0}", backend=backend)
     try:
-        res = _dist_rank_work(rank, world)
+        res = globals()[work](rank, world)
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, backend: str, card_per_rank: bool) -> "tuple[list, float]":
-    """Spawns ``world`` ranks (``_dist_rank``) and waits for them: their
+def spawn_ranks(world: int, backend: str, card_per_rank: bool,
+                work: str = "_dist_rank_work") -> "tuple[list, float]":
+    """Spawns ``world`` ranks (``_dist_rank`` running ``work``, a function
+    of this module, on each) and waits for them: their
     results in rank order, and the seconds from spawn to the last exit. Its
     scratch directory under build/ is removed after."""
     import pickle
@@ -3542,7 +3569,7 @@ def spawn_ranks(world: int, backend: str, card_per_rank: bool) -> "tuple[list, f
     try:
         t0 = time.perf_counter()
         mp.spawn(_dist_rank, args=(world, os.path.join(tmp, "rdv"), os.path.join(tmp, "out"),
-                                   backend, card_per_rank), nprocs=world, join=True)
+                                   backend, card_per_rank, work), nprocs=world, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = []
         for r in range(world):
@@ -3707,7 +3734,7 @@ def distributed_phase(x, y, x_test, y_test, vw_rec: dict) -> dict:
 
 # -- phase elastic: the elastic gang (fleet registry + fleet train members) ------------
 
-ELASTIC_ROUNDS = 8                  # the gang's fits: depth cut from 20 (10, then 8 for time)
+ELASTIC_ROUNDS = 6                  # the gang's fits: depth cut from 20 (10, 8, then 6 for time)
 ELASTIC_HEARTBEAT_S = 1.0           # a member's beat; a member busy in a round still beats
 ELASTIC_TTL_S = 5.0                 # the registry drops a member silent this long
 ELASTIC_KILL_ROUND = 4              # the drill's victim stalls entering this round
@@ -4195,8 +4222,8 @@ def elastic_phase(smi: str) -> dict:
 # -- phase fleet: registry, supervised workers on the card, gateways ----------------------
 
 FLEET_CLIENTS = 8                   # concurrent keep-alive clients
-FLEET_REQUESTS = 1000               # requests a load run, split between gbdt: and vw: (cut
-                                    # from 2,000 for the script's time)
+FLEET_REQUESTS = 500                # requests a load run, split between gbdt: and vw: (cut
+                                    # from 2,000, then 1,000, for the script's time)
 FLEET_MODELS = ("gbdt", "vw")
 FLEET_HEDGE_MS = 1.0                # the hedging gateway's delay
 FLEET_BOOT_S = 240.0                # a worker must be routable within this of its spawn
@@ -5082,6 +5109,622 @@ def continuous(smi: str, kept: dict, online: dict, x, y, x_test, y_test) -> dict
             inproc[0].stop()
 
 
+# -- the ViT, the BiLSTM tagger, LIME and KNN (no hand-written kernel) ---------
+#
+# These paths run PyTorch ops only (matrix products, einsum attention,
+# softmax, cuDNN's LSTM, top-k): the reference runs them as plain jnp fused
+# by XLA, with no Pallas kernel. Each phase reads the hand-written kernels'
+# counts before and after and reports them (0: nothing of these paths
+# launches one).
+
+VIT_ZOO = "ViTB16"
+VIT_ROWS, VIT_BATCH, VIT_SIZE = 512, 128, 224   # featurizer: 512 images at batch 128
+VIT_CHECK_ROWS = 8                  # images held card against the CPU plain (bf16)
+VIT_REQUESTS = 50                   # zoo:ViTB16 requests through a WorkerServer
+VIT_INIT_ULP = 4                    # seeded init: card against CPU, each value
+VIT_FLAX_SUMS = os.path.join(ROOT, "tests", "resources", "vit_b16_seed0_flax_sums.json")
+RING_WORLD = 2                      # gloo ranks on this card
+RING_IMAGES = 2                     # ViT-B/16 encoder over the ring: 197 tokens -> 198
+RING_VIT_REL = 1e-4                 # ring vs dense encoder (f32, TF32 off): max |d| <= 1e-4 max |dense|
+RING_LONG = (1, 16_384, 12, 64)     # B, T, H, D of the causal + kv_mask case
+RING_LONG_TOL = 1e-4                # ring vs dense there (f32, TF32 off): rtol = atol
+TAGGER_VOCAB, TAGGER_TAGS, TAGGER_T = 50, 3, 32
+TAGGER_TRAIN, TAGGER_TEST = 1024, 256
+TAGGER_STEPS = 200
+TAGGER_ACC = 0.9                    # tests/test_sequence.py's bar, on held-out sequences
+TAGGER_REL = 1e-4                   # card vs CPU (TF32 off) on carried weights: max |d| / max |cpu|
+LIME_IMAGES, LIME_SAMPLES = 4, 512
+LIME_TINY_SIZE = 32
+LIME_COEF_REL = 1e-4                # card vs CPU (f32 ViTTiny, TF32 off): max |d| <= 1e-4 max |coef|
+LIME_TAB_ROWS = 16
+KNN_N, KNN_D, KNN_Q, KNN_K = 100_000, 768, 1024, 10
+KNN_DUPS = 1000                     # index rows 50,000.. repeat rows 0..: exact ties
+KNN_CHUNK = 25_000                  # the chunked run: 4 chunks
+KNN_REL = 1e-5                      # scores, and the gap rule for indices
+KNN_LABELS = 10
+
+
+def _hand_written_launches() -> dict:
+    from mmlspark_tpu_torch.ops import sgd
+
+    return {**dict(H.launches), **dict(sgd.launches)}
+
+
+def vit_seeded_init() -> tuple:
+    """flax's seeded ViT-B/16 init (the zoo's ViTB16) drawn on the card,
+    held against flax's own per-leaf sums (``VIT_FLAX_SUMS``; a test holds
+    those to flax's ``init_vit``): a draw within 4 ulp of flax's moves a
+    leaf's sum by at most 4 * 2^-23 * sum |x|. The CPU's draw runs in a
+    thread meanwhile; ``vit_init_card_vs_cpu`` joins it."""
+    import threading
+
+    from mmlspark_tpu_torch.downloader import zoo
+    from mmlspark_tpu_torch.models import vit as V
+
+    schema = zoo.BUILTIN_MODELS[VIT_ZOO]
+    cpu: dict = {}
+
+    def draw() -> None:
+        t0 = time.perf_counter()
+        cpu["vars"] = V.init_flax_variables(zoo.build_module(schema), seed=schema.seed)
+        cpu["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=draw, name="vit-cpu-init")
+    th.start()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        module = V.vit_b16(num_classes=schema.num_classes, image_size=schema.image_size)
+    card = dict(_leaves(V.init_flax_variables(module.to_empty(device=DEV), seed=schema.seed,
+                                              device=DEV)))
+    del module
+    card_s = time.perf_counter() - t0
+    with open(VIT_FLAX_SUMS) as f:
+        flax_sums = json.load(f)
+    if sorted(flax_sums) != sorted(card):
+        raise AssertionError("ViT-B/16 init: the card's leaves are not flax's")
+    worst = 0.0
+    for k, (s, a) in flax_sums.items():
+        x = card[k]
+        bound = 4 * 2.0 ** -23 * a + 1e-9 * a
+        off = max(abs(float(x.sum(dtype=np.float64)) - s),
+                  abs(float(np.abs(x).sum(dtype=np.float64)) - a))
+        worst = max(worst, off / bound if bound else (0.0 if off == 0 else np.inf))
+    rec = {"values": int(sum(v.size for v in card.values())), "card_s": card_s,
+           "flax_sums_worst_share_of_bound": worst}
+    phase("vit", part="seeded init vs flax", **rec)
+    if worst > 1.0:
+        raise AssertionError(f"ViT-B/16 card init off flax's sums: {worst} of the bound")
+    return th, cpu, card, rec
+
+
+def vit_init_card_vs_cpu(th, cpu: dict, card: dict, rec: dict) -> dict:
+    th.join()
+    worst, same, total = 0, 0, 0
+    for k, a in _leaves(cpu["vars"]):
+        worst = max(worst, _ulp(a, card[k]))
+        same += int((a == card[k]).sum())
+        total += a.size
+    rec = dict(rec, max_ulp=worst, bitwise_share=same / total, cpu_s=cpu["s"])
+    phase("vit", part="seeded init card vs cpu", ulp_tol=VIT_INIT_ULP, **rec)
+    if worst > VIT_INIT_ULP:
+        raise AssertionError(f"the card's ViT-B/16 init is {worst} ulp off the CPU's")
+    return rec
+
+
+def _ring_inputs(seed: int) -> tuple:
+    """(q, k, v) of ``RING_LONG`` and its key mask (valid where a draw
+    exceeds 0.2, key 0 always): CPU draws from a seeded generator, the same
+    on every rank."""
+    b, t, h, d = RING_LONG
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h, d), generator=g) for _ in range(3))
+    mask = torch.rand((b, t), generator=g) > 0.2
+    mask[:, 0] = True
+    return q, k, v, mask
+
+
+def _ring_rank_work(rank: int, world: int) -> dict:
+    """A ring rank (gloo, on this card): the seeded ViT-B/16 encoder with
+    sequence-parallel attention (197 tokens padded to 198) against the
+    dense one, then the causal + kv_mask ring at ``RING_LONG`` against
+    dense attention over the whole sequence (rank 0). f32, TF32 off."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.downloader import zoo
+    from mmlspark_tpu_torch.models import vit as V
+    from mmlspark_tpu_torch.ops.ring_attention import dense_attention, ring_attention
+    from mmlspark_tpu_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    schema = zoo.BUILTIN_MODELS[VIT_ZOO]
+    with torch.device("meta"):  # built on the card, its weights drawn there
+        ring = V.vit_b16(dtype=torch.float32, seq_group=dist.group.WORLD)
+    ring = ring.to_empty(device=DEV)
+    V.init_flax_variables(ring, seed=schema.seed, device=DEV)
+    ring.eval()
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(RING_IMAGES, VIT_SIZE, VIT_SIZE, 3)).astype(np.float32)).to(DEV)
+    out: dict = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ring(x, until="encoder")["encoder"]
+        torch.cuda.synchronize()
+        out["vit_ring_s"] = time.perf_counter() - t0
+        ring.seq_group = None
+        want = ring(x, until="encoder")["encoder"]
+        out["vit_max_rel"] = float((got - want).abs().max() / want.abs().max())
+        out["vit_tokens"] = int(want.shape[1])
+        del ring, got, want
+        q, k, v, mask = _ring_inputs(SEED)
+        t = RING_LONG[1] // world
+        sl = slice(rank * t, (rank + 1) * t)
+        ql, kl, vl, ml = (a[:, sl].to(DEV) for a in (q, k, v, mask))
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention(ql, kl, vl, causal=True, kv_mask=ml)
+        torch.cuda.synchronize()
+        out["long_ring_s"] = time.perf_counter() - t0
+        # every rank's block of queries, in rank order
+        whole = collectives.all_gather(o.transpose(0, 1).contiguous()).transpose(0, 1)
+        del ql, kl, vl, ml, o
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            ring_o = whole
+            t0 = time.perf_counter()
+            dense = dense_attention(q.to(DEV), k.to(DEV), v.to(DEV), causal=True,
+                                    kv_mask=mask.to(DEV))
+            torch.cuda.synchronize()
+            out["long_dense_s"] = time.perf_counter() - t0
+            err = (ring_o - dense).abs()
+            out["long_max_abs_err"] = float(err.max())
+            out["long_within_tol"] = bool((err <= RING_LONG_TOL * (1 + dense.abs())).all())
+            out["long_finite"] = bool(torch.isfinite(ring_o).all())
+        dist.barrier()
+    return out
+
+
+def vit_ring(smi: str) -> dict:
+    ranks, spawn_s = spawn_ranks(RING_WORLD, "gloo", card_per_rank=False, work="_ring_rank_work")
+    rec = {"world": RING_WORLD, "backend": "gloo", "spawn_s": spawn_s,
+           "long_shape": list(RING_LONG), "ranks": ranks, "nvidia_smi": smi}
+    phase("vit", part="ring attention", vit_tol=RING_VIT_REL, long_tol=RING_LONG_TOL, **rec)
+    bad = [r for r in ranks if r["vit_max_rel"] > RING_VIT_REL or r["vit_tokens"] != 197]
+    if bad:
+        raise AssertionError(f"ring ViT-B/16 encoder off the dense one: {bad}")
+    if not (ranks[0]["long_within_tol"] and ranks[0]["long_finite"]):
+        raise AssertionError(f"causal + kv_mask ring off dense attention: {ranks[0]}")
+    return rec
+
+
+def vit_featurizer(smi: str, repo: str, cpu_vars: dict) -> dict:
+    """``ImageFeaturizer("ViTB16")`` on the card: images/s, card vs CPU,
+    launches per batch under ``trace()``."""
+    from dataclasses import asdict
+
+    from mmlspark_tpu_torch.core.profiling import trace
+    from mmlspark_tpu_torch.downloader import ModelDownloader, ModelSchema, zoo
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+
+    # the zoo's own seeded ViTB16 (what download_by_name writes), from the
+    # CPU draw already made
+    ModelDownloader(repo).register(ModelSchema(**asdict(zoo.BUILTIN_MODELS[VIT_ZOO])), cpu_vars)
+    imgs = np.random.default_rng(SEED).integers(0, 256, (VIT_ROWS, VIT_SIZE, VIT_SIZE, 3),
+                                                dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs})
+    kw = dict(input_col="image", output_col="features", model_name=VIT_ZOO,
+              cut_output_layers=1, batch_size=VIT_BATCH, repo_dir=repo)
+    feat = ImageFeaturizer(**kw)
+    t0 = time.perf_counter()
+    feat.transform(DataFrame.from_dict({"image": imgs[:VIT_BATCH]}))
+    setup_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = feat.transform(df)["features"]
+        runs.append(time.perf_counter() - t0)
+    if out.shape != (VIT_ROWS, 768) or not np.isfinite(out).all():
+        raise AssertionError(f"ViT-B/16 features malformed: {out.shape}")
+    cpu = ImageFeaturizer(**dict(kw, batch_size=VIT_CHECK_ROWS), device="cpu").transform(
+        DataFrame.from_dict({"image": imgs[:VIT_CHECK_ROWS]}))["features"]
+    rel = _rel_l2(out[:VIT_CHECK_ROWS], cpu)
+    log_dir = os.path.join(ROOT, "build", "chip_smoke_vit_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    batch = DataFrame.from_dict({"image": imgs[:VIT_BATCH]})
+    with trace(log_dir) as prof:
+        feat.transform(batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e.name for e in events if e.name in _HOST_LAUNCHES]
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f)) for f in os.listdir(log_dir))
+    shutil.rmtree(log_dir, ignore_errors=True)
+    rec = {"rows": VIT_ROWS, "batch": VIT_BATCH, "setup_s": setup_s, "transform_s": runs,
+           "images_per_s": VIT_ROWS / min(runs), "card_vs_cpu_rel_l2": rel,
+           "traced_batch": {"host_launch_calls": len(host), "device_kernels": len(kernels),
+                            "device_ms": sum(getattr(e, "device_time", 0.0)
+                                             for e in kernels) / 1e3,
+                            "trace_file_bytes": trace_bytes},
+           "nvidia_smi": smi}
+    phase("vit", part="featurizer", tol=FEAT_BF16_L2, **rec)
+    if rel > FEAT_BF16_L2:
+        raise AssertionError(f"ViT-B/16 card features off the CPU's: {rel}")
+    if not kernels or trace_bytes == 0:
+        raise AssertionError("the ViT-B/16 trace holds no device kernel")
+    return rec
+
+
+def vit_serving(smi: str, repo: str) -> dict:
+    """``VIT_REQUESTS`` sequential ``zoo:ViTB16`` POSTs to a WorkerServer:
+    every reply 200 and bitwise the in-process featurizer's call on the
+    same image (one image a call, padded to the batch, as served)."""
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+    from mmlspark_tpu_torch.serving import WorkerServer
+    from mmlspark_tpu_torch.serving.modelstore import ModelDispatcher, ModelStore
+
+    imgs = np.random.default_rng(SEED + 1).integers(0, 256, (SERVE_IMAGES, VIT_SIZE, VIT_SIZE, 3),
+                                                    dtype=np.uint8)
+    bodies = [json.dumps({"image": im.tolist()}).encode() for im in imgs]
+    feat = ImageFeaturizer(input_col="image", output_col="f", model_name=VIT_ZOO,
+                           repo_dir=repo, device=DEV.type)
+    want = [feat.transform(DataFrame.from_dict({"image": im[None]}))["f"][0] for im in imgs]
+    store = ModelStore(device=DEV.type, zoo_dir=repo)
+    t0 = time.perf_counter()
+    store.load("vit", f"zoo:{VIT_ZOO}")
+    load_s = time.perf_counter() - t0
+    srv = WorkerServer(name="chip-smoke-vit")
+    info = srv.start()
+    disp = ModelDispatcher(srv, store, max_batch_size=SERVE_BUCKETS).start()
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", info.port, timeout=120)
+    status, bad, ms = [], [], []
+    try:
+        for i in range(VIT_REQUESTS):
+            k = i % len(bodies)
+            t0 = time.perf_counter()
+            conn.request("POST", "/models/vit", body=bodies[k],
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            data = r.read()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            status.append(r.status)
+            if r.status != 200 or not np.array_equal(
+                    np.asarray(json.loads(data)["features"], np.float32), want[k]):
+                bad.append(i)
+    finally:
+        conn.close()
+        disp.stop()
+        srv.stop()
+        store.unload("vit")
+    rec = {"requests": VIT_REQUESTS, "load_s": load_s, "non_200": sum(s != 200 for s in status),
+           "not_bitwise": len(bad), **_quantiles(ms), "nvidia_smi": smi}
+    phase("vit", part="zoo serving", **rec)
+    if bad:
+        raise AssertionError(f"zoo:{VIT_ZOO}: requests {bad[:8]} not 200 or not bitwise")
+    return rec
+
+
+def vit_phase(smi: str, repo: str) -> dict:
+    """Phase ``vit``: the seeded init (card vs flax's sums, card vs CPU),
+    ring attention over ranks, the featurizer and ``zoo:ViTB16`` serving."""
+    _settle()  # the ring's ranks share this card: free what earlier phases cached
+    t0 = time.perf_counter()
+    before = _hand_written_launches()
+    th, cpu, card, init = vit_seeded_init()
+    ring = vit_ring(smi)
+    init = vit_init_card_vs_cpu(th, cpu, card, init)
+    del card
+    feat = vit_featurizer(smi, repo, cpu.pop("vars"))
+    serve = vit_serving(smi, repo)
+    rec = {"seeded_init": init, "ring": ring, "featurizer": feat, "serving": serve,
+           "hand_written_launches": {k: v - before.get(k, 0)
+                                     for k, v in _hand_written_launches().items()}}
+    phase("vit", part="total", seconds=time.perf_counter() - t0,
+          hand_written_launches=rec["hand_written_launches"])
+    return rec
+
+
+# -- sequence: the BiLSTM tagger ----------------------------------------------
+
+
+def tagger_task(n: int, seed: int) -> tuple:
+    """tests/test_sequence.py's task at ``TAGGER_T`` tokens: tokens >= 40
+    are tag 1, the token after trigger 5 tag 2, else 0; lengths 6..T."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, TAGGER_VOCAB, (n, TAGGER_T))
+    tags = np.where(tokens >= 40, 1, 0)
+    trig = np.zeros_like(tokens)
+    trig[:, 1:] = tokens[:, :-1] == 5
+    tags = np.where(trig.astype(bool) & (tags == 0), 2, tags)
+    return tokens, tags, rng.integers(6, TAGGER_T + 1, (n,))
+
+
+def sequence_phase(smi: str) -> dict:
+    """Phase ``sequence``: the BiLSTM tagger at the reference's widths
+    (embed 64, hidden 64) card vs CPU on carried weights, 200
+    ``train_tagger`` steps on the card (held-out token accuracy), and
+    ``packed_apply_fn`` served through ``TorchModel``."""
+    from mmlspark_tpu_torch.models import TorchModel
+    from mmlspark_tpu_torch.models import sequence as S
+
+    t_start = time.perf_counter()
+    before = _hand_written_launches()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    tok, tags, lens = tagger_task(TAGGER_TEST, SEED + 1)
+    model = S.init_tagger(S.BiLSTMTagger(TAGGER_VOCAB, TAGGER_TAGS), seed=SEED).eval()
+    with torch.no_grad():
+        cpu = model(torch.from_numpy(tok), torch.from_numpy(lens))
+        card = model.to(DEV)(torch.from_numpy(tok).to(DEV), torch.from_numpy(lens).to(DEV))
+    valid = np.arange(TAGGER_T)[None, :] < lens[:, None]
+    rel = {}
+    for k in ("hidden", "logits"):
+        a, b = cpu[k].numpy(), card[k].cpu().numpy()
+        rel[k] = float(np.abs(a[valid] - b[valid]).max() / np.abs(a[valid]).max())
+    pad_exact = bool(np.array_equal(card["logits"].cpu().numpy()[~valid],
+                                    cpu["logits"].numpy()[~valid]))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    tr_tok, tr_tags, tr_lens = tagger_task(TAGGER_TRAIN, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, variables = S.train_tagger(tr_tok, tr_tags, TAGGER_VOCAB, TAGGER_TAGS,
+                                       seq_lengths=tr_lens, num_steps=TAGGER_STEPS, seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        logits = fitted(torch.from_numpy(tok).to(DEV), torch.from_numpy(lens).to(DEV))["logits"]
+    acc = float((logits.argmax(-1).cpu().numpy() == tags)[valid].mean())
+    tm = TorchModel(input_col="packed", output_col="tag_logits", batch_size=64,
+                    input_dtype="int32")
+    tm.set(apply_fn=S.BiLSTMTagger(TAGGER_VOCAB, TAGGER_TAGS).packed_apply_fn(),
+           variables=variables)
+    t0 = time.perf_counter()
+    served = np.stack(tm.transform(DataFrame.from_dict(
+        {"packed": S.pack_lengths(tok, lens)}))["tag_logits"])
+    serve_s = time.perf_counter() - t0
+    direct = logits.cpu().numpy()
+    serve_rel = float(np.abs(served - direct).max() / np.abs(direct[valid]).max())
+    served_pad_tag0 = bool((served.argmax(-1)[~valid] == 0).all())
+    rec = {"widths": {"embed": 64, "hidden": 64}, "card_vs_cpu_max_rel": rel,
+           "pad_logits_exact": pad_exact, "train_steps": TAGGER_STEPS,
+           "train_sequences": TAGGER_TRAIN, "train_s": train_s, "token_accuracy": acc,
+           "served_rows": len(served), "serve_s": serve_s, "served_vs_direct_max_rel": serve_rel,
+           "served_pad_tag0": served_pad_tag0,
+           "hand_written_launches": {k: v - before.get(k, 0)
+                                     for k, v in _hand_written_launches().items()},
+           "seconds": time.perf_counter() - t_start, "nvidia_smi": smi}
+    phase("sequence", tol=TAGGER_REL, acc_floor=TAGGER_ACC, **rec)
+    if max(rel.values()) > TAGGER_REL or not pad_exact:
+        raise AssertionError(f"tagger card vs CPU: {rel}, pad logits exact {pad_exact}")
+    if acc <= TAGGER_ACC:
+        raise AssertionError(f"tagger token accuracy {acc} <= {TAGGER_ACC}")
+    if serve_rel > TAGGER_REL or not served_pad_tag0:
+        raise AssertionError(f"served tagger off the direct call: {serve_rel}")
+    return rec
+
+
+# -- explain_knn: ImageLIME, TabularLIME, KNN, ProfiledRun ----------------------
+
+
+def lime_vit(smi: str, repo: str) -> dict:
+    """``ImageLIME`` explaining the ViT-B/16 featurizer's class-1 logit on
+    the card; then ViTTiny at 32 x 32 (f32, TF32 off) on the card against
+    the CPU plain: the same label maps and states, coefficients within
+    ``LIME_COEF_REL``."""
+    from mmlspark_tpu_torch.downloader import ModelDownloader
+    from mmlspark_tpu_torch.lime import ImageLIME
+    from mmlspark_tpu_torch.lime import lime as L
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+    from mmlspark_tpu_torch.models import vit as V
+
+    rng = np.random.default_rng(SEED + 2)
+    imgs = np.empty(LIME_IMAGES, dtype=object)
+    for i in range(LIME_IMAGES):
+        imgs[i] = rng.integers(0, 256, (VIT_SIZE, VIT_SIZE, 3)).astype(np.float32)
+    inner = ImageFeaturizer(input_col="image", output_col="logits", model_name=VIT_ZOO,
+                            cut_output_layers=0, batch_size=VIT_BATCH, repo_dir=repo)
+    lime = ImageLIME(input_col="image", model=inner, prediction_col="logits",
+                     n_samples=LIME_SAMPLES, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lime.transform(DataFrame.from_dict({"image": imgs}))
+    vit_s = time.perf_counter() - t0
+    finite = all(np.isfinite(w).all() and len(w) > 1 for w in out["weights"])
+
+    _, tiny_vars, _ = ModelDownloader(repo).load("ViTTiny", device="cpu")
+    tiny = np.empty(LIME_IMAGES, dtype=object)
+    for i in range(LIME_IMAGES):
+        tiny[i] = rng.integers(0, 256, (LIME_TINY_SIZE, LIME_TINY_SIZE, 3)).astype(np.float32)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for dev in ("cuda", "cpu"):
+        net = V.load_flax_variables(V.vit_tiny(num_classes=10, dtype=torch.float32), tiny_vars)
+        model = ImageFeaturizer(input_col="image", output_col="logits", module=net,
+                                image_size=LIME_TINY_SIZE, cut_output_layers=0,
+                                batch_size=VIT_BATCH, device=dev)
+        t0 = time.perf_counter()
+        res[dev] = ImageLIME(input_col="image", model=model, prediction_col="logits",
+                             n_samples=LIME_SAMPLES, cell_size=8.0, seed=SEED,
+                             device=dev).transform(DataFrame.from_dict({"image": tiny}))
+        res[dev + "_s"] = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    labels_equal = all(np.array_equal(a, b) for a, b in zip(res["cuda"]["superpixels"],
+                                                            res["cpu"]["superpixels"]))
+    key = L.prng_key(SEED)
+    states_equal = True
+    for lab in res["cpu"]["superpixels"]:
+        key, sub = L.split(key)
+        shape = (LIME_SAMPLES, int(lab.max()) + 1)
+        states_equal &= bool(np.array_equal(L.bernoulli(sub, 0.7, shape, DEV).cpu().numpy(),
+                                            L.bernoulli(sub, 0.7, shape, torch.device("cpu"))
+                                            .numpy()))
+    coef_rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+                   for a, b in zip(res["cuda"]["weights"], res["cpu"]["weights"]))
+    rec = {"vit_b16": {"images": LIME_IMAGES, "n_samples": LIME_SAMPLES, "seconds": vit_s,
+                       "model_passes": LIME_IMAGES * LIME_SAMPLES, "finite": finite,
+                       "superpixels": [int(w.size) for w in out["weights"]]},
+           "vit_tiny_card_vs_cpu": {"labels_equal": labels_equal, "states_equal": states_equal,
+                                    "coef_max_rel": coef_rel, "card_s": res["cuda_s"],
+                                    "cpu_s": res["cpu_s"]},
+           "nvidia_smi": smi}
+    phase("explain_knn", part="image lime", coef_tol=LIME_COEF_REL, **rec)
+    if not finite:
+        raise AssertionError("ImageLIME on ViT-B/16: non-finite coefficients")
+    if not (labels_equal and states_equal) or coef_rel > LIME_COEF_REL:
+        raise AssertionError(f"ImageLIME card vs CPU: {rec['vit_tiny_card_vs_cpu']}")
+    return rec
+
+
+def lime_tabular(smi: str, gbdt_string: str, x, x_test) -> dict:
+    """``TabularLIME`` on 16 held-out rows of the trees/s cell explaining
+    the main path's lossguide ``LightGBMClassifier`` (its class-1
+    probability) on the card."""
+    from mmlspark_tpu_torch.lime import TabularLIME
+    from mmlspark_tpu_torch.models.gbdt import LightGBMClassificationModel
+
+    model = LightGBMClassificationModel.load_native_model_from_string(gbdt_string,
+                                                                      device=DEV.type)
+    lime = TabularLIME(input_col="features", model=model, prediction_col="probability",
+                       seed=SEED).fit(DataFrame.from_dict({"features": x}))
+    before = _hand_written_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = lime.transform(DataFrame.from_dict({"features": x_test[:LIME_TAB_ROWS]}))["weights"]
+    secs = time.perf_counter() - t0
+    w = np.stack(w)
+    top = np.argsort(-np.abs(w).mean(0))[:3]
+    rec = {"rows": LIME_TAB_ROWS, "n_samples": lime.get("n_samples"), "seconds": secs,
+           "finite": bool(np.isfinite(w).all()), "top_features": top.tolist(),
+           "hand_written_launches": {k: v - before.get(k, 0)
+                                     for k, v in _hand_written_launches().items()},
+           "nvidia_smi": smi}
+    phase("explain_knn", part="tabular lime", **rec)
+    if not rec["finite"] or w.shape != (LIME_TAB_ROWS, x.shape[1]):
+        raise AssertionError(f"TabularLIME coefficients malformed: {w.shape}")
+    # y = (x0 + x1 * x2 > 0): the three features the model splits on lead
+    if set(top.tolist()) != {0, 1, 2}:
+        raise AssertionError(f"TabularLIME's largest coefficients are on {top}, not 0, 1, 2")
+    return rec
+
+
+@functools.lru_cache(maxsize=1)
+def knn_data() -> tuple:
+    """The 100,000 x 768 f32 index (ViT-B/16's pool width) with rows
+    50,000.. repeating rows 0..999, labels, and 1,024 queries, a quarter
+    of them copies of those rows (their top matches tie with the copies)."""
+    rng = np.random.default_rng(SEED + 3)
+    x = rng.standard_normal((KNN_N, KNN_D), dtype=np.float32)
+    x[KNN_N // 2: KNN_N // 2 + KNN_DUPS] = x[:KNN_DUPS]
+    q = rng.standard_normal((KNN_Q, KNN_D), dtype=np.float32)
+    q[: KNN_Q // 4] = x[rng.integers(0, KNN_DUPS, KNN_Q // 4)]
+    labels = rng.integers(0, KNN_LABELS, KNN_N)
+    conds = np.empty(KNN_Q, dtype=object)
+    for i in range(KNN_Q):
+        conds[i] = sorted(rng.choice(KNN_LABELS, 3, replace=False).tolist())
+    return x, q, labels, conds
+
+
+def _knn_hold(got, want) -> dict:
+    """Scores within KNN_REL relative; indices equal wherever the score's
+    gap to its neighbours exceeds KNN_REL relative (and the positions left
+    out); the card's exact ties ordered by index."""
+    gi = np.array([[m["index"] for m in r] for r in got])
+    wi = np.array([[m["index"] for m in r] for r in want])
+    gs = np.array([[m["distance"] for m in r] for r in got])
+    ws = np.array([[m["distance"] for m in r] for r in want])
+    scores_ok = gs.shape == ws.shape and bool(
+        (np.abs(gs - ws) <= KNN_REL * np.maximum(np.abs(ws), 1.0)).all())
+    gap = np.minimum(np.abs(np.diff(ws, axis=1, append=-np.inf)),
+                     np.abs(np.diff(ws, axis=1, prepend=np.inf)))
+    clear = gap > KNN_REL * np.abs(ws)
+    # the card's own exact ties (duplicated rows) must come lower index first
+    ties = gs[:, 1:] == gs[:, :-1]
+    return {"scores_ok": scores_ok, "indices_ok": bool(np.array_equal(gi[clear], wi[clear])),
+            "left_out": int((~clear).sum()), "exact_ties": int(ties.sum()),
+            "ties_lower_index_first": bool((gi[:, 1:][ties] > gi[:, :-1][ties]).all())}
+
+
+def knn_phase_part(smi: str) -> dict:
+    """``KNN`` and ``ConditionalKNN`` over the index on the card, at the
+    default ``index_chunk_size`` and at ``KNN_CHUNK`` (4 chunks), against
+    the CPU plain (the same stages with ``device="cpu"``)."""
+    from mmlspark_tpu_torch.nn import KNN, ConditionalKNN
+
+    x, q, labels, conds = knn_data()
+    index = DataFrame.from_dict({"features": x, "values": np.arange(KNN_N), "label": labels})
+    qdf = DataFrame.from_dict({"features": q, "conditioner": conds})
+    rec, fails = {}, []
+    for name, est in (("knn", KNN), ("conditional_knn", ConditionalKNN)):
+        kw = dict(k=KNN_K, **({"label_col": "label"} if name != "knn" else {}))
+        t0 = time.perf_counter()
+        want = est(**kw, device="cpu").fit(index).transform(qdf)["matches"]
+        cpu_s = time.perf_counter() - t0
+        for chunk in (None, KNN_CHUNK):
+            model = est(**kw, **({} if chunk is None else {"index_chunk_size": chunk})).fit(index)
+            t0 = time.perf_counter()
+            model.transform(qdf)  # places the index on the card
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = model.transform(qdf)["matches"]
+            secs = time.perf_counter() - t0
+            held = _knn_hold(got, want)
+            key = f"{name}_{'default' if chunk is None else chunk}"
+            rec[key] = {"chunk": model.get("index_chunk_size"), "first_s": first_s,
+                        "seconds": secs, "queries_per_s": KNN_Q / secs, "cpu_s": cpu_s, **held}
+            if not (held["scores_ok"] and held["indices_ok"] and held["ties_lower_index_first"]
+                    and held["exact_ties"]):
+                fails.append(f"{key}: {held}")
+    rec = {"index": [KNN_N, KNN_D], "queries": KNN_Q, "k": KNN_K, "runs": rec,
+           "nvidia_smi": smi}
+    phase("explain_knn", part="knn", rel_tol=KNN_REL, **rec)
+    if fails:
+        raise AssertionError(f"KNN on the card off the CPU plain: {fails}")
+    return rec
+
+
+def profiled_vit_knn(smi: str, repo: str) -> dict:
+    """``ProfiledRun`` over ``ImageFeaturizer("ViTB16") -> KNNModel`` (an
+    index of 100,000 pool-width rows) on one batch of images."""
+    from mmlspark_tpu_torch import PipelineModel
+    from mmlspark_tpu_torch.core.profiling import ProfiledRun
+    from mmlspark_tpu_torch.models import ImageFeaturizer
+    from mmlspark_tpu_torch.nn import KNN
+
+    x, _, _, _ = knn_data()
+    knn = KNN(k=KNN_K).fit(DataFrame.from_dict({"features": x, "values": np.arange(KNN_N)}))
+    feat = ImageFeaturizer(input_col="image", output_col="features", model_name=VIT_ZOO,
+                           cut_output_layers=1, batch_size=VIT_BATCH, repo_dir=repo)
+    pm = PipelineModel([feat, knn])
+    imgs = np.random.default_rng(SEED + 4).integers(0, 256, (VIT_BATCH, VIT_SIZE, VIT_SIZE, 3),
+                                                    dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs})
+    pm.transform(df)  # warm: the backbone and the index placed
+    prof = ProfiledRun()
+    out = prof.transform(pm, df)
+    stats = prof.stats()
+    rec = {"stages": stats["stage"].tolist(), "seconds": stats["seconds"].tolist(),
+           "rows": VIT_BATCH, "nvidia_smi": smi}
+    phase("explain_knn", part="profiled run", **rec)
+    if rec["stages"] != ["ImageFeaturizer", "KNNModel"] or len(out["matches"][0]) != KNN_K:
+        raise AssertionError(f"ProfiledRun over the ViT -> KNN pipeline: {rec}")
+    return rec
+
+
+def explain_knn_phase(smi: str, repo: str, gbdt_string: str, x, x_test) -> dict:
+    t0 = time.perf_counter()
+    rec = {"image_lime": lime_vit(smi, repo), "tabular_lime": lime_tabular(smi, gbdt_string,
+                                                                             x, x_test),
+           "knn": knn_phase_part(smi), "profiled": profiled_vit_knn(smi, repo)}
+    phase("explain_knn", part="total", seconds=time.perf_counter() - t0)
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -5162,6 +5805,15 @@ def main() -> None:
         cont = continuous(smi, kept, vw_serve["online"], x, y, x_test, y_test)
     finally:
         fleet_stop(kept)
+    # the ViT's zoo lives under build/ and is removed after
+    vit_repo = os.path.join(ROOT, "build", "chip_smoke_vit_zoo")
+    shutil.rmtree(vit_repo, ignore_errors=True)
+    t_new = time.perf_counter()
+    vit_phase(smi, vit_repo)
+    sequence_phase(smi)
+    explain_knn_phase(smi, vit_repo, runs["lossguide"]["model_string"], x, x_test)
+    phase("new_phases", seconds=time.perf_counter() - t_new)
+    shutil.rmtree(vit_repo, ignore_errors=True)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

@@ -13,8 +13,9 @@ A schema with no checkpoint (``ResNet50`` and the other large variants)
 gets a seeded random init with a loud warning, as in the JAX package:
 flax's own init of ``PRNGKey(schema.seed)`` reproduced without JAX
 (``models.resnet.init_flax_variables``, within 4 ulp), so both packages'
-seeded ResNet-50s give the same features. ViT schemas raise
-``NotImplementedError`` until the port has a ViT (ROADMAP Queue A item 9).
+seeded ResNet-50s give the same features. ViT-B/16 has no checkpoint
+either: its seeded init is flax's ``init_vit(seed)`` reproduced the same
+way (``models.vit.init_flax_variables``), at the schema's image size.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ import torch
 from mmlspark_tpu_torch.core.device import resolve_device
 from mmlspark_tpu_torch.core.utils import retry_with_backoff
 from mmlspark_tpu_torch.downloader import flax_msgpack
-from mmlspark_tpu_torch.downloader.torch_import import VIT_TODO
 
 log = logging.getLogger("mmlspark_tpu_torch.downloader")
 
@@ -75,7 +75,7 @@ class ModelSchema:
         return json.dumps(asdict(self), indent=1)
 
 
-_VIT_LAYERS = ("logits", "pool", "encoder", "patches")
+_VIT_LAYERS = ("logits", "pool", "encoder", "patches")  # == models.vit.LAYER_NAMES
 
 BUILTIN_MODELS = {
     "ResNet18": ModelSchema(name="ResNet18", variant="ResNet18"),
@@ -105,12 +105,19 @@ BUILTIN_MODELS = {
 
 
 def build_module(schema: ModelSchema) -> Any:
-    """The schema's backbone (bf16, as the JAX package's), uninitialised;
-    ResNets only."""
+    """The schema's backbone (bf16, as the JAX package's), its weights not
+    yet set (a ViT's memory is not even initialised: the checkpoint or the
+    seeded init fills it)."""
     from mmlspark_tpu_torch.models.resnet import RESNETS
+    from mmlspark_tpu_torch.models.vit import VITS
 
-    if schema.variant.startswith("ViT"):
-        raise NotImplementedError(VIT_TODO)
+    if schema.variant in VITS:
+        # the pos embedding's length follows the schema's image size, as
+        # flax's init infers it from its input
+        with torch.device("meta"):
+            module = VITS[schema.variant](num_classes=schema.num_classes,
+                                          image_size=schema.image_size)
+        return module.to_empty(device="cpu")
     if schema.variant not in RESNETS:
         raise ValueError(f"unknown variant {schema.variant!r}; known: {list(RESNETS)}")
     width = {} if schema.num_filters is None else {"num_filters": schema.num_filters}
@@ -195,8 +202,6 @@ class ModelDownloader:
         if schema is None:
             raise KeyError(f"unknown model {name!r}; known: {self.list_models()}")
         schema = ModelSchema(**asdict(schema))  # the table stays unfilled
-        if schema.variant.startswith("ViT"):
-            raise NotImplementedError(VIT_TODO)
         if schema.uri:  # remote fetch path (with retries); unused offline
             retry_with_backoff(lambda: self._fetch(schema, wpath))
             with open(wpath, "rb") as f:
@@ -204,8 +209,9 @@ class ModelDownloader:
             schema.sha256 = hashlib.sha256(blob).hexdigest()
             self.install_blob(schema, blob)
         else:
-            from mmlspark_tpu_torch.models.resnet import init_flax_variables
+            from mmlspark_tpu_torch.models import resnet, vit
 
+            init = vit if schema.variant in vit.VITS else resnet
             log.warning(
                 "model %r has no trained checkpoint in this egress-free "
                 "repository; materializing a SEEDED RANDOM init — features "
@@ -214,7 +220,8 @@ class ModelDownloader:
                 "checkpoints)",
                 name,
             )
-            self.register(schema, init_flax_variables(build_module(schema), seed=schema.seed))
+            self.register(schema, init.init_flax_variables(build_module(schema),
+                                                           seed=schema.seed))
         return schema
 
     def load_variables(self, name: str) -> tuple:
@@ -230,11 +237,12 @@ class ModelDownloader:
     def load(self, name: str, device: "str | torch.device | None" = None) -> tuple:
         """Return (module on ``device``, variables, schema), ready for
         TorchModel. ``device`` None is the card (raises without one)."""
-        from mmlspark_tpu_torch.models.resnet import load_flax_variables
+        from mmlspark_tpu_torch.models import resnet, vit
 
         dev = resolve_device(device)
         variables, schema = self.load_variables(name)
-        module = load_flax_variables(build_module(schema), variables)
+        kind = vit if schema.variant in vit.VITS else resnet
+        module = kind.load_flax_variables(build_module(schema), variables)
         return module.to(dev).eval(), variables, schema
 
     def _fetch(self, schema: ModelSchema, wpath: str) -> None:

@@ -49,6 +49,27 @@ def _threefry2x32(k1: int, k2: int, x1, x2) -> tuple:
     return x1, x2
 
 
+def _i32(v: int) -> int:
+    """A uint32 value as the int32 of the same bits."""
+    v &= _M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _threefry2x32_i32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor) -> tuple:
+    """``_threefry2x32`` on int32 tensors: the same bits, each add wrapping
+    in two's complement, half the memory traffic of the int64 form (about
+    twice as fast on the CPU). ``k1``, ``k2`` are ints."""
+    ks = (_i32(k1), _i32(k2), _i32(k1 ^ k2 ^ 0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = x1 + x2
+            x2 = ((x2 << r) | ((x2 >> (32 - r)) & ((1 << r) - 1))) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + _i32(ks[(i + 2) % 3] + i + 1)
+    return x1, x2
+
+
 def fold_in(key: tuple, data) -> tuple:
     """``jax.random.fold_in(key, data)`` of a raw (2,) uint32 key:
     ``threefry2x32(key, (0, data))``. ``key`` and ``data`` are ints or
@@ -72,8 +93,14 @@ def random_bits(key: tuple, n: int, device: torch.device, offset: int = 0) -> to
     int64 values) with JAX's partitionable Threefry: element i is
     ``bits1 ^ bits2`` of ``threefry2x32(key, (hi(i), lo(i)))``, whatever N;
     a multi-dimensional draw is the flat draw of its row-major element
-    count."""
+    count. With int keys on the CPU the rounds run in int32."""
     i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    if i.device.type == "cpu" and all(isinstance(k, int) for k in key):
+        lo = i & _M32
+        lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo)
+        b1, b2 = _threefry2x32_i32(key[0], key[1], (i >> 32).to(torch.int32),
+                                   lo.to(torch.int32))
+        return (b1 ^ b2).to(torch.int64) & _M32
     b1, b2 = _threefry2x32(key[0], key[1], i >> 32, i & _M32)
     return b1 ^ b2
 

@@ -10,8 +10,9 @@ backbone form one ``nn.Module`` evaluated on the card by ``TorchModel`` in
 fixed batches, with uint8 pixels on the wire and the cast on the card.
 ``cut_output_layers=k`` selects the k-th entry of the schema's
 ``layer_names`` (0 = logits, 1 = pooled features), and the backbone stops
-at that output (``ResNet.forward(until=...)``), so the head past it never
-runs. The backbone computes in bf16, as the JAX package's does. The
+at that output (``forward(until=...)`` of the zoo's ResNet and ViT), so
+the head past it never runs. The backbone computes in bf16, as the JAX
+package's does. The
 pipeline compiler fuses the stage only with ``compile(exact=False)``
 (``fusable_kernel``).
 """
@@ -41,7 +42,7 @@ from mmlspark_tpu_torch.ops import image as image_ops
 class FeaturizerNet(nn.Module):
     """Raw pixels (N, H, W, C), 0..255, any dtype -> the named output of
     ``backbone``: BGR flip (``bgr``), resize to ``size``, normalise, then
-    ``backbone(x, until=node)`` (a zoo ResNet stops there)."""
+    ``backbone(x, until=node)`` (a zoo ResNet or ViT stops there)."""
 
     def __init__(self, backbone: nn.Module, size: int, node: str, bgr: bool):
         super().__init__()

@@ -399,6 +399,23 @@ def lecun_normal(key: tuple, shape: tuple, fan_in: int,
     return (out * torch.tensor(std, device=device)).reshape(shape)
 
 
+def normal(key: tuple, shape: tuple, stddev: Optional[float] = None,
+           device: "str | torch.device" = "cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32 (times ``stddev``, as
+    ``flax.linen.initializers.normal(stddev)``): the Threefry uniform in
+    (nextafter(-1, 0), 1) with its fused scale and shift, then sqrt(2) *
+    erf_inv, every step rounded to f32 as XLA does (within 2 ulp)."""
+    n = int(np.prod(shape))
+    lo = torch.tensor(np.nextafter(np.float32(-1), np.float32(0)), device=device)
+    hi = torch.tensor(1.0, dtype=torch.float32, device=device)
+    unit = sampling.bits_to_unit(sampling.random_bits(key, n, device))
+    u = torch.maximum(lo, _fma32(unit, hi - lo, lo))
+    z = torch.tensor(np.sqrt(2), dtype=torch.float32, device=device) * _erfinv32(u)
+    if stddev is not None:
+        z = z * torch.tensor(stddev, dtype=torch.float32, device=device)
+    return z.reshape(shape)
+
+
 def init_flax_variables(module: ResNet, seed: int = 0,
                         device: "str | torch.device" = "cpu") -> dict:
     """flax's seeded init of ``module`` (``model.init(PRNGKey(seed))`` of

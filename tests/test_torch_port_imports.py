@@ -95,6 +95,14 @@ def test_import_with_jax_blocked(tmp_path):
         "    Violation, conductor, invariants)\n"
         "from mmlspark_tpu_torch.chaos.conductor import run_chaos_cli\n"
         "from mmlspark_tpu_torch.serving.fleet import run_online\n"
+        "from mmlspark_tpu_torch.core.profiling import trace, annotate, ProfiledRun\n"
+        "from mmlspark_tpu_torch.ops.ring_attention import ring_attention, dense_attention\n"
+        "from mmlspark_tpu_torch.models import vit, sequence\n"
+        "from mmlspark_tpu_torch.models.vit import ViT, VITS, init_flax_variables\n"
+        "from mmlspark_tpu_torch.models.sequence import BiLSTMTagger, train_tagger\n"
+        "from mmlspark_tpu_torch.downloader import import_torch_vit\n"
+        "from mmlspark_tpu_torch.lime import ImageLIME, TabularLIME, slic, lasso\n"
+        "from mmlspark_tpu_torch.nn import KNN, ConditionalKNN, BallTree\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
@@ -122,12 +130,18 @@ def test_import_with_jax_blocked(tmp_path):
     "mmlspark_tpu_torch.experiments.trial", "mmlspark_tpu_torch.experiments.controller",
     "mmlspark_tpu_torch.experiments", "mmlspark_tpu_torch.chaos.invariants",
     "mmlspark_tpu_torch.chaos.conductor", "mmlspark_tpu_torch.chaos",
+    "mmlspark_tpu_torch.core.profiling", "mmlspark_tpu_torch.ops.ring_attention",
+    "mmlspark_tpu_torch.models.vit", "mmlspark_tpu_torch.models.sequence",
+    "mmlspark_tpu_torch.downloader.torch_import", "mmlspark_tpu_torch.lime.superpixel",
+    "mmlspark_tpu_torch.lime.lasso", "mmlspark_tpu_torch.lime.lime", "mmlspark_tpu_torch.lime",
+    "mmlspark_tpu_torch.nn.balltree", "mmlspark_tpu_torch.nn.knn", "mmlspark_tpu_torch.nn",
 ])
 def test_no_shared_disk_modules_import_alone(module):
     """Each module of the gang's no-shared-disk modes, of the serving
-    fleet, of continuous learning, of the experiments and of the chaos
-    conductor, alone in a fresh interpreter, loads neither JAX nor the JAX
-    package."""
+    fleet, of continuous learning, of the experiments, of the chaos
+    conductor, of the profiler, ring attention, the ViT and BiLSTM models,
+    LIME and KNN, alone in a fresh interpreter, loads neither JAX nor the
+    JAX package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -153,11 +167,12 @@ def test_gbdt_exports_every_name_of_the_jax_package():
 
 # names of the JAX package's ``__all__`` the port does not export yet: none
 # (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported; so are
-# A4 step 1, ``parallel``, and A7, ``serving``, ``online``, ``experiments``
-# and ``chaos``)
+# A4 step 1, ``parallel``, A7, ``serving``, ``online``, ``experiments``
+# and ``chaos``, and A10's ``lime`` and ``nn``)
 A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
                 "obs": set(), "parallel": set(), "serving": set(), "online": set(),
-                "experiments": set(), "chaos": set()}
+                "experiments": set(), "chaos": set(), "lime": set(), "nn": set(),
+                "downloader": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
@@ -170,6 +185,20 @@ def test_pipeline_slice_exports_every_name(package):
     P = importlib.import_module(f"mmlspark_tpu_torch.{package}")
     missing = {n for n in J.__all__ if n not in P.__all__ or not hasattr(P, n)}
     assert missing == A6_REMAINDER[package] == set()
+
+
+def test_models_and_top_level_export_every_name():
+    """``models`` exports every name of the JAX package's but ``XLAModel``,
+    whose counterpart is ``TorchModel``; the top level exports the JAX
+    package's names."""
+    import mmlspark_tpu as JT
+    import mmlspark_tpu.models as J
+    import mmlspark_tpu_torch as PT
+    import mmlspark_tpu_torch.models as P
+
+    assert {n for n in J.__all__ if n not in P.__all__ or not hasattr(P, n)} == {"XLAModel"}
+    assert "TorchModel" in P.__all__
+    assert set(JT.__all__) == set(PT.__all__)
 
 
 def _imports(path: Path) -> list:

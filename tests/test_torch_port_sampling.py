@@ -118,3 +118,13 @@ def test_sampled_regression_fit_equals_jax(reference_device_grower, kw):
         for f in ("leaf", "feature", "active", "threshold", "counts"):
             np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
         np.testing.assert_allclose(b.values, a.values, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("key", [(0, 5), (123456789, 3987654321), (0xFFFFFFFF, 0x80000000)])
+def test_cpu_int32_rounds_equal_the_int64_rounds(key):
+    """``random_bits`` with int keys on the CPU runs the rounds in int32:
+    the same bits as the int64 form, across the 2^32 counter boundary."""
+    got = PS.random_bits(key, 200_000, torch.device("cpu"), offset=(1 << 32) - 100_000)
+    i = torch.arange((1 << 32) - 100_000, (1 << 32) + 100_000)
+    b1, b2 = PS._threefry2x32(key[0], key[1], i >> 32, i & 0xFFFFFFFF)
+    assert torch.equal(got, b1 ^ b2)

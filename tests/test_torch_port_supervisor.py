@@ -381,7 +381,9 @@ def test_supervisor_spawn_cmd_wraps_restarts_and_scaleout(tmp_path):
         assert c.alive() and spawn_count() == 1
         c.proc.kill()
         deadline = time.monotonic() + 60.0
-        while time.monotonic() < deadline and spawn_count() < 2:
+        # the respawned shell writes its marker before the supervisor's
+        # thread counts the restart: wait for both
+        while time.monotonic() < deadline and (spawn_count() < 2 or c.restarts < 1):
             time.sleep(0.05)
         assert c.restarts >= 1
         assert spawn_count() == 2  # the restart rode the template too

@@ -5,9 +5,10 @@ against the JAX package's.
   ``flax.serialization.msgpack_restore`` does and writes the bytes
   ``msgpack_serialize`` writes (exactly equal);
 - the packaged copies are byte-equal to the JAX package's files;
-- ``import_torch_resnet`` returns the JAX importer's tree (exactly equal),
-  with the same strictness errors;
-- a zoo written by either package loads in the other;
+- ``import_torch_resnet`` and ``import_torch_vit`` return the JAX
+  importers' trees (exactly equal), with the same strictness errors;
+- a zoo written by either package loads in the other, ViTs (seeded or
+  imported from a torchvision ``vit_b_16``-layout ``state_dict``) too;
 - ``TorchModel`` pads, selects and persists as XLAModel does;
 - ``ImageFeaturizer`` on the packaged checkpoints against the JAX
   featurizer.
@@ -42,6 +43,7 @@ from flax import serialization as fser
 from mmlspark_tpu import DataFrame as JDataFrame
 from mmlspark_tpu.core.schema import make_image_row
 from mmlspark_tpu.downloader import import_torch_resnet as j_import_torch_resnet
+from mmlspark_tpu.downloader.torch_import import import_torch_vit as j_import_torch_vit
 from mmlspark_tpu.downloader.zoo import PACKAGED_DIR as J_PACKAGED_DIR
 from mmlspark_tpu.downloader.zoo import ModelDownloader as JModelDownloader
 from mmlspark_tpu.downloader.zoo import ModelSchema as JModelSchema
@@ -56,18 +58,21 @@ from mmlspark_tpu_torch.downloader import (
     RemoteRepository,
     flax_msgpack,
     import_torch_resnet,
+    import_torch_vit,
     install_torch_checkpoint,
 )
 from mmlspark_tpu_torch.downloader.zoo import PACKAGED_DIR
 from mmlspark_tpu_torch.models import ImageFeaturizer, TorchModel
 from mmlspark_tpu_torch.models import resnet as TR
+from mmlspark_tpu_torch.models import vit as TV
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_import import (  # noqa: E402  the torchvision-layout ResNet
+from test_torch_import import (  # noqa: E402  the torchvision-layout ResNet and ViT
     _randomize_bn_stats,
     _TorchBasic,
     _TorchBottleneck,
     _TorchResNet,
+    _TorchViT,
 )
 from test_zoo_weights import load_digits_images  # noqa: E402
 
@@ -213,13 +218,102 @@ def test_import_rejects_architecture_mismatch_as_jax(importer):
         fn(sd, variant="ResNet18")
 
 
-def test_vit_raises_naming_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        import_torch_resnet({}, "ViTB16")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        install_torch_checkpoint({}, name="ViTB16_x", downloader=ModelDownloader(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ModelDownloader(str(tmp_path)).load("ViTTiny", device="cpu")
+# -- ViT: the zoo's seeded schemas and torchvision's vit_b_16 layout ------------------------
+
+
+def _torchvision_vit_state(seed: int) -> dict:
+    """A torchvision ``vit_b_16``-layout ``state_dict`` at ViTTiny's
+    geometry (``test_torch_import._TorchViT``), every tensor drawn with
+    numpy (class token non-zero)."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy((rng.normal(size=tuple(v.shape)) * 0.1).astype(np.float32))
+            for k, v in _TorchViT().state_dict().items()}
+
+
+def test_import_torch_vit_equals_the_jax_importer():
+    sd = _torchvision_vit_state(0)
+    _tree_equal(import_torch_vit(sd, variant="ViTTiny"), j_import_torch_vit(sd, variant="ViTTiny"))
+
+
+def test_imported_vit_reproduces_torchvision_features():
+    sd = _torchvision_vit_state(1)
+    tm = _TorchViT()
+    tm.load_state_dict(sd)
+    x = np.random.default_rng(2).normal(size=(2, 32, 32, 3)).astype(np.float32)
+    with torch.no_grad():
+        ref = tm.eval()(torch.from_numpy(x.transpose(0, 3, 1, 2)))
+    ours = TV.load_flax_variables(TV.vit_tiny(num_classes=10, dtype=torch.float32),
+                                  import_torch_vit(sd, variant="ViTTiny")).eval()
+    with torch.no_grad():
+        out = ours(torch.from_numpy(x))
+    for k in ("pool", "logits"):
+        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("importer", ["port", "jax"])
+def test_import_vit_rejects_architecture_mismatch_as_jax(importer):
+    fn = import_torch_vit if importer == "port" else j_import_torch_vit
+    sd = _torchvision_vit_state(3)
+    with pytest.raises(ValueError, match="patch size 4x4 != ViTB16's 16"):
+        fn(sd, variant="ViTB16")
+    extra = dict(sd, **{"encoder.extra": torch.zeros(1)})
+    with pytest.raises(ValueError, match="unconsumed keys"):
+        fn(extra, variant="ViTTiny")
+    missing = {k: v for k, v in sd.items() if k != "heads.head.bias"}
+    with pytest.raises(ValueError, match="missing 'heads.head.bias'"):
+        fn(missing, variant="ViTTiny")
+
+
+def test_install_torch_vit_checkpoint_loads_in_both_packages(tmp_path):
+    sd = _torchvision_vit_state(4)
+    pth = tmp_path / "vit.pth"
+    torch.save(sd, pth)
+    repo = str(tmp_path / "zoo")
+    with pytest.raises(ValueError, match="image_size=64 needs 257"):
+        install_torch_checkpoint(str(pth), name="ViTTiny_Bad", image_size=64,
+                                 downloader=ModelDownloader(repo))
+    schema = install_torch_checkpoint(str(pth), name="ViTTiny_Imported", image_size=32,
+                                      downloader=ModelDownloader(repo))
+    assert not schema.torch_padding and schema.num_classes == 10
+    assert schema.layer_names == ["logits", "pool", "encoder", "patches"]
+    jmodule, jvars, jschema = JModelDownloader(repo).load("ViTTiny_Imported")
+    assert asdict(jschema) == asdict(schema)
+    module, variables, _ = ModelDownloader(repo).load("ViTTiny_Imported", device="cpu")
+    _tree_equal(variables, jax.tree_util.tree_map(np.asarray, jvars))
+    x = np.random.default_rng(5).normal(size=(2, 32, 32, 3)).astype(np.float32) * 30
+    want = jmodule.apply(jvars, jnp.asarray(x))
+    with torch.no_grad():
+        got = module(torch.from_numpy(x))
+    for k in ("pool", "logits"):
+        assert _rel_l2(got[k].numpy(), np.asarray(want[k])) <= BF16_L2, k
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_seeded_vit_zoo_loads_in_both_packages(writer, tmp_path, caplog):
+    """No checkpoint covers ViTTiny: whichever package materialises the
+    seeded init, the other loads it; the two packages' draws agree within
+    4 ulp and their bf16 features within 2e-2."""
+    repo = str(tmp_path / "zoo")
+    first, second = ((JModelDownloader(repo), ModelDownloader(repo)) if writer == "jax"
+                     else (ModelDownloader(repo), JModelDownloader(repo)))
+    with caplog.at_level("WARNING"):
+        first.download_by_name("ViTTiny")
+    if writer == "port":
+        assert "SEEDED RANDOM init" in caplog.text
+    jmodule, jvars, _ = JModelDownloader(repo).load("ViTTiny")
+    module, variables, schema = ModelDownloader(repo).load("ViTTiny", device="cpu")
+    assert type(module) is TV.ViT and schema.layer_names == list(TV.LAYER_NAMES)
+    _tree_equal(variables, jax.tree_util.tree_map(np.asarray, jvars))
+    fresh = TV.init_flax_variables(TV.vit_tiny(num_classes=10), seed=0)
+    for a, b in zip(jax.tree_util.tree_leaves(fresh), jax.tree_util.tree_leaves(variables)):
+        ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+        assert int(ulp.max()) <= INIT_ULP
+    x = np.random.default_rng(6).integers(0, 255, size=(2, 32, 32, 3)).astype(np.float32)
+    want = jmodule.apply(jvars, jnp.asarray(x))
+    with torch.no_grad():
+        got = module(torch.from_numpy(x))
+    assert _rel_l2(got["pool"].numpy(), np.asarray(want["pool"])) <= BF16_L2
+    assert second.download_by_name("ViTTiny").sha256 == first.download_by_name("ViTTiny").sha256
 
 
 def test_install_torch_checkpoint_loads_in_both_packages(tmp_path):

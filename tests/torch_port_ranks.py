@@ -586,3 +586,82 @@ def voting_suite(rank: int, world: int) -> dict:
     out["cat_model"] = m.get("model_string")
     return out
 
+
+
+# -- ring attention and the sequence-parallel ViT -----------------------------
+
+RING_B, RING_T, RING_H, RING_D = 2, 64, 4, 16
+VIT_IMAGES = 2
+
+
+def ring_qkv(seed: int) -> tuple:
+    """``tests/test_ring_attention.py``'s ``_qkv``: (B, T, H, D) f32 q, k, v."""
+    r = np.random.default_rng(seed)
+    return tuple(r.normal(size=(RING_B, RING_T, RING_H, RING_D)).astype(np.float32)
+                 for _ in range(3))
+
+
+def ring_mask(seed: int, cut: float, first: bool) -> np.ndarray:
+    """(B, T) key mask: valid where a uniform draw exceeds ``cut``; key 0
+    valid if ``first``."""
+    m = np.random.default_rng(seed).random((RING_B, RING_T)) > cut
+    if first:
+        m[:, 0] = True
+    return m
+
+
+RING_CASES = {  # name: (seed, causal, mask (seed, cut, key 0 valid) or None)
+    "plain": (0, False, None),
+    "causal": (1, True, None),
+    "masked": (3, False, (3, 0.3, False)),
+    "causal_masked": (5, True, (5, 0.2, True)),
+    "all_masked": (7, False, (7, 1.0, False)),
+}
+
+
+def large_qkv() -> tuple:
+    """``test_long_sequence_blockwise_stability``'s inputs: (1, 128, 2, 8),
+    q and k scaled by 8."""
+    r = np.random.default_rng(4)
+    q = r.normal(size=(1, 128, 2, 8)).astype(np.float32) * 8
+    k = r.normal(size=(1, 128, 2, 8)).astype(np.float32) * 8
+    return q, k, r.normal(size=(1, 128, 2, 8)).astype(np.float32)
+
+
+def vit_ring_inputs() -> tuple:
+    """The ViTTiny weights (the port's seeded flax init, seed 0, f32) and
+    images of ``tests/test_vit.py``'s sequence-parallel case."""
+    from mmlspark_tpu_torch.models import vit
+
+    variables = vit.init_flax_variables(vit.vit_tiny(num_classes=10, dtype=torch.float32), 0)
+    x = np.random.default_rng(1).normal(size=(VIT_IMAGES, 32, 32, 3)).astype(np.float32)
+    return variables, x
+
+
+def ring_suite(rank: int, world: int) -> dict:
+    """Each rank's block of ``ring_attention`` outputs and gradients for
+    ``RING_CASES`` and the sequence-parallel ViTTiny's outputs."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch.models import vit
+    from mmlspark_tpu_torch.ops.ring_attention import ring_attention
+
+    blk = RING_T // world
+    sl = slice(rank * blk, (rank + 1) * blk)
+    out: dict = {}
+    for name, (seed, causal, mk) in RING_CASES.items():
+        q, k, v = (torch.from_numpy(a[:, sl]).requires_grad_() for a in ring_qkv(seed))
+        mask = None if mk is None else torch.from_numpy(ring_mask(*mk)[:, sl])
+        o = ring_attention(q, k, v, causal=causal, kv_mask=mask)
+        (o ** 2).sum().backward()
+        out[name] = {"o": _np(o), "dq": _np(q.grad), "dk": _np(k.grad), "dv": _np(v.grad)}
+    lb = 128 // world
+    q, k, v = (torch.from_numpy(a[:, rank * lb:(rank + 1) * lb]) for a in large_qkv())
+    out["large"] = {"o": _np(ring_attention(q, k, v, causal=True))}
+    variables, x = vit_ring_inputs()
+    model = vit.load_flax_variables(
+        vit.vit_tiny(num_classes=10, dtype=torch.float32, seq_group=dist.group.WORLD), variables)
+    with torch.no_grad():
+        res = model(torch.from_numpy(x))
+    out["vit"] = {k: _np(res[k]) for k in ("pool", "logits", "encoder")}
+    return out
