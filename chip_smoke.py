@@ -175,7 +175,18 @@ maps and states, coefficients within 1e-4 * max); ``TabularLIME`` on 16
 rows explaining the trees/s booster; ``KNN`` and ``ConditionalKNN`` over a
 100,000 x 768 index with duplicated rows, 1,024 queries, at one chunk and
 four, against the CPU; ``ProfiledRun`` over ``ImageFeaturizer("ViTB16")
--> KNNModel``. For time, depth is cut in ``card_vs_cpu`` (5 rounds), the
+-> KNNModel``. Phase ``recommend``: SAR on synthetic ratings of
+MovieLens-1M's shape (6,040 x 3,706, 1,000,209 ratings; jaccard, support
+4, a 30-day half-life), the similarity bitwise the CPU's with TF32 off,
+``recommend_for_all_users(10)`` against the CPU on 512 users (indices by
+the gap rule, ties to the lower item), 100,000 pairs (1% cold, NaN) and
+``RankingTrainValidationSplit`` over jaccard and lift. Phase ``anomaly``:
+the isolation forest on synthetic rows of ODDS ForestCover's shape
+(286,048 x 10, 2,747 outliers; 100 trees of 256), path lengths and
+scores bitwise the CPU's on 20,000 rows; ALS on those ratings at Spark's
+defaults, twice bitwise and on the first 500 users against the CPU;
+AccessAnomaly on 100,000 accesses, explicit and implicit, against the
+CPU. Neither phase launches a hand-written kernel. For time, depth is cut in ``card_vs_cpu`` (5 rounds), the
 world-2 fits (5; ``DIST_FITS`` 5, its early-stopping fits 10), the gangs
 (6) and the fleet's load runs (500 requests), and phase ``elastic`` runs
 its gangs side by side in two waves.
@@ -5725,6 +5736,340 @@ def explain_knn_phase(smi: str, repo: str, gbdt_string: str, x, x_test) -> dict:
     return rec
 
 
+# -- recommend, anomaly: SAR, the isolation forest, ALS, AccessAnomaly ---------
+
+ML_USERS, ML_ITEMS, ML_RATINGS = 6040, 3706, 1_000_209   # MovieLens-1M's shape
+ML_MIN, ML_MAX = 20, 2314           # its fewest and most ratings a user
+ML_STARS = (0.056, 0.108, 0.261, 0.349, 0.226)          # its share of 1-5 stars
+ML_T0, ML_MONTHS = 956_703_932, 34  # its first timestamp (2000-04-25) and span
+REC_K = 10
+REC_CHECK_USERS = 512               # users held card against the CPU plain
+REC_REL = 1e-5                      # scores, and the gap rule for indices
+REC_PAIRS, REC_COLD = 100_000, 0.01
+REC_NDCG_FLOOR = 0.05               # TVS's best NDCG@10 (random lists score ~0.003)
+IF_ROWS, IF_DIM, IF_OUTLIERS = 286_048, 10, 2_747       # ODDS ForestCover's shape
+IF_CHECK_ROWS = 20_000              # rows held bitwise card against the CPU plain
+IF_AUC_FLOOR = 0.9
+ALS_RANK, ALS_ITERS, ALS_REG = 10, 10, 0.1              # Spark ALS's defaults
+ALS_CHECK_USERS = 500               # the first users' edges, card against the CPU plain
+ALS_REL = 1e-4                      # uf @ rf.T within ALS_REL * max|cpu| (the CPU tests')
+ACCESS = dict(n_tenants=2, n_departments=10, users_per_dept=100, resources_per_dept=50,
+              accesses_per_user=50, cross_dept_prob=0.02)
+ACCESS_ABS = 1e-3                   # card against the CPU plain, each score (the CPU tests')
+ACCESS_MARGIN = 0.5                 # cross- over in-department mean score (tests/test_cyber.py)
+
+
+@functools.lru_cache(maxsize=1)
+def movielens_like() -> dict:
+    """Synthetic ratings of MovieLens-1M's shape, from the seed: 6,040
+    users with 20 to 2,314 ratings each (lognormal activity), 1,000,209 in
+    all over 3,706 items of Zipf-like popularity (each user's items
+    distinct, drawn by Gumbel top-k on the popularity), 1-5 stars in
+    MovieLens-1M's shares, timestamps uniform over 34 months. Rows in
+    user order."""
+    rng = np.random.default_rng(SEED + 30)
+    counts = np.full(ML_USERS, ML_MIN)
+    extra = ML_RATINGS - counts.sum()
+    w = rng.lognormal(0.0, 1.0, ML_USERS)
+    counts += rng.multinomial(extra, w / w.sum())
+    while counts.max() > ML_MAX:            # cap at MovieLens-1M's most, push the rest on
+        over = np.maximum(counts - ML_MAX, 0)
+        counts -= over
+        room = np.flatnonzero(counts < ML_MAX)
+        np.add.at(counts, rng.choice(room, over.sum()), 1)
+    logp = -1.1 * np.log(np.arange(1, ML_ITEMS + 1))
+    logp = logp[rng.permutation(ML_ITEMS)]
+    items = np.empty(ML_RATINGS, np.int64)
+    lo = 0
+    for u, c in enumerate(counts):
+        keys = logp + rng.gumbel(size=ML_ITEMS)
+        items[lo:lo + c] = np.argpartition(-keys, c - 1)[:c]
+        lo += c
+    users = np.repeat(np.arange(ML_USERS), counts)
+    stars = rng.choice(5, ML_RATINGS, p=ML_STARS).astype(np.float32) + 1
+    t = ML_T0 + rng.random(ML_RATINGS) * ML_MONTHS * 30.44 * 86400
+    return {"user_idx": users, "item_idx": items, "rating": stars, "t": t}
+
+
+def _rec_hold(got_sc, got_ix, want_sc, want_ix) -> dict:
+    """Scores within REC_REL relative; indices equal wherever the score's gap
+    to its neighbours exceeds REC_REL relative (and the positions left out);
+    the card's exact ties lower index first."""
+    fin = np.isfinite(want_sc)
+    scores_ok = bool(np.array_equal(np.isfinite(got_sc), fin)) and bool(
+        (np.abs(got_sc[fin] - want_sc[fin]) <= REC_REL * np.abs(want_sc[fin])).all())
+    gap = np.minimum(np.abs(np.diff(want_sc, axis=1, append=-np.inf)),
+                     np.abs(np.diff(want_sc, axis=1, prepend=np.inf)))
+    clear = (gap > REC_REL * np.abs(want_sc)) & fin
+    ties = (got_sc[:, 1:] == got_sc[:, :-1]) & fin[:, 1:]
+    return {"scores_ok": scores_ok,
+            "indices_ok": bool(np.array_equal(got_ix[clear], want_ix[clear])),
+            "left_out": int((fin & ~clear).sum()), "exact_ties": int(ties.sum()),
+            "ties_lower_index_first": bool((got_ix[:, 1:][ties] > got_ix[:, :-1][ties]).all())}
+
+
+def _recs(df) -> tuple:
+    """recommend_for_all_users' lists as (U, k) arrays, -inf past a list's end."""
+    k = max(len(r) for r in df["recommendations"])
+    ix = np.full((df.count(), k), -1, np.int64)
+    sc = np.full((df.count(), k), -np.inf, np.float32)
+    for u, (r, s) in enumerate(zip(df["recommendations"], df["ratings"])):
+        ix[u, :len(r)], sc[u, :len(s)] = r, s
+    return sc, ix
+
+
+def recommend_phase(smi: str) -> dict:
+    """Phase ``recommend``: SAR on MovieLens-1M-shaped ratings on the card
+    (jaccard, support 4, a 30-day half-life): the similarity bitwise the CPU
+    plain's with TF32 off at the call, ``recommend_for_all_users(10)`` held
+    against the CPU plain on 512 users, 100,000 pairs scored (1% cold), and
+    ``RankingTrainValidationSplit`` over ``[jaccard, lift]``."""
+    from mmlspark_tpu_torch.recommendation import (SAR, RankingTrainValidationSplit,
+                                                   SARModel)
+
+    t_start = time.perf_counter()
+    before = _hand_written_launches()
+    t0 = time.perf_counter()
+    cols = movielens_like()
+    data_s = time.perf_counter() - t0
+    df = DataFrame.from_dict(cols)
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32["allow_tf32"] or tf32["float32_matmul_precision"] != "highest":
+        raise AssertionError(f"SAR's products need full f32 (TF32 off): {tf32}")
+    kw = dict(similarity_function="jaccard", support_threshold=4, time_col="t",
+              time_decay_coeff=30.0)
+    sar = SAR(**kw)
+    sar.fit(df)  # warm: the card's first product
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = sar.fit(df)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = SAR(device="cpu", **kw).fit(df)
+    cpu_fit_s = time.perf_counter() - t0
+    sim, sim_cpu = model.get("item_similarity"), cpu.get("item_similarity")
+    sim_bitwise = sim.tobytes() == sim_cpu.tobytes()
+
+    model.recommend_for_all_users(REC_K)  # places the affinity and similarity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(REC_K)
+    rec_s = time.perf_counter() - t0
+    n = REC_CHECK_USERS
+    cpu_head = SARModel(device="cpu", item_similarity=sim_cpu,
+                        user_affinity=cpu.get("user_affinity")[:n],
+                        seen_items=cpu.get("seen_items")[:n])
+    got_sc, got_ix = _recs(recs)
+    want_sc, want_ix = _recs(cpu_head.recommend_for_all_users(REC_K))
+    held = _rec_hold(got_sc[:n], got_ix[:n], want_sc, want_ix)
+    ties = (got_sc[:, 1:] == got_sc[:, :-1]) & np.isfinite(got_sc[:, 1:])
+    held.update(exact_ties_all_users=int(ties.sum()), all_ties_lower_index_first=bool(
+        (got_ix[:, 1:][ties] > got_ix[:, :-1][ties]).all()))
+
+    rng = np.random.default_rng(SEED + 31)
+    pu = rng.integers(0, ML_USERS, REC_PAIRS)
+    pi = rng.integers(0, ML_ITEMS, REC_PAIRS)
+    cold = rng.random(REC_PAIRS) < REC_COLD
+    pu[cold & (rng.random(REC_PAIRS) < 0.5)] = ML_USERS + 7     # unseen user
+    pi[cold & (pu < ML_USERS)] = -1                              # unseen item
+    pairs = DataFrame.from_dict({"user_idx": pu, "item_idx": pi})
+    model.transform(pairs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = model.transform(pairs)["prediction"]
+    pair_s = time.perf_counter() - t0
+    head = DataFrame.from_dict({"user_idx": pu[:2000], "item_idx": pi[:2000]})
+    want = cpu.transform(head)["prediction"]
+    warm = ~np.isnan(want)
+    pairs_ok = bool(np.array_equal(np.isnan(pred), cold)) and bool(
+        (np.abs(pred[:2000][warm] - want[warm]) <= REC_REL * np.abs(want[warm])).all())
+
+    t0 = time.perf_counter()
+    tvs = RankingTrainValidationSplit(
+        estimator=SAR(support_threshold=4, time_col="t"),
+        estimator_param_maps=[{"similarity_function": "jaccard"},
+                              {"similarity_function": "lift"}],
+        train_ratio=0.75, k=REC_K).fit(df)
+    tvs_s = time.perf_counter() - t0
+    ndcg = dict(zip(("jaccard", "lift"), tvs.get("validation_metrics")))
+    rec = {"data": {"users": ML_USERS, "items": ML_ITEMS, "ratings": len(cols["rating"]),
+                    "seconds": data_s, "synthetic": True},
+           "tf32": tf32, "fit_s": fit_s, "cpu_fit_s": cpu_fit_s,
+           "similarity_bitwise": sim_bitwise,
+           "recommend": {"k": REC_K, "seconds": rec_s, "users_per_s": ML_USERS / rec_s,
+                         "checked_users": n, **held},
+           "transform": {"pairs": REC_PAIRS, "cold": int(cold.sum()), "seconds": pair_s,
+                         "pairs_per_s": REC_PAIRS / pair_s, "checked_pairs": 2000,
+                         "ok": pairs_ok},
+           "tvs": {"ndcg_at_10": ndcg, "seconds": tvs_s},
+           "hand_written_launches": {k: v - before.get(k, 0)
+                                     for k, v in _hand_written_launches().items()},
+           "seconds": time.perf_counter() - t_start, "nvidia_smi": smi}
+    phase("recommend", rel_tol=REC_REL, **rec)
+    fails = []
+    if not sim_bitwise:
+        fails.append("similarity card != CPU plain")
+    if not (held["scores_ok"] and held["indices_ok"] and held["ties_lower_index_first"]
+            and held["all_ties_lower_index_first"]):
+        fails.append(f"recommendations: {held}")
+    if not pairs_ok:
+        fails.append("pair scores: cold pairs not NaN or scores off the CPU plain")
+    if not all(0.0 <= v <= 1.0 for v in ndcg.values()) or max(ndcg.values()) <= REC_NDCG_FLOOR:
+        fails.append(f"TVS NDCG@10 {ndcg}")
+    if fails:
+        raise AssertionError(f"phase recommend: {fails}")
+    return rec
+
+
+def forest_like() -> tuple:
+    """Rows of ODDS ForestCover's shape, from the seed: 286,048 x 10 f32,
+    inliers a mixture of 7 gaussian clusters (its 7 cover types' scale),
+    2,747 outliers (0.96%) spread uniformly over a box 1.5x the inliers'
+    range; labels 1 for the outliers."""
+    rng = np.random.default_rng(SEED + 32)
+    n_in = IF_ROWS - IF_OUTLIERS
+    centers = rng.normal(0.0, 3.0, (7, IF_DIM))
+    scales = rng.uniform(0.5, 1.5, (7, IF_DIM))
+    k = rng.integers(0, 7, n_in)
+    inliers = centers[k] + rng.standard_normal((n_in, IF_DIM)) * scales[k]
+    lo, hi = inliers.min(0), inliers.max(0)
+    mid, half = (lo + hi) / 2, (hi - lo) / 2 * 1.5
+    outliers = rng.uniform(mid - half, mid + half, (IF_OUTLIERS, IF_DIM))
+    x = np.vstack([inliers, outliers]).astype(np.float32)
+    y = np.r_[np.zeros(n_in), np.ones(IF_OUTLIERS)]
+    perm = rng.permutation(IF_ROWS)
+    return x[perm], y[perm]
+
+
+def _forest_part() -> dict:
+    from mmlspark_tpu_torch.isolationforest import IsolationForest, IsolationForestModel
+    from mmlspark_tpu_torch.isolationforest import forest as F
+
+    x, y = forest_like()
+    df = DataFrame.from_dict({"features": x})
+    est = IsolationForest(num_estimators=100, max_samples=256, contamination=0.0096)
+    t0 = time.perf_counter()
+    model = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    model.transform(df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(df)
+    score_s = time.perf_counter() - t0
+    scores = out["outlierScore"]
+    auc = binary_auc(y, scores)
+    names = ("features", "thresholds", "leaves", "path_lens")
+    cpu = IsolationForestModel(device="cpu", **{p: model.get(p) for p in (
+        *names, "depth_cap", "subsample_size", "score_threshold")})
+    head = x[:IF_CHECK_ROWS]
+    lengths = {}
+    for where, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        t = [torch.tensor(model.get(p), device=dev) for p in names]
+        lengths[where] = F.batch_path_lengths(torch.tensor(head, device=dev), t[0].long(),
+                                                 *t[1:], model.get("depth_cap")).cpu().numpy()
+    plen_bitwise = lengths["card"].tobytes() == lengths["cpu"].tobytes()
+    cpu_scores = cpu.transform(DataFrame.from_dict({"features": head}))["outlierScore"]
+    scores_bitwise = cpu_scores.tobytes() == scores[:IF_CHECK_ROWS].tobytes()
+    return {"rows": IF_ROWS, "dim": IF_DIM, "outliers": IF_OUTLIERS, "synthetic": True,
+            "fit_s": fit_s, "score_s": score_s, "rows_per_s": IF_ROWS / score_s,
+            "auc": auc, "flagged": int(out["prediction"].sum()),
+            "score_threshold": model.get("score_threshold"), "depth_cap": model.get("depth_cap"),
+            "checked_rows": IF_CHECK_ROWS, "path_lengths_bitwise": plen_bitwise,
+            "scores_bitwise": scores_bitwise}
+
+
+def _als_part() -> dict:
+    from mmlspark_tpu_torch.cyber.als import als_predict, als_train_coo
+
+    cols = movielens_like()
+    u, i, r = cols["user_idx"], cols["item_idx"], cols["rating"]
+    kw = dict(rank=ALS_RANK, iters=ALS_ITERS, reg=ALS_REG)
+    runs, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(als_train_coo(u, i, r, ML_USERS, ML_ITEMS, **kw))
+        secs.append(time.perf_counter() - t0)
+    bitwise = all(a.tobytes() == b.tobytes() for a, b in zip(*runs))
+    rmse = float(np.sqrt(np.mean((als_predict(*runs[0], u, i) - r) ** 2)))
+    sel = u < ALS_CHECK_USERS
+    sub = (u[sel], i[sel], r[sel], ALS_CHECK_USERS, ML_ITEMS)
+    card = als_train_coo(*sub, **kw)
+    t0 = time.perf_counter()
+    cpu = als_train_coo(*sub, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    ref = cpu[0] @ cpu[1].T
+    rel = float(np.abs(card[0] @ card[1].T - ref).max() / np.abs(ref).max())
+    return {"edges": len(u), "rank": ALS_RANK, "iters": ALS_ITERS, "reg": ALS_REG,
+            "seconds": secs, "s_per_iter": [s / ALS_ITERS for s in secs],
+            "run_to_run_bitwise": bitwise, "train_rmse": rmse,
+            "checked_users": ALS_CHECK_USERS, "checked_edges": int(sel.sum()),
+            "card_vs_cpu_rel": rel, "cpu_s": cpu_s}
+
+
+def _access_part() -> dict:
+    from mmlspark_tpu_torch.cyber import AccessAnomaly, synthetic_access_df
+
+    t0 = time.perf_counter()
+    df = synthetic_access_df(**ACCESS)
+    data_s = time.perf_counter() - t0
+    dept = lambda names: np.array([s.split("_")[1] for s in names])  # noqa: E731
+    cross = dept(df["user"]) != dept(df["res"])
+    rec = {"accesses": df.count(), "cross_department": int(cross.sum()), "data_s": data_s}
+    for mode, implicit in (("explicit", False), ("implicit", True)):
+        est = AccessAnomaly(implicit=implicit, complement_factor=2.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(df)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = est.copy({"device": "cpu"}).fit(df)
+        cpu_s = time.perf_counter() - t0
+        got = model.transform(df)["anomaly_score"]
+        want = cpu.transform(df)["anomaly_score"]
+        rec[mode] = {"fit_s": fit_s, "cpu_fit_s": cpu_s,
+                     "cross_mean": float(got[cross].mean()), "in_mean": float(got[~cross].mean()),
+                     "card_vs_cpu_max_abs": float(np.abs(got - want).max()),
+                     "std": [float(tm["std"]) for tm in model.get("tenant_models").values()]}
+    return rec
+
+
+def anomaly_phase(smi: str) -> dict:
+    """Phase ``anomaly``: the isolation forest on ForestCover-shaped rows
+    (100 trees of 256, contamination 0.0096), its path lengths and scores
+    bitwise the CPU plain's on 20,000 rows; ALS on the recommend phase's
+    1,000,209 triples at Spark ALS's defaults, twice on the card bitwise and
+    on the first 500 users' edges against the CPU plain; AccessAnomaly on
+    100,000 accesses, explicit and implicit, against the CPU plain."""
+    t_start = time.perf_counter()
+    before = _hand_written_launches()
+    rec = {"forest": _forest_part(), "als": _als_part(), "access": _access_part()}
+    rec.update(hand_written_launches={k: v - before.get(k, 0)
+                                      for k, v in _hand_written_launches().items()},
+               seconds=time.perf_counter() - t_start, nvidia_smi=smi)
+    phase("anomaly", als_rel_tol=ALS_REL, access_abs_tol=ACCESS_ABS, **rec)
+    f, a, c = rec["forest"], rec["als"], rec["access"]
+    fails = []
+    if not (f["path_lengths_bitwise"] and f["scores_bitwise"]):
+        fails.append("forest: card != CPU plain")
+    if f["auc"] < IF_AUC_FLOOR:
+        fails.append(f"forest AUC {f['auc']}")
+    if not a["run_to_run_bitwise"] or a["card_vs_cpu_rel"] > ALS_REL:
+        fails.append(f"ALS: bitwise {a['run_to_run_bitwise']}, rel {a['card_vs_cpu_rel']}")
+    if not np.isfinite(a["train_rmse"]) or a["train_rmse"] > 1.5:
+        fails.append(f"ALS train RMSE {a['train_rmse']}")
+    for mode in ("explicit", "implicit"):
+        m = c[mode]
+        if m["card_vs_cpu_max_abs"] > ACCESS_ABS:
+            fails.append(f"AccessAnomaly {mode}: card vs CPU {m['card_vs_cpu_max_abs']}")
+        if m["cross_mean"] <= m["in_mean"] + ACCESS_MARGIN:
+            fails.append(f"AccessAnomaly {mode}: cross {m['cross_mean']} in {m['in_mean']}")
+    if fails:
+        raise AssertionError(f"phase anomaly: {fails}")
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -5814,6 +6159,10 @@ def main() -> None:
     explain_knn_phase(smi, vit_repo, runs["lossguide"]["model_string"], x, x_test)
     phase("new_phases", seconds=time.perf_counter() - t_new)
     shutil.rmtree(vit_repo, ignore_errors=True)
+    t_rec = time.perf_counter()
+    recommend_phase(smi)
+    anomaly_phase(smi)
+    phase("recommend_anomaly", seconds=time.perf_counter() - t_rec)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,

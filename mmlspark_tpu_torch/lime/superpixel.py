@@ -40,13 +40,16 @@ def _sum_sq(f: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, k: int) -> torch.Tensor:
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, k: int,
+                out: "torch.Tensor | None" = None) -> torch.Tensor:
     """Rows of ``x`` summed by segment in row order, as XLA's CPU
     scatter-add sums: ``index_add_`` on the CPU (a loop in order); on the
     card the accumulating ``index_put_``, which sorts the indices stably and
     adds each segment's rows in turn (``index_add_`` there adds with
-    atomics, in no fixed order)."""
-    out = torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    atomics, in no fixed order). With ``out`` ((k, ...)), the rows are
+    added into it in place, each onto the running sum."""
+    if out is None:
+        out = torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
         return out.index_add_(0, seg, x)
     return out.index_put_((seg,), x, accumulate=True)
@@ -87,8 +90,8 @@ def slic(image: Any, n_segments: int = 64, compactness: float = 10.0, iters: int
     for _ in range(iters):
         d2 = f2 + _sum_sq(centers)[None, :] - 2.0 * _dot_rows(feats, centers)
         assign = torch.argmin(d2, dim=1)
-        sums = _segment_sum(feats, assign, k)
-        counts = _segment_sum(ones, assign, k)
+        sums = segment_sum(feats, assign, k)
+        counts = segment_sum(ones, assign, k)
         new = sums / torch.clamp(counts, min=1.0)[:, None]
         centers = torch.where((counts > 0)[:, None], new, centers)
     return assign.reshape(h, w).to(torch.int32)

@@ -1728,3 +1728,63 @@ def test_streaming_gang_on_one_card_equals_one_device(cuda_device, tmp_path):
         assert model == want, name
         if name != "c":
             assert st["launches"]["plane_hist_fixed"] > 0 and st["ingest_payload_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("function", ["cooccurrence", "jaccard", "lift"])
+def test_sar_similarity_on_the_card_is_the_cpu_plain_bitwise(cuda_device, function):
+    """SAR's similarity with TF32 off: exact counts and correctly rounded
+    ``/`` on both devices; integer affinities under cooccurrence make every
+    score exact, so the card's top-k equals the CPU's, ties to the lower
+    item."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.recommendation import SAR
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.RandomState(0)
+    cols = {"user_idx": rng.randint(0, 300, 4000), "item_idx": (rng.zipf(1.3, 4000) - 1) % 400,
+            "rating": rng.randint(1, 6, 4000).astype(np.float32)}
+    df = DataFrame.from_dict(cols)
+    card = SAR(similarity_function=function, support_threshold=2, device="cuda").fit(df)
+    cpu = SAR(similarity_function=function, support_threshold=2, device="cpu").fit(df)
+    assert card.get("item_similarity").tobytes() == cpu.get("item_similarity").tobytes()
+    if function == "cooccurrence":
+        a, b = card.recommend_for_all_users(50), cpu.recommend_for_all_users(50)
+        assert [list(r) for r in a["recommendations"]] == [list(r) for r in b["recommendations"]]
+
+
+@pytest.mark.cuda
+def test_forest_path_lengths_on_the_card_are_the_cpu_plain_bitwise(cuda_device):
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.isolationforest import IsolationForest
+
+    rng = np.random.RandomState(1)
+    x = rng.randn(5000, 6).astype(np.float32)
+    x[::11, 3] = np.nan
+    df = DataFrame.from_dict({"features": x})
+    card = IsolationForest(num_estimators=50, contamination=0.02, device="cuda").fit(df)
+    cpu = IsolationForest(num_estimators=50, contamination=0.02, device="cpu").fit(df)
+    assert card.get("score_threshold") == cpu.get("score_threshold")
+    a, b = card.transform(df), cpu.transform(df)
+    for col in ("outlierScore", "prediction"):
+        assert a[col].tobytes() == b[col].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", [False, True])
+def test_coo_als_on_the_card_is_bitwise_run_to_run(cuda_device, implicit):
+    """Edges add in edge order on the card (the sorted accumulating
+    ``index_put_``), so two fits are bitwise equal; against the CPU within
+    1e-4 * max|cpu| (LU rounding)."""
+    from mmlspark_tpu_torch.cyber.als import als_train_coo
+
+    rng = np.random.RandomState(2)
+    u, i = rng.randint(0, 700, 30000), rng.randint(0, 300, 30000)
+    r = rng.randint(1, 6, 30000).astype(np.float32)
+    kw = dict(rank=8, iters=5, implicit=implicit, alpha=10.0, seed=3)
+    a = als_train_coo(u, i, r, 700, 300, device="cuda", **kw)
+    b = als_train_coo(u, i, r, 700, 300, device="cuda", **kw)
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(a, b))
+    c = als_train_coo(u, i, r, 700, 300, device="cpu", **kw)
+    ref = c[0] @ c[1].T
+    assert np.abs(a[0] @ a[1].T - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -103,6 +103,14 @@ def test_import_with_jax_blocked(tmp_path):
         "from mmlspark_tpu_torch.downloader import import_torch_vit\n"
         "from mmlspark_tpu_torch.lime import ImageLIME, TabularLIME, slic, lasso\n"
         "from mmlspark_tpu_torch.nn import KNN, ConditionalKNN, BallTree\n"
+        "from mmlspark_tpu_torch.recommendation import (SAR, SARModel, RankingEvaluator,\n"
+        "    RankingAdapter, RankingTrainValidationSplit, RecommendationIndexer)\n"
+        "from mmlspark_tpu_torch.recommendation import indexer, evaluator, adapter, split, sar\n"
+        "from mmlspark_tpu_torch.isolationforest import IsolationForest, forest\n"
+        "from mmlspark_tpu_torch.cyber import (AccessAnomaly, als_train, complement_sample,\n"
+        "    synthetic_access_df, StandardScalarScaler, LinearScalarScaler)\n"
+        "from mmlspark_tpu_torch.cyber import als, anomaly, complement, scalers, dataset\n"
+        "from mmlspark_tpu_torch.lightgbm import LightGBMBooster, LightGBMClassifier\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
@@ -135,13 +143,22 @@ def test_import_with_jax_blocked(tmp_path):
     "mmlspark_tpu_torch.downloader.torch_import", "mmlspark_tpu_torch.lime.superpixel",
     "mmlspark_tpu_torch.lime.lasso", "mmlspark_tpu_torch.lime.lime", "mmlspark_tpu_torch.lime",
     "mmlspark_tpu_torch.nn.balltree", "mmlspark_tpu_torch.nn.knn", "mmlspark_tpu_torch.nn",
+    "mmlspark_tpu_torch.recommendation.indexer", "mmlspark_tpu_torch.recommendation.evaluator",
+    "mmlspark_tpu_torch.recommendation.sar", "mmlspark_tpu_torch.recommendation.adapter",
+    "mmlspark_tpu_torch.recommendation.split", "mmlspark_tpu_torch.recommendation",
+    "mmlspark_tpu_torch.isolationforest.forest", "mmlspark_tpu_torch.isolationforest",
+    "mmlspark_tpu_torch.cyber.als", "mmlspark_tpu_torch.cyber.complement",
+    "mmlspark_tpu_torch.cyber.scalers", "mmlspark_tpu_torch.cyber.dataset",
+    "mmlspark_tpu_torch.cyber.anomaly", "mmlspark_tpu_torch.cyber",
+    "mmlspark_tpu_torch.lightgbm",
 ])
 def test_no_shared_disk_modules_import_alone(module):
     """Each module of the gang's no-shared-disk modes, of the serving
     fleet, of continuous learning, of the experiments, of the chaos
     conductor, of the profiler, ring attention, the ViT and BiLSTM models,
-    LIME and KNN, alone in a fresh interpreter, loads neither JAX nor the
-    JAX package."""
+    LIME, KNN, SAR, the isolation forest, CyberML and the ``lightgbm``
+    alias, alone in a fresh interpreter, loads neither JAX nor the JAX
+    package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -168,11 +185,13 @@ def test_gbdt_exports_every_name_of_the_jax_package():
 # names of the JAX package's ``__all__`` the port does not export yet: none
 # (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported; so are
 # A4 step 1, ``parallel``, A7, ``serving``, ``online``, ``experiments``
-# and ``chaos``, and A10's ``lime`` and ``nn``)
+# and ``chaos``, and A10's ``lime``, ``nn``, ``recommendation``,
+# ``isolationforest``, ``cyber`` and the ``lightgbm`` alias)
 A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
                 "obs": set(), "parallel": set(), "serving": set(), "online": set(),
                 "experiments": set(), "chaos": set(), "lime": set(), "nn": set(),
-                "downloader": set()}
+                "downloader": set(), "recommendation": set(), "isolationforest": set(),
+                "cyber": set(), "lightgbm": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
