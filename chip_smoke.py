@@ -84,7 +84,7 @@ distributed form (the fixed-scale kernel entries plus int64 all-reduces)
 at world 1 under NCCL in this process and at world 2 as two spawned gloo
 processes on this card, bitwise one ``plane_hist`` / ``multi_plane_hist``
 call on all 200,000 rows, with each rank's kernel, all-reduce and build
-times; the trees/s cell at world 2 (5 rounds; data_parallel lossguide and
+times; the trees/s cell at world 2 (3 rounds; data_parallel lossguide and
 depthwise, voting_parallel with K = 4) within 0.005 AUC of one-device
 fits of the same depth, both ranks' models byte-identical, voting's bytes a split under a
 third of data_parallel's; an integer-column fit whose world-2 model
@@ -186,10 +186,24 @@ the isolation forest on synthetic rows of ODDS ForestCover's shape
 scores bitwise the CPU's on 20,000 rows; ALS on those ratings at Spark's
 defaults, twice bitwise and on the first 500 users against the CPU;
 AccessAnomaly on 100,000 accesses, explicit and implicit, against the
-CPU. Neither phase launches a hand-written kernel. For time, depth is cut in ``card_vs_cpu`` (5 rounds), the
-world-2 fits (5; ``DIST_FITS`` 5, its early-stopping fits 10), the gangs
-(6) and the fleet's load runs (500 requests), and phase ``elastic`` runs
-its gangs side by side in two waves.
+CPU. Neither phase launches a hand-written kernel. Phase ``train_http``:
+MMLSpark's TrainClassifier -> ComputeModelStatistics flow on synthetic
+rows of UCI Adult's shape (48,842 rows, 32,561 to train; six numeric and
+eight string columns at Adult's cardinalities): ``TrainClassifier`` over
+LightGBM (31 leaves, 50 rounds) through ``drive`` (``plane_hist`` counted,
+graph == eager), its featurization bitwise the CPU port's, the default
+learners (on standardised rows within the CPU port's fits' tolerance), the
+statistics stages exact against numpy; ``TuneHyperparameters``
+over LightGBM and LogisticRegression at parallelism 1 and 2 with equal
+results, ``FindBestModel``; ``SimpleHTTPTransformer`` over 2,000 of V2's
+held-out rows (one malformed) to a worker serving ``vw:`` on the card,
+replies bitwise the in-process transform (``vw_margin`` counted); and
+``PowerBIWriter`` to a local endpoint, every row once in order. For time,
+depth is cut in ``card_vs_cpu`` (5 rounds), the world-2 fits (3;
+``DIST_FITS`` 3, ``fused_rounds=4``'s 5 and its early-stopping fits 10),
+the gangs (6), the fleet's
+load runs (500 requests) and phase ``train_http``'s tune candidates (10
+rounds), and phase ``elastic`` runs its gangs side by side in two waves.
 
 Each phase prints its own line. The line before the last is the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -613,6 +627,11 @@ def traced_launches(prof) -> dict:
     return out
 
 
+def _inner(model):
+    """The LightGBM model itself, or the one a TrainClassifier's model wraps."""
+    return model.get("inner_model") if "inner_model" in model.params() else model
+
+
 def drive(name: str, est, train_df, kernel: str, score, eager_check: bool = True,
           trace: bool = False, **info) -> "tuple[dict, object]":
     """Fit ``est`` on the card with the launch counts set to 0 just before
@@ -625,7 +644,9 @@ def drive(name: str, est, train_df, kernel: str, score, eager_check: bool = True
     cost). A fit that ran as fused chunks (one round captured as a CUDA
     graph and replayed) is fitted again without the graph
     (``fused_rounds=1``) unless ``eager_check`` is off: the model strings
-    must be byte-identical, and both fits' trees/s are printed."""
+    must be byte-identical, and both fits' trees/s are printed. ``est``
+    may be a TrainClassifier over a LightGBM estimator: its inner model's
+    booster and model string are the ones read."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -641,7 +662,10 @@ def drive(name: str, est, train_df, kernel: str, score, eager_check: bool = True
         quality = score(model)
         torch.cuda.synchronize()
     launches = dict(H.launches)
-    trees = len(model.booster.trees)
+    # a TrainClassifier (phase train_http) wraps the LightGBM estimator and model
+    gbdt = est.get("model") if "model" in est.params() else est
+    booster_model = _inner(model)
+    trees = len(booster_model.booster.trees)
     rec = dict(info, trees=trees, fit_s=fit_s, trees_per_s=trees / fit_s, **quality,
                peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
                graph=graph)
@@ -649,15 +673,16 @@ def drive(name: str, est, train_df, kernel: str, score, eager_check: bool = True
         rec["traced"] = True
         rec["traced_launches"] = traced_launches(prof)
     if graph["chunks"] and eager_check:
-        fused = est.get("fused_rounds")
-        est.set(fused_rounds=1)
+        fused = gbdt.get("fused_rounds")
+        gbdt.set(fused_rounds=1)
         t0 = time.perf_counter()
-        eager = est.fit(train_df)
+        eager = _inner(est.fit(train_df))
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
-        est.set(fused_rounds=fused)
+        gbdt.set(fused_rounds=fused)
         rec.update(eager_fit_s=eager_s, eager_trees_per_s=trees / eager_s,
-                   graph_equals_eager=eager.get("model_string") == model.get("model_string"))
+                   graph_equals_eager=eager.get("model_string")
+                   == booster_model.get("model_string"))
     phase(name, **rec)
     if launches[kernel] == 0:
         raise AssertionError(f"{name} {info}: the fit never launched {kernel}")
@@ -2687,6 +2712,15 @@ def _quantiles(ms: list) -> dict:
             "n": int(a.size)}
 
 
+def _write_vw_npz(path: str, vw_model) -> None:
+    """A VW classifier as the ``vw:`` loader reads it."""
+    meta = json.dumps({"num_bits": vw_model.get("num_bits"),
+                       "loss": vw_model.get("loss_function") or "logistic",
+                       "no_constant": vw_model.get("no_constant")}).encode()
+    np.savez(path, weights=np.asarray(vw_model.get("weights"), np.float32),
+             meta=np.frombuffer(meta, np.uint8))
+
+
 def _serving_files(d: str, gbdt_string: str, vw_model, p1: dict) -> dict:
     """Each model written the way its loader reads it; returns the specs
     and the request rows."""
@@ -2695,11 +2729,7 @@ def _serving_files(d: str, gbdt_string: str, vw_model, p1: dict) -> dict:
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "trees.gbdt.json"), "w") as f:
         f.write(gbdt_string)
-    meta = json.dumps({"num_bits": vw_model.get("num_bits"),
-                       "loss": vw_model.get("loss_function") or "logistic",
-                       "no_constant": vw_model.get("no_constant")}).encode()
-    np.savez(os.path.join(d, "v2.npz"), weights=np.asarray(vw_model.get("weights"), np.float32),
-             meta=np.frombuffer(meta, np.uint8))
+    _write_vw_npz(os.path.join(d, "v2.npz"), vw_model)
     cols = p1["cols"]
     inputs = [f"x{i}" for i in range(16)] + ["vec"]
     warm = {c: np.asarray(cols[c][:SERVE_BUCKETS]).tolist() for c in inputs}
@@ -3360,16 +3390,19 @@ def _fit_rec(est, train_df, x_test, y_test, trace: bool = True) -> dict:
 # at world 2 on the integer columns and once on one device on all the rows:
 # name -> (label, TrainConfig fields, how train is called)
 DIST_QUERY = 20                     # documents a query (lambdarank): 10,000 queries
-# 5 rounds, not the trees/s cell's 20: depth cut for the script's time (twenty traced
-# rounds of every fit would add ~270 s, each traced world-2 fit waits ~10 s more on the
-# profiler; cut from 10 when phases online, tune and chaos came). The early-stopping
-# fits keep 10: they stop after their 6th and 7th rounds, and must stop (``check_ranks``)
-DIST_BASE = dict(num_iterations=5, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
+# 3 rounds, not the trees/s cell's 20: depth cut for the script's time (twenty traced
+# rounds of every fit would add ~270 s, and stopping a world-2 fit's trace costs ~2 s at
+# 5 rounds; cut to 10 when phases online, tune and chaos came, to 5, then to 3 when
+# phase train_http came). ``fused_rounds=4`` keeps 5, so its fit crosses a chunk's end;
+# the early-stopping fits keep 10: they stop after their 6th and 7th rounds, and must
+# stop (``check_ranks``)
+DIST_BASE = dict(num_iterations=3, num_leaves=63, min_data_in_leaf=20, seed=0, max_bin=63)
 DIST_ES_ROUNDS = 10
 # the trees/s cell's fits and the integer fit at world 2 (and their one-device
-# references): 5 rounds, not the cell's 20, a depth cut for the script's time (cut
-# to 10, then to 5 when phases vit, sequence and explain_knn came)
-DIST_MAIN_ROUNDS = 5
+# references): 3 rounds, not the cell's 20, a depth cut for the script's time (cut
+# to 10, to 5 when phases vit, sequence and explain_knn came, then to 3 when phase
+# train_http came)
+DIST_MAIN_ROUNDS = 3
 _DIST_ES = dict(learning_rate=0.6, early_stopping_round=2, metric="auc",
                 num_iterations=DIST_ES_ROUNDS)
 DIST_FITS = {
@@ -3384,7 +3417,7 @@ DIST_FITS = {
                       {"valid": True}),
     "continued": ("binary", dict(seed=1), {"init": True}),
     "csr": ("binary", {}, {"csr": True}),
-    "fused": ("binary", {}, {"fused_rounds": 4}),
+    "fused": ("binary", dict(num_iterations=5), {"fused_rounds": 4}),
 }
 # where one device bins differently by design, its model is not the ranks': AUC instead
 DIST_BINS_DIFFER = {"csr": "one device fits CSR bins on the stored values alone, the ranks "
@@ -6070,6 +6103,456 @@ def anomaly_phase(smi: str) -> dict:
     return rec
 
 
+# -- phase train_http: TrainClassifier, TuneHyperparameters, HTTP on Spark ------------------
+
+# UCI Adult (the TrainClassifier / ComputeModelStatistics sample's data): 48,842 rows,
+# 32,561 to train, six numeric and eight string columns of these cardinalities,
+# 11,687 rows (23.93%) ">50K"
+ADULT_ROWS, ADULT_TRAIN, ADULT_POSITIVE = 48_842, 32_561, 11_687 / 48_842
+ADULT_NUMERIC = ("age", "fnlwgt", "education_num", "capital_gain", "capital_loss",
+                 "hours_per_week")
+ADULT_LEVELS = {"workclass": 9, "education": 16, "marital_status": 7, "occupation": 15,
+                "relationship": 6, "race": 5, "sex": 2, "native_country": 42}
+TUNE_ROUNDS = 10            # a tune candidate's LightGBM rounds: a depth cut for the time
+HTTP_ROWS = 2_000           # V2's held-out rows sent through SimpleHTTPTransformer
+HTTP_BAD_ROW = 777          # the one malformed request among them
+STATS_AUC_TOL = 1e-12       # ComputeModelStatistics' AUC against a float64 recomputation
+STATS_LOGLOSS_REL = 1e-6    # per-instance log-loss against numpy, relative
+# the card's default learners against the CPU port's on standardised rows, the
+# tolerances tests/test_torch_port_pipeline.py holds them to: LogisticRegression's
+# weights and bias within LR_FIT_RTOL * max |w|, LinearRegression's within
+# LINREG_RTOL * max |w|; LogisticRegression's held-out AUC there at least LR_AUC_MIN
+LR_FIT_RTOL, LINREG_RTOL, LR_AUC_MIN = 2e-6, 1e-5, 0.85
+POWERBI_BATCH = 100
+
+
+def adult_frame(seed: int = SEED) -> dict:
+    """Synthetic rows of UCI Adult's shape from ``seed``: the six numeric
+    columns in Adult's ranges, the eight string columns at Adult's
+    cardinalities (skewed, each level present), ``education`` tied to
+    ``education_num`` as in Adult, and ``income`` planted on a latent
+    status the columns share, at Adult's positive share."""
+    r = np.random.default_rng(seed)
+    n = ADULT_ROWS
+    z = r.standard_normal(n)
+    edu = np.clip(np.round(10 + 2.5 * z + r.standard_normal(n)), 1, 16)
+    cols = {
+        "age": np.clip(np.round(38 + 13 * r.standard_normal(n) + 3 * z), 17, 90),
+        "fnlwgt": np.round(np.exp(12.0 + 0.5 * r.standard_normal(n))),
+        "education_num": edu,
+        "capital_gain": np.where(r.random(n) < 0.08 + 0.04 * (z > 1),
+                                 np.round(np.exp(r.uniform(4.6, 11.5, n))), 0.0),
+        "capital_loss": np.where(r.random(n) < 0.047, np.round(r.uniform(155, 4356, n)), 0.0),
+        "hours_per_week": np.clip(np.round(40 + 12 * r.standard_normal(n) + 2 * z), 1, 99),
+    }
+    for name, k in ADULT_LEVELS.items():
+        p = 1.0 / np.arange(1, k + 1) ** 1.1
+        names = np.array([f"{name}_{c}" for c in range(k)], dtype=object)
+        cols[name] = names[r.choice(k, n, p=p / p.sum())]
+    cols["education"] = np.array([f"education_{int(e) - 1}" for e in edu], dtype=object)
+    score = (0.9 * z + 0.04 * (cols["age"] - 38) + 0.35 * (edu - 10)
+             + 1.2 * (cols["capital_gain"] > 5000) + 0.03 * (cols["hours_per_week"] - 40)
+             + 0.8 * (cols["marital_status"] == "marital_status_0")
+             + 0.4 * (cols["sex"] == "sex_0") + r.standard_normal(n))
+    cols["income"] = np.where(score > np.quantile(score, 1 - ADULT_POSITIVE),
+                              ">50K", "<=50K").astype(object)
+    for name, k in ADULT_LEVELS.items():
+        if len(set(cols[name][:ADULT_TRAIN])) != k:
+            raise AssertionError(f"adult_frame: {name} lacks a level in the training rows")
+    return cols
+
+
+def _auc_f64(y: np.ndarray, s: np.ndarray) -> float:
+    """The Mann-Whitney AUC in float64, ties counted a half: for each
+    positive, the negatives below it and half those equal."""
+    s = np.asarray(s, np.float64)
+    neg = np.sort(s[y == 0])
+    pos = s[y == 1]
+    below = np.searchsorted(neg, pos, side="left")
+    equal = np.searchsorted(neg, pos, side="right") - below
+    return float((below.sum() + 0.5 * equal.sum()) / (len(pos) * len(neg)))
+
+
+def _adult_indexed(df, levels: list):
+    """``df`` with ``income`` as its level index, as TrainClassifier feeds
+    its inner learner."""
+    table = {v: i for i, v in enumerate(levels)}
+    return df.with_column("income", lambda p: np.array([table[v] for v in p["income"]],
+                                                       np.int64))
+
+
+def _standardised(train: np.ndarray, *rows: np.ndarray) -> list:
+    """``train`` and ``rows`` scaled by the training rows' mean and standard
+    deviation (float64, a constant column left unscaled), as float32."""
+    mu = train.mean(0, dtype=np.float64)
+    sd = train.std(0, dtype=np.float64)
+    sd[sd == 0] = 1.0
+    return [((x - mu) / sd).astype(np.float32) for x in (train, *rows)]
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max |want|."""
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def _learners_card_vs_cpu(model, tr, te, lr, cpu) -> tuple:
+    """The default learners on the card against the CPU port's. On
+    Adult's raw scales (fnlwgt to 1.3e6) gradient descent and the f32
+    normal equations are ill-conditioned: TrainClassifier()'s weights move
+    by 1e-4 of their largest with the rows' order alone, and the JAX
+    package's fits stall as the port's do (tools/adult_default_learners.py).
+    So its card-vs-CPU distance is recorded, and the learners are held on
+    standardised rows, where they are well posed: LogisticRegression()
+    on the TrainClassifier's featurized rows, LinearRegression() on the
+    five other numeric columns against ``hours_per_week``, each within
+    the tolerance tests/test_torch_port_pipeline.py holds it to."""
+    from mmlspark_tpu_torch.models.linear import LinearRegression, LogisticRegression
+
+    fails = []
+    inner_card, inner_cpu = lr.get("inner_model"), cpu.get("inner_model")
+    raw_rel = max(_rel(inner_card.get(k), inner_cpu.get(k)) for k in ("weights", "bias"))
+    levels = model.get("levels")
+    fz = model.get("featurizer")
+    x_tr = fz.transform(_adult_indexed(tr, levels))
+    x_te = fz.transform(_adult_indexed(te, levels))
+    xs_tr, xs_te = _standardised(x_tr["features"], x_te["features"])
+    std_tr = DataFrame.from_dict({"features": xs_tr, "income": x_tr["income"]})
+    fits = {d: LogisticRegression(label_col="income", device=d).fit(std_tr)
+            for d in (DEV.type, "cpu")}
+    lr_rel = max(_rel(fits[DEV.type].get(k), fits["cpu"].get(k)) for k in ("weights", "bias"))
+    prob = fits[DEV.type].transform(DataFrame.from_dict({"features": xs_te}))["probability"]
+    lr_auc = binary_auc(x_te["income"], prob[:, 1])
+    if not lr_rel <= LR_FIT_RTOL:
+        fails.append(f"LogisticRegression (standardised): card off the CPU port by {lr_rel} "
+                     f"of max |w|, tolerance {LR_FIT_RTOL}")
+    if not lr_auc >= LR_AUC_MIN:
+        fails.append(f"LogisticRegression (standardised): held-out AUC {lr_auc}")
+    num = [c for c in ADULT_NUMERIC if c != "hours_per_week"]
+    xn_tr, xn_te = _standardised(np.stack([tr[c] for c in num], 1),
+                                 np.stack([te[c] for c in num], 1))
+    num_tr = DataFrame.from_dict({"features": xn_tr, "label": tr["hours_per_week"]})
+    lin = {d: LinearRegression(device=d).fit(num_tr) for d in (DEV.type, "cpu")}
+    wb = {d: np.append(lin[d].get("weights"), lin[d].get("bias")) for d in lin}
+    lin_rel = _rel(wb[DEV.type], wb["cpu"])
+    y_te = te["hours_per_week"]
+    p_te = lin[DEV.type].transform(DataFrame.from_dict({"features": xn_te}))["prediction"]
+    lin_r2 = float(1 - np.sum((y_te - p_te) ** 2) / np.sum((y_te - y_te.mean()) ** 2))
+    if not lin_rel <= LINREG_RTOL:
+        fails.append(f"LinearRegression (standardised): card off the CPU port by {lin_rel} "
+                     f"of max |w|, tolerance {LINREG_RTOL}")
+    rec = {"train_classifier_default_rel": raw_rel,
+           "logistic_standardised": {"rel": lr_rel, "tol": LR_FIT_RTOL, "auc": lr_auc},
+           "linear_standardised": {"rel": lin_rel, "tol": LINREG_RTOL, "r2": lin_r2,
+                                   "columns": num}}
+    return rec, fails
+
+
+def _train_part(tr, te) -> tuple:
+    """TrainClassifier over LightGBM through ``drive``; Featurize card vs
+    the CPU port; the default learners; the statistics stages on the
+    scored test rows."""
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.train import (ComputeModelStatistics,
+                                          ComputePerInstanceStatistics, TrainClassifier,
+                                          TrainRegressor)
+
+    scored = {}
+
+    def score(model) -> dict:
+        out = model.transform(te)
+        scored["out"] = out
+        return {"auc": binary_auc(out["income"], out["probability"][:, 1]),
+                "featurized_width": int(out["features"].shape[1])}
+
+    est = TrainClassifier(label_col="income", model=LightGBMClassifier(
+        num_leaves=31, num_iterations=50, device=DEV.type))
+    rec, model = drive("train_http", est, tr, "plane_hist", score, part="TrainClassifier",
+                       learner="LightGBMClassifier(num_leaves=31, num_iterations=50)")
+    out = scored["out"]
+    fails = []
+    if rec["auc"] < 0.85:
+        fails.append(f"TrainClassifier(LightGBM) held-out AUC {rec['auc']}")
+    # the CPU port's TrainClassifier, its default learner, on the same rows
+    cpu = TrainClassifier(label_col="income",
+                          model=LogisticRegression(device="cpu")).fit(tr)
+    raw = te.drop("income")
+    feat_card = model.get("featurizer").transform(raw)["features"]
+    feat_cpu = cpu.get("featurizer").transform(raw)["features"]
+    featurize_bitwise = (model.get("featurizer").get("plans") == cpu.get("featurizer").get("plans")
+                         and feat_card.dtype == feat_cpu.dtype
+                         and feat_card.shape == feat_cpu.shape
+                         and feat_card.tobytes() == feat_cpu.tobytes())
+    if not featurize_bitwise:
+        fails.append("Featurize: the card's TrainClassifier featurizes unlike the CPU port's")
+    t0 = time.perf_counter()
+    lr = TrainClassifier(label_col="income").fit(tr)
+    lr_out = lr.transform(te)
+    lr_s = time.perf_counter() - t0
+    lr_prob = lr_out["probability"]
+    if lr_prob.shape != (len(te["income"]), 2) or not np.isfinite(lr_prob).all():
+        fails.append(f"TrainClassifier(): probabilities {lr_prob.shape}, finite "
+                     f"{bool(np.isfinite(lr_prob).all())}")
+    reg_cols = [c for c in tr.columns if c != "income"]
+    t0 = time.perf_counter()
+    reg = TrainRegressor(label_col="hours_per_week").fit(tr.select(*reg_cols))
+    pred = reg.transform(te.select(*reg_cols))["prediction"]
+    reg_s = time.perf_counter() - t0
+    y_reg = te["hours_per_week"]
+    r2 = float(1 - np.sum((y_reg - pred) ** 2) / np.sum((y_reg - y_reg.mean()) ** 2))
+    if not np.isfinite(pred).all():
+        fails.append("TrainRegressor(): non-finite predictions")
+    learners, f = _learners_card_vs_cpu(model, tr, te, lr, cpu)
+    fails += f
+    # the statistics stages against numpy on the scored test rows
+    y = np.asarray(out["income"], np.int64)
+    p = np.asarray(out["probability"], np.float64)
+    yhat = np.asarray(out["prediction"], np.int64)
+    stats = ComputeModelStatistics(label_col="income", scored_probabilities_col="probability",
+                                   evaluation_metric="classification").transform(out)
+    row = stats.collect()[0]
+    cm_np = np.zeros((2, 2), np.float64)
+    np.add.at(cm_np, (y, yhat), 1.0)
+    cm_exact = np.array_equal(np.asarray(row["confusion_matrix"]), cm_np)
+    auc_f64 = _auc_f64(y, p[:, 1])
+    auc_err = abs(float(row["AUC"]) - auc_f64)
+    per = ComputePerInstanceStatistics(label_col="income",
+                                       scored_probabilities_col="probability").transform(out)
+    ll_np = -np.log(np.clip(p[np.arange(len(y)), y], 1e-15, 1.0))
+    ll_rel = float(np.max(np.abs(per["log_loss"] - ll_np) / np.maximum(np.abs(ll_np), 1e-300)))
+    if not cm_exact:
+        fails.append(f"confusion matrix {row['confusion_matrix'].tolist()} != {cm_np.tolist()}")
+    if auc_err > STATS_AUC_TOL:
+        fails.append(f"ComputeModelStatistics AUC off the float64 recomputation by {auc_err}")
+    if ll_rel > STATS_LOGLOSS_REL:
+        fails.append(f"per-instance log-loss off numpy by {ll_rel} relative")
+    part = {"train_classifier": rec, "featurize_card_equals_cpu": featurize_bitwise,
+            "default_learner": {"auc": binary_auc(lr_out["income"], lr_prob[:, 1]),
+                                "fit_transform_s": lr_s},
+            "train_regressor": {"target": "hours_per_week", "r2": r2,
+                                "fit_transform_s": reg_s},
+            "learners_card_vs_cpu": learners,
+            "statistics": {"confusion_matrix": cm_np.tolist(), "confusion_exact": cm_exact,
+                           "auc": float(row["AUC"]), "auc_f64": auc_f64,
+                           "auc_abs_err": auc_err, "accuracy": float(row["accuracy"]),
+                           "log_loss_max_rel_err": ll_rel}}
+    return part, model, out, fails
+
+
+def _tune(feats, parallelism: int):
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam, RangeHyperParam,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+
+    t = TuneHyperparameters(label_col="income", evaluation_metric="AUC", number_of_folds=3,
+                            number_of_runs=2, parallelism=parallelism, seed=SEED)
+    t.set(models=[LightGBMClassifier(num_iterations=TUNE_ROUNDS, label_col="income",
+                                     device=DEV.type),
+                  LogisticRegression(label_col="income", device=DEV.type)],
+          hyperparams=[[("num_leaves", DiscreteHyperParam([15, 31])),
+                        ("learning_rate", RangeHyperParam(0.05, 0.2))],
+                       [("reg_param", RangeHyperParam(1e-5, 1e-2, log=True))]])
+    return t.fit(feats)
+
+
+def _tune_part(model, tr, te) -> tuple:
+    """TuneHyperparameters over [LightGBM, LogisticRegression] on the
+    featurized training rows, at parallelism 1 and 2; FindBestModel over
+    the tuned model (featurized as the TrainClassifier model is) and the
+    TrainClassifier model on the test rows."""
+    from mmlspark_tpu_torch.automl import FindBestModel
+    from mmlspark_tpu_torch.train import TrainedClassifierModel
+
+    levels = model.get("levels")
+    feats = model.get("featurizer").transform(_adult_indexed(tr, levels)).select(
+        "features", "income")
+    runs, launches = {}, {}
+    for par in (1, 2):
+        H.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[par] = _tune(feats, par)
+        torch.cuda.synchronize()
+        launches[par] = {"seconds": time.perf_counter() - t0, **dict(H.launches)}
+    one, two = runs[1], runs[2]
+    fails = []
+    same = (one.get("all_metrics") == two.get("all_metrics")
+            and one.get("best_params") == two.get("best_params"))
+    if not same:
+        fails.append(f"tune: parallelism 1 {one.get('all_metrics')} {one.get('best_params')} "
+                     f"!= 2 {two.get('all_metrics')} {two.get('best_params')}")
+    if min(launches[p]["plane_hist"] for p in (1, 2)) == 0:
+        fails.append(f"tune: the LightGBM candidates never launched plane_hist: {launches}")
+    tuned = TrainedClassifierModel(label_col="income").set(
+        featurizer=model.get("featurizer"), inner_model=one, levels=levels)
+    best = FindBestModel(models=[tuned, model], evaluation_metric="AUC",
+                         label_col="income").fit(te)
+    names = ["tuned", "train_classifier"]
+    winner = names[[id(m) for m in (tuned, model)].index(id(best.get("best_model")))]
+    part = {"candidates": len(one.get("all_metrics")), "folds": 3, "rounds": TUNE_ROUNDS,
+            "all_metrics": one.get("all_metrics"), "best_params": one.get("best_params"),
+            "best_metric": one.get("best_metric"), "parallelism_1_equals_2": same,
+            "runs": launches, "find_best": {"winner": winner, "auc": best.get(
+                "best_model_metrics")["AUC"], "all_auc": best.get("all_model_metrics")}}
+    return part, fails
+
+
+class _PowerBIMock:
+    """A stdlib push endpoint: records each POSTed batch in arrival order."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        batches, lock = [], threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                with lock:
+                    batches.append(json.loads(body))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.batches = batches
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.srv.server_port}/push"
+
+    def stop(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _powerbi_part(out) -> tuple:
+    """The scored test rows (their columns and scores) to a local push
+    endpoint in batches of 100, one in flight: every row once, in order."""
+    from mmlspark_tpu_torch.io import PowerBIWriter
+
+    cols = [*ADULT_NUMERIC, *ADULT_LEVELS, "income", "prediction", "probability"]
+    n = len(out["income"])
+    df = out.select(*cols).with_column("row_id", lambda p: np.arange(len(p["income"])))
+    if df.num_partitions != 1:
+        raise AssertionError("the PowerBI frame must be one partition for its row ids")
+    mock = _PowerBIMock()
+    try:
+        t0 = time.perf_counter()
+        resps = PowerBIWriter.write(df, mock.url, minibatch_size=POWERBI_BATCH, concurrency=1)
+        secs = time.perf_counter() - t0
+    finally:
+        mock.stop()
+    ids = [r["row_id"] for b in mock.batches for r in b]
+    in_order = ids == list(range(n)) and len(resps) == len(mock.batches)
+    sizes_ok = all(len(b) == POWERBI_BATCH for b in mock.batches[:-1])
+    first_ok = mock.batches[0][0]["age"] == float(out["age"][0]) if mock.batches else False
+    fails = [] if (in_order and sizes_ok and first_ok) else [
+        f"PowerBI: {len(ids)} rows of {n} in order {in_order}, sizes {sizes_ok}"]
+    return {"rows": n, "batches": len(mock.batches), "seconds": secs,
+            "rows_per_s": n / secs, "every_row_once_in_order": in_order}, fails
+
+
+def _http_part(vw_serve) -> tuple:
+    """JSONInputParser -> SimpleHTTPTransformer(concurrency=8) over V2's
+    held-out rows to a WorkerServer serving ``vw:`` (V2's classifier) on
+    the card, one row malformed: replies bitwise the in-process transform,
+    the malformed row in the error column, ``vw_margin`` launched."""
+    from mmlspark_tpu_torch.io import JSONInputParser, SimpleHTTPTransformer
+    from mmlspark_tpu_torch.ops import sgd
+    from mmlspark_tpu_torch.serving import WorkerServer
+    from mmlspark_tpu_torch.serving.modelstore import ModelDispatcher, ModelStore
+
+    vw_model = vw_serve["model"]
+    feats = vw_serve["online"]["features"][-VW_HOLDOUT:][:HTTP_ROWS]
+    rows = _obj(list(feats))
+    bad = {"i": [1, 2], "v": [0.5]}             # two indices, one value: the loader's 400
+    rows[HTTP_BAD_ROW] = bad
+    good = np.arange(HTTP_ROWS) != HTTP_BAD_ROW
+    want = vw_model.copy({"device": DEV.type}).transform(
+        DataFrame.from_dict({"features": rows[good]}))["raw_prediction"]
+    d = os.path.join(ROOT, "build", "chip_smoke_train_http")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    _write_vw_npz(os.path.join(d, "v2.npz"), vw_model)
+    store = ModelStore(device=DEV.type)
+    store.load("vw", f"vw:{d}/v2.npz")
+    srv = WorkerServer(name="chip-smoke-http")
+    info = srv.start()
+    disp = ModelDispatcher(srv, store, max_batch_size=SERVE_BUCKETS).start()
+    url = f"http://127.0.0.1:{info.port}/models/vw"
+    try:
+        df = DataFrame.from_dict({"row": rows}, num_partitions=1)
+        stage = SimpleHTTPTransformer(input_col="row", output_col="reply", concurrency=8,
+                                      input_parser=JSONInputParser(url=url))
+        sgd.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = stage.transform(df)
+        secs = time.perf_counter() - t0
+        launches = dict(sgd.launches)
+    finally:
+        disp.stop()
+        srv.stop()
+        store.unload("vw")
+        shutil.rmtree(d, ignore_errors=True)
+    replies, errors = list(out["reply"]), list(out["reply_error"])
+    margins = np.array([r["margin"] if r is not None else np.nan for r in replies])
+    bitwise = all(replies[k] is not None and errors[k] is None for k in np.flatnonzero(good)) \
+        and np.array_equal(margins[good], np.asarray(want, np.float32).astype(np.float64))
+    bad_ok = replies[HTTP_BAD_ROW] is None and errors[HTTP_BAD_ROW] is not None \
+        and errors[HTTP_BAD_ROW]["status_code"] == 400
+    fails = []
+    if not bitwise:
+        fails.append("HTTP: replies differ from the in-process transform")
+    if not bad_ok:
+        fails.append(f"HTTP: the malformed row gave {replies[HTTP_BAD_ROW]} / "
+                     f"{errors[HTTP_BAD_ROW]}")
+    if launches["vw_margin"] == 0:
+        fails.append(f"HTTP: the worker never launched vw_margin: {launches}")
+    return {"rows": HTTP_ROWS, "concurrency": 8, "seconds": secs, "rows_per_s": HTTP_ROWS / secs,
+            "replies_bitwise": bitwise, "malformed_row_in_error_col": bad_ok,
+            "launches": launches}, fails
+
+
+def train_http_phase(smi: str, vw_serve: dict) -> dict:
+    """Phase ``train_http``: MMLSpark's TrainClassifier ->
+    ComputeModelStatistics and TuneHyperparameters flow on synthetic rows
+    of UCI Adult's shape, HTTP on Spark against the port's own worker, and
+    the PowerBI writer."""
+    t_start = time.perf_counter()
+    cols = adult_frame()
+    tr = DataFrame.from_dict({k: v[:ADULT_TRAIN] for k, v in cols.items()})
+    te = DataFrame.from_dict({k: v[ADULT_TRAIN:] for k, v in cols.items()})
+    times = {"data": time.perf_counter() - t_start}
+    fails = []
+    t0 = time.perf_counter()
+    train_rec, model, out, f = _train_part(tr, te)
+    fails += f
+    times["train"] = time.perf_counter() - t0
+    # drive() printed the TrainClassifier fit's own line
+    phase("train_http", part="train", **{k: v for k, v in train_rec.items()
+                                         if k != "train_classifier"})
+    t0 = time.perf_counter()
+    tune_rec, f = _tune_part(model, tr, te)
+    fails += f
+    times["tune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    http_rec, f = _http_part(vw_serve)
+    fails += f
+    times["http"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pbi_rec, f = _powerbi_part(out)
+    fails += f
+    times["powerbi"] = time.perf_counter() - t0
+    rec = {"rows": ADULT_ROWS, "train_rows": ADULT_TRAIN,
+           "positive_share": float(np.mean(cols["income"] == ">50K")),
+           "train": train_rec, "tune": tune_rec, "http": http_rec, "powerbi": pbi_rec,
+           "part_s": times, "seconds": time.perf_counter() - t_start, "nvidia_smi": smi}
+    phase("train_http", part="total", **{k: v for k, v in rec.items() if k != "train"})
+    if fails:
+        raise AssertionError(f"phase train_http: {fails}")
+    return rec
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = card()
@@ -6163,6 +6646,7 @@ def main() -> None:
     recommend_phase(smi)
     anomaly_phase(smi)
     phase("recommend_anomaly", seconds=time.perf_counter() - t_rec)
+    th_rec = train_http_phase(smi, vw_serve)
 
     def entry(name, replaces, run, kernel, err, t):
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
@@ -6181,6 +6665,9 @@ def main() -> None:
         entry("multi_plane_hist (S=16)", f"{TPU}:548 _multi_kernel (B3, pallas_call :642)",
               runs["depthwise"], "multi_plane_hist", errs["multi"], t_multi16),
     ]
+    # phase train_http: TrainClassifier's LightGBM fit (default max_bin 255, lossguide)
+    kernels[0]["train_http_launches"] = th_rec["train"]["train_classifier"]["launches"][
+        "plane_hist"]
     # the grad and apply phases run inside vw_pass on the main path: their
     # launches there are vw_pass's, their stand-alone launches (0) beside them
     v2_launches = vw_rec["V2"]["launches"]
@@ -6204,6 +6691,8 @@ def main() -> None:
             "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"]}
         if name == "vw_margin":
             rec["serving_launches"] = serve_rec["launches"]["vw_margin"]
+            # phase train_http: SimpleHTTPTransformer's requests to the worker
+            rec["http_launches"] = th_rec["http"]["launches"]["vw_margin"]
             # the fleet's in-process worker, on the fleet phase's counted traffic
             rec["fleet_launches"] = fleet_rec["counted"]["launches"]["vw_margin"]
         if name in ("vw_pass", "vw_margin"):

@@ -1,9 +1,10 @@
-"""Hyperparameter spaces: the port's part of ``mmlspark_tpu.automl``.
+"""Hyperparameter search: the port of ``mmlspark_tpu.automl``, with every
+name of its ``__all__``.
 
-Only :mod:`~mmlspark_tpu_torch.automl.hyperparams` is ported (a copy of
-the JAX package's pure-Python module): the experiment controller
-(``experiments/``) samples its trials from it. ``TuneHyperparameters``
-and ``FindBestModel`` (``automl/tune.py``) are queued in ROADMAP.md (A10).
+:mod:`~mmlspark_tpu_torch.automl.hyperparams` is a copy of the JAX
+package's pure-Python module (the experiment controller, ``experiments/``,
+samples its trials from it); :mod:`~mmlspark_tpu_torch.automl.tune` holds
+``TuneHyperparameters`` and ``FindBestModel``.
 """
 
 from mmlspark_tpu_torch.automl.hyperparams import (
@@ -14,8 +15,18 @@ from mmlspark_tpu_torch.automl.hyperparams import (
     RandomSpace,
     RangeHyperParam,
 )
+from mmlspark_tpu_torch.automl.tune import (
+    EvaluationUtils,
+    FindBestModel,
+    FindBestModelResult,
+    TuneHyperparameters,
+)
 
 __all__ = [
+    "TuneHyperparameters",
+    "FindBestModel",
+    "FindBestModelResult",
+    "EvaluationUtils",
     "HyperparamBuilder",
     "GridSpace",
     "RandomSpace",

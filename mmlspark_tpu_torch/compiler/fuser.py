@@ -51,7 +51,6 @@ launch a graph raises: it is never hidden behind a staged or CPU rerun.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Optional
 
@@ -61,7 +60,7 @@ import torch
 from mmlspark_tpu_torch import obs
 from mmlspark_tpu_torch.compiler.partitioner import ShardingPlan, plan_sharding
 from mmlspark_tpu_torch.core.dataframe import DataFrame, Partition
-from mmlspark_tpu_torch.core.device import resolve_device
+from mmlspark_tpu_torch.core.device import CAPTURE_LOCK as _CAPTURE_LOCK, resolve_device
 from mmlspark_tpu_torch.core.profiling import device_phase
 
 _M_COMPILE = obs.histogram(
@@ -420,11 +419,6 @@ class FusedSegment(Segment):
         with _CAPTURE_LOCK:
             self._graphs.clear()
             self._pool = None
-
-
-# one capture (or graph release) at a time in the process: see the module
-# docstring, "Capture beside serving"
-_CAPTURE_LOCK = threading.Lock()
 
 
 def _fill(views: dict, cols: dict, s: int, e: int) -> None:

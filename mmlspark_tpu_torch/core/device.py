@@ -3,13 +3,26 @@
 Entry points run on the card unless the caller asks for the CPU: ``None``
 means ``"cuda"``, and a CUDA request on a machine without a card raises
 instead of quietly running elsewhere.
+
+``CAPTURE_LOCK`` serialises CUDA graph captures (and the release of a
+captured graph) across the process: the pipeline compiler's segments and
+the GBDT trainer's fused rounds take it, and capture in thread-local mode,
+so another thread may keep launching, replaying and synchronising on the
+card while a capture is under way, and one capture's device-wide
+synchronize never lands inside another.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from mmlspark_tpu_torch.core.params import Param, Params
+
+
+# one CUDA graph capture (or graph release) at a time in the process
+CAPTURE_LOCK = threading.Lock()
 
 
 class HasDevice(Params):

@@ -62,7 +62,7 @@ def _apply_grouped(images: np.ndarray, fn: Callable, dev: torch.device) -> np.nd
 
 
 class ImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
-    """Ordered list of image ops applied on the device (see module docstring)."""
+    """Ordered list of image ops applied on device (see module docstring)."""
 
     stages = Param("ordered op descriptors", default=[])
 

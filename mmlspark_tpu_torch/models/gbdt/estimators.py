@@ -94,11 +94,9 @@ class _LightGBMParams(
         validator=lambda v: 2 <= v <= 255,
     )
     feature_fraction = Param("feature subsample per tree", default=1.0, type_=float)
-    bagging_fraction = Param("row subsample per bagging round", default=1.0, type_=float)
-    bagging_freq = Param("bagging frequency in rounds (0=off)", default=0, type_=int)
-    early_stopping_round = Param(
-        "early stopping patience on the validation rows (0=off)", default=0, type_=int
-    )
+    bagging_fraction = Param("row subsample", default=1.0, type_=float)
+    bagging_freq = Param("bagging frequency (0=off)", default=0, type_=int)
+    early_stopping_round = Param("early stopping patience (0=off)", default=0, type_=int)
     metric = Param("eval metric name ('' = objective default)", default="", type_=str)
     parallelism = Param(
         "data_parallel | voting_parallel (PV-Tree: each rank votes its top_k "
@@ -110,7 +108,7 @@ class _LightGBMParams(
     )
     growth_policy = Param(
         "lossguide (LightGBM leaf-wise, default) | depthwise (level-wise; "
-        "one multi-leaf histogram pass per level)",
+        "one multi-leaf histogram pass per level — O(depth) row passes)",
         default="lossguide",
         type_=str,
         validator=lambda v: v in ("lossguide", "depthwise"),
@@ -121,7 +119,7 @@ class _LightGBMParams(
                   default=20, type_=int)
     boost_from_average = Param("init score from label average", default=True, type_=bool)
     boosting_type = Param(
-        "gbdt | goss | dart | rf",
+        "gbdt | goss | dart | rf (LightGBMParams boostingType)",
         default="gbdt",
         type_=str,
         validator=lambda v: v in ("gbdt", "goss", "dart", "rf"),
@@ -133,28 +131,31 @@ class _LightGBMParams(
     other_rate = Param("goss: small-gradient sample fraction", default=0.1, type_=float)
     eval_at = Param("ranking eval truncation (ndcg@k)", default=5, type_=int)
     categorical_slot_indexes = Param(
-        "feature indices treated as categorical (subset splits). Values must "
-        "be non-negative integers <= max_bin-2.",
+        "feature indices treated as categorical (subset splits; "
+        "LightGBMParams categoricalSlotIndexes analogue). Values must be "
+        "non-negative integers < max_bin-1.",
         default=None,
     )
-    model_string = Param(
-        "initial model for continued training (JSON or LightGBM text)", default="", type_=str
+    model_string = Param("initial model for continued training", default="", type_=str)
+    alpha = Param(
+        "quantile level (objective=quantile) / huber delta (objective=huber)",
+        default=0.9, type_=float,
     )
-    alpha = Param("quantile level / huber delta", default=0.9, type_=float)
     tweedie_variance_power = Param("tweedie variance power in (1, 2)", default=1.5, type_=float)
     poisson_max_delta_step = Param(
         "poisson hessian stabilizer exp(score + step)", default=0.7, type_=float
     )
     fair_c = Param("fair-loss scale c", default=1.0, type_=float)
-    num_batches = Param(
-        "fold training into k sequential row batches, each continuing the last",
-        default=0, type_=int,
-    )
+    num_batches = Param("fold training into k sequential batches", default=0, type_=int)
     checkpoint_dir = Param(
-        "directory for round-level preemption-safe checkpoints ('' = off)",
-        default="", type_=str,
+        "directory for round-level preemption-safe checkpoints ('' = off); "
+        "see docs/robustness.md", default="", type_=str,
     )
-    checkpoint_every = Param("boosting rounds between checkpoints", default=10, type_=int)
+    checkpoint_every = Param(
+        "boosting rounds between checkpoints (each save re-serializes the "
+        "full booster — small values trade training throughput for a "
+        "tighter recovery window)", default=10, type_=int
+    )
     resume_from = Param(
         "checkpoint directory to resume training from ('' = fresh run); "
         "point it at checkpoint_dir for crash-loop-safe auto-resume",
@@ -444,7 +445,8 @@ class LightGBMClassificationModel(
 class LightGBMRegressor(Estimator, _LightGBMParams, HasPredictionCol):
     objective = Param(
         "regression | regression_l1 | quantile | huber | fair | poisson | "
-        "tweedie | gamma | mape (LightGBM objective passthrough)",
+        "tweedie | gamma | mape (LightGBM objective passthrough, "
+        "TrainParams.scala:8-40)",
         default="regression", type_=str,
     )
 

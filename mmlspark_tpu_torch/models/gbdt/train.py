@@ -32,9 +32,12 @@ keys, feature mask and bag are derived from it on the device; scores and
 bag are updated in place, the tree records go into a (T, k, W) buffer at
 row ``it`` and the metric into a (T,) buffer. On the card that round is
 captured once as a CUDA graph after one eager warm-up round and replayed,
-so a round costs one graph launch instead of thousands of kernel launches;
-on the CPU, and on the card with ``fused_rounds=1``, it runs eagerly. The
-host reads the metrics once per chunk and the records once (and at each
+so a round costs one graph launch instead of thousands of kernel launches.
+The capture runs in thread-local mode under the process's
+``core.device.CAPTURE_LOCK``, so fits on other threads (a tuning run's
+candidates, a serving worker) go on launching beside it. On the CPU, and
+on the card with ``fused_rounds=1``, the round runs eagerly. The host
+reads the metrics once per chunk and the records once (and at each
 checkpoint). That one round body serves every eligible fit, graph or
 not; only dart, delegates and the host LambdaRank/NDCG cases take the
 per-round loop, which reads the host between rounds.
@@ -100,7 +103,7 @@ import torch
 
 from mmlspark_tpu_torch.compiler.kernels import pairwise_sum
 from mmlspark_tpu_torch.core import faults
-from mmlspark_tpu_torch.core.device import resolve_device
+from mmlspark_tpu_torch.core.device import CAPTURE_LOCK, resolve_device
 from mmlspark_tpu_torch.models.gbdt import checkpoint as ckpt
 from mmlspark_tpu_torch.models.gbdt import evaluation, objectives, sampling
 from mmlspark_tpu_torch.models.gbdt.binning import (
@@ -1048,9 +1051,10 @@ def train(
                     with torch.cuda.stream(side):
                         one_round()
                     cur.wait_stream(side)
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph):
-                        one_round()
+                    with CAPTURE_LOCK:
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                            one_round()
                     fused["captures"] += 1
                 else:
                     graph.replay()
@@ -1084,7 +1088,8 @@ def train(
                 trees_done += unpack(rec_read, it0)
                 rec_read = it0
                 save(it0)
-        graph = None
+        with CAPTURE_LOCK:
+            graph = None
         trees_done += unpack(rec_read, kept_rounds)
     else:
         # -- the per-round loop (dart, delegates, host gradients or

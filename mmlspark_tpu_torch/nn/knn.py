@@ -112,7 +112,7 @@ class _HasConditionerCol(HasLabelCol):
 
 
 class KNN(Estimator, _KNNParams):
-    """Fit = capture the index; see the module docstring."""
+    """Fit = capture the index; see module docstring."""
 
     def fit(self, df: DataFrame) -> "KNNModel":
         feats = np.asarray(df[self.get("features_col")], np.float32)

@@ -1361,11 +1361,13 @@ class _StaleKeepAliveBackend:
                 n = int(m.group(1)) if m else 0
                 while len(rest) < n:
                     rest += c.recv(65536)
+                # counted before the reply goes out, so a client that has
+                # read its reply always finds its request counted
+                self.served += 1
                 c.sendall(
                     b"HTTP/1.1 200 OK\r\nContent-Length: 2\r\n"
                     b"Connection: keep-alive\r\n\r\nok"
                 )
-                self.served += 1
             except Exception:
                 pass
             finally:

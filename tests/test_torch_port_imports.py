@@ -8,9 +8,12 @@ even of modules there that do not import JAX themselves.
 from __future__ import annotations
 
 import ast
+import json
 import os
+import queue
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -111,6 +114,20 @@ def test_import_with_jax_blocked(tmp_path):
         "    synthetic_access_df, StandardScalarScaler, LinearScalarScaler)\n"
         "from mmlspark_tpu_torch.cyber import als, anomaly, complement, scalers, dataset\n"
         "from mmlspark_tpu_torch.lightgbm import LightGBMBooster, LightGBMClassifier\n"
+        "from mmlspark_tpu_torch.io import (HTTPTransformer, SimpleHTTPTransformer,\n"
+        "    JSONInputParser, JSONOutputParser, StringOutputParser, CustomInputParser,\n"
+        "    CustomOutputParser, PowerBIWriter, SharedVariable, SharedSingleton)\n"
+        "from mmlspark_tpu_torch.io import http_transformer, parsers, powerbi, shared\n"
+        "from mmlspark_tpu_torch.train import (TrainClassifier, TrainRegressor, OneVsRest,\n"
+        "    ComputeModelStatistics, ComputePerInstanceStatistics, TrainedClassifierModel)\n"
+        "from mmlspark_tpu_torch.train import statistics\n"
+        "from mmlspark_tpu_torch.automl import TuneHyperparameters, FindBestModel, tune\n"
+        "from mmlspark_tpu_torch.cognitive import (TextSentiment, AnalyzeImage, DetectFace,\n"
+        "    DetectAnomalies, SpeechToTextSDK, BingImageSearch, CognitiveServiceBase)\n"
+        "from mmlspark_tpu_torch.cognitive import (schemas, base, text, vision, face,\n"
+        "    anomaly, audio, speech, search)\n"
+        "from mmlspark_tpu_torch import plot, codegen\n"
+        "from mmlspark_tpu_torch.codegen import generate_manifest, generate_r_package\n"
         "assert try_load() is not None\n"
         "sys.modules['flax'] = sys.modules['msgpack'] = None\n"
         "ModelDownloader(sys.argv[1]).load_variables('ResNet18_Patches')\n"
@@ -124,7 +141,89 @@ def test_import_with_jax_blocked(tmp_path):
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("module", [
+# The import-alone check's helper: one interpreter per test module, which
+# imports torch and numpy once, proves that neither loaded JAX, flax or the
+# JAX package, and then forks a child per module to import; each child
+# reports what its import loaded. No torch op runs before a fork and the
+# thread pools are sized to one, so the helper forks with one thread.
+_FORK_HELPER = r"""
+import importlib, json, os, sys
+import numpy, torch
+
+def loaded(extra):
+    tops = ("jax", "jaxlib", "flax") + tuple(extra)
+    return sorted(m for m in sys.modules if m.split(".")[0] in tops
+                  or m == "mmlspark_tpu" or m.startswith("mmlspark_tpu."))
+
+assert not loaded(()), loaded(())
+# one thread: no pool is live at a fork (the helper's environment sizes
+# OpenMP's and OpenBLAS's pools to one)
+assert len(os.listdir("/proc/self/task")) == 1, os.listdir("/proc/self/task")
+print(json.dumps({"ready": True}), flush=True)
+for line in sys.stdin:
+    req = json.loads(line)
+    pid = os.fork()
+    if pid == 0:
+        try:
+            importlib.import_module(req["module"])
+            out = {"bad": loaded(req["extra"])}
+        except BaseException as e:
+            out = {"error": repr(e)}
+        sys.stdout.write(json.dumps(out) + "\n")
+        sys.stdout.flush()
+        os._exit(0)
+    _, status = os.waitpid(pid, 0)
+    print(json.dumps({"status": status}), flush=True)
+"""
+
+
+class _ForkHelper:
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _FORK_HELPER], cwd=ROOT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                     OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1"),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        self.lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, daemon=True).start()
+        first = self._next()
+        assert first == {"ready": True}, first
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def _next(self) -> dict:
+        line = self.lines.get(timeout=120)
+        assert line is not None, self.proc.stderr.read()
+        return json.loads(line)
+
+    def imports(self, module: str, extra: tuple = ()) -> dict:
+        """What importing ``module`` alone loaded of JAX, flax, the JAX
+        package and ``extra``, or its error."""
+        self.proc.stdin.write(json.dumps({"module": module, "extra": list(extra)}) + "\n")
+        self.proc.stdin.flush()
+        out = self._next()
+        if "status" in out:  # the child died before it could report
+            return {"error": f"child exited with status {out['status']}"}
+        status = self._next()
+        assert status == {"status": 0}, status
+        return out
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=30)
+
+
+@pytest.fixture(scope="module")
+def fork_helper():
+    helper = _ForkHelper()
+    yield helper
+    helper.close()
+
+
+ALONE = [
     "mmlspark_tpu_torch.io.csv", "mmlspark_tpu_torch.io.binary",
     "mmlspark_tpu_torch.io.consolidator", "mmlspark_tpu_torch.io.stream",
     "mmlspark_tpu_torch.chaos.wire", "mmlspark_tpu_torch.serving.artifacts",
@@ -151,25 +250,41 @@ def test_import_with_jax_blocked(tmp_path):
     "mmlspark_tpu_torch.cyber.scalers", "mmlspark_tpu_torch.cyber.dataset",
     "mmlspark_tpu_torch.cyber.anomaly", "mmlspark_tpu_torch.cyber",
     "mmlspark_tpu_torch.lightgbm",
-])
-def test_no_shared_disk_modules_import_alone(module):
+    "mmlspark_tpu_torch.io.shared", "mmlspark_tpu_torch.io.parsers",
+    "mmlspark_tpu_torch.io.http_transformer", "mmlspark_tpu_torch.io.powerbi",
+    "mmlspark_tpu_torch.io", "mmlspark_tpu_torch.train.statistics",
+    "mmlspark_tpu_torch.train.train", "mmlspark_tpu_torch.train",
+    "mmlspark_tpu_torch.automl.tune", "mmlspark_tpu_torch.automl",
+    "mmlspark_tpu_torch.cognitive.schemas", "mmlspark_tpu_torch.cognitive.base",
+    "mmlspark_tpu_torch.cognitive.text", "mmlspark_tpu_torch.cognitive.vision",
+    "mmlspark_tpu_torch.cognitive.face", "mmlspark_tpu_torch.cognitive.anomaly",
+    "mmlspark_tpu_torch.cognitive.audio", "mmlspark_tpu_torch.cognitive.speech",
+    "mmlspark_tpu_torch.cognitive.search", "mmlspark_tpu_torch.cognitive",
+    "mmlspark_tpu_torch.codegen",
+]
+
+
+@pytest.mark.parametrize("module", ALONE)
+def test_no_shared_disk_modules_import_alone(fork_helper, module):
     """Each module of the gang's no-shared-disk modes, of the serving
     fleet, of continuous learning, of the experiments, of the chaos
     conductor, of the profiler, ring attention, the ViT and BiLSTM models,
-    LIME, KNN, SAR, the isolation forest, CyberML and the ``lightgbm``
-    alias, alone in a fresh interpreter, loads neither JAX nor the JAX
-    package."""
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
-        "             or m == 'mmlspark_tpu' or m.startswith('mmlspark_tpu.'))\n"
-        "assert not bad, bad\n"
-    )
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
+    LIME, KNN, SAR, the isolation forest, CyberML, the ``lightgbm`` alias,
+    the HTTP transformers, parsers and writers, training, tuning, the
+    cognitive services and codegen, imported alone, loads neither JAX nor
+    the JAX package.
+
+    Each import runs in a child forked from a helper that has imported
+    ``torch`` and numpy already (``fork_helper``). That leaves the check
+    intact: ``torch`` and numpy never load JAX, flax or the JAX package,
+    and the helper proves it before its first fork, so whatever of those
+    a child holds after its import, that import loaded."""
+    assert fork_helper.imports(module) == {"bad": []}
+
+
+def test_plot_imports_alone_without_matplotlib(fork_helper):
+    """``plot`` loads matplotlib only when a plot is drawn."""
+    assert fork_helper.imports("mmlspark_tpu_torch.plot", ("matplotlib",)) == {"bad": []}
 
 
 def test_gbdt_exports_every_name_of_the_jax_package():
@@ -185,13 +300,15 @@ def test_gbdt_exports_every_name_of_the_jax_package():
 # names of the JAX package's ``__all__`` the port does not export yet: none
 # (ROADMAP.md Queue A items 6 and 8, ``vw`` included, are ported; so are
 # A4 step 1, ``parallel``, A7, ``serving``, ``online``, ``experiments``
-# and ``chaos``, and A10's ``lime``, ``nn``, ``recommendation``,
-# ``isolationforest``, ``cyber`` and the ``lightgbm`` alias)
+# and ``chaos``, and A10: ``lime``, ``nn``, ``recommendation``,
+# ``isolationforest``, ``cyber``, the ``lightgbm`` alias, ``io``,
+# ``train``, ``automl`` and ``cognitive``)
 A6_REMAINDER = {"stages": set(), "featurize": set(), "vw": set(), "compiler": set(),
                 "obs": set(), "parallel": set(), "serving": set(), "online": set(),
                 "experiments": set(), "chaos": set(), "lime": set(), "nn": set(),
                 "downloader": set(), "recommendation": set(), "isolationforest": set(),
-                "cyber": set(), "lightgbm": set()}
+                "cyber": set(), "lightgbm": set(), "io": set(), "train": set(),
+                "automl": set(), "cognitive": set()}
 
 
 @pytest.mark.parametrize("package", sorted(A6_REMAINDER))
@@ -204,6 +321,23 @@ def test_pipeline_slice_exports_every_name(package):
     P = importlib.import_module(f"mmlspark_tpu_torch.{package}")
     missing = {n for n in J.__all__ if n not in P.__all__ or not hasattr(P, n)}
     assert missing == A6_REMAINDER[package] == set()
+
+
+@pytest.mark.parametrize("module", ["codegen", "plot"])
+def test_modules_without_all_export_every_public_function(module):
+    """``codegen`` and ``plot`` have no ``__all__``: each public function
+    of the JAX module is in the port's, with the same parameters."""
+    import importlib
+    import inspect
+
+    J = importlib.import_module(f"mmlspark_tpu.{module}")
+    P = importlib.import_module(f"mmlspark_tpu_torch.{module}")
+    names = [n for n, f in vars(J).items() if inspect.isfunction(f)
+             and f.__module__ == J.__name__ and not n.startswith("_")]
+    assert names
+    for n in names:
+        assert list(inspect.signature(getattr(P, n)).parameters) == \
+            list(inspect.signature(getattr(J, n)).parameters), n
 
 
 def test_models_and_top_level_export_every_name():

@@ -25,6 +25,7 @@ batches.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 
 import numpy as np
@@ -42,19 +43,31 @@ ES_FITS = [name for name, (_, _, how) in R.FITS.items() if how.get("valid")]
 
 
 @pytest.fixture(scope="module")
-def fits2(tmp_path_factory):
-    return R.run(2, tmp_path_factory.mktemp("fits2"), "multirank_fits")
+def rank_runs(tmp_path_factory):
+    """Both world sizes' rank runs, spawned together once a module in the
+    background: ``fits2``, ``fits4`` and ``jax_fits`` (made meanwhile in
+    this process) wait for what they need."""
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    runs = {w: pool.submit(R.run, w, tmp_path_factory.mktemp(f"fits{w}"), "multirank_fits")
+            for w in (2, 4)}
+    yield runs
+    pool.shutdown(wait=True)
 
 
 @pytest.fixture(scope="module")
-def fits4(tmp_path_factory):
-    return R.run(4, tmp_path_factory.mktemp("fits4"), "multirank_fits")
+def fits2(rank_runs, jax_fits):
+    return rank_runs[2].result()
 
 
 @pytest.fixture(scope="module")
-def jax_fits():
+def fits4(rank_runs, jax_fits):
+    return rank_runs[4].result()
+
+
+@pytest.fixture(scope="module")
+def jax_fits(rank_runs):
     """The JAX package's fit of each of ``FITS`` on all the rows (its
-    device grower), made once a module."""
+    device grower), made once a module while the ranks run."""
     old = os.environ.get("MMLSPARK_TPU_HIST_HOST")
     os.environ["MMLSPARK_TPU_HIST_HOST"] = "0"
     d = R.fit_data()

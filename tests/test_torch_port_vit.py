@@ -11,13 +11,11 @@
   featurizer (relative L2 2e-2, as the ResNet featurizers).
 
 The sequence-parallel encoder over ranks is in
-``tests/test_torch_port_ring_attention.py``.
+``tests/test_torch_port_ring_attention.py``, ViT-B/16's seeded init at full
+width in ``tests/test_torch_port_vit_b16.py``.
 """
 
 from __future__ import annotations
-
-import json
-import os
 
 import jax
 import jax.numpy as jnp
@@ -154,24 +152,6 @@ def test_seeded_init_equals_flax(seed, size, classes):
     _, want = init_vit("ViTTiny", image_size=size, num_classes=classes, seed=seed)
     got = V.init_flax_variables(V.vit_tiny(num_classes=classes, image_size=size), seed=seed)
     _ulp_check(want, got)
-
-
-def test_seeded_vit_b16_init_equals_flax_at_full_width():
-    """ViT-B/16 at 224 (86M values), the zoo's seeded ViTB16; and the
-    per-leaf sums of flax's init that ``chip_smoke.py`` holds the card's
-    draw against (``tests/resources/vit_b16_seed0_flax_sums.json``) are
-    flax's."""
-    _, want = init_vit("ViTB16", seed=0)
-    got = V.init_flax_variables(zoo.build_module(zoo.BUILTIN_MODELS["ViTB16"]), seed=0)
-    _ulp_check(want, got)
-    with open(os.path.join(os.path.dirname(__file__), "resources",
-                           "vit_b16_seed0_flax_sums.json")) as f:
-        sums = json.load(f)
-    flat = {"/".join(p.key for p in path): np.asarray(a, np.float64)
-            for path, a in jax.tree_util.tree_flatten_with_path(want)[0]}
-    assert sorted(flat) == sorted(sums)
-    for key, a in flat.items():
-        assert sums[key] == [float(a.sum()), float(np.abs(a).sum())], key
 
 
 def _featurize(pkg: str, imgs: np.ndarray, tmp_path, **kw) -> np.ndarray:

@@ -13,6 +13,9 @@ against the JAX package's.
 - ``ImageFeaturizer`` on the packaged checkpoints against the JAX
   featurizer.
 
+The seeded inits against flax's are in
+``tests/test_torch_port_zoo_seeded.py``.
+
 Tolerances: the featurizers compute in bf16 in both packages, with the same
 rounding points; XLA fuses the float32 normalisation differently, so a
 network input may sit one bf16 ulp away, and the features are held to a
@@ -78,6 +81,11 @@ from test_zoo_weights import load_digits_images  # noqa: E402
 
 BF16_L2 = 2e-2
 F32_REL = 1e-3
+
+# XLA's and PyTorch's f32 log1p (inside erf_inv) round differently in ~9%
+# of inputs: the port's draws are within 4 ulp of flax's, and at least 98%
+# of all values bitwise equal (measured: 99.1%, at most 4 ulp)
+INIT_ULP, INIT_BITWISE = 4, 0.98
 PACKAGED = ("ResNet8_Digits", "ResNet18_Patches")
 
 
@@ -655,48 +663,3 @@ def test_featurizer_bad_cut_and_fusion(tmp_path):
     assert (k.reads, k.writes, k.exact_capable) == (("image",), ("f",), False)
     assert k.guard({"image": np.zeros((2, 8), np.uint8)}) is not None  # unrolled: host path
     assert ImageFeaturizer(input_col="a", output_col="b").pipeline_io() == (("a",), ("b",))
-
-
-# -- flax's seeded init ------------------------------------------------------------------
-
-# XLA's and PyTorch's f32 log1p (inside erf_inv) round differently in ~9%
-# of inputs: the port's draws are within 4 ulp of flax's, and at least 98%
-# of all values bitwise equal (measured: 99.1%, at most 4 ulp)
-INIT_ULP, INIT_BITWISE = 4, 0.98
-
-
-@pytest.mark.parametrize("variant,kw,size", [
-    ("ResNet8", dict(num_classes=10, small_inputs=True, num_filters=16), 32),
-    ("ResNet18", dict(num_classes=10, small_inputs=True, num_filters=64), 32),
-    ("ResNet50", dict(num_classes=1000), 224),
-], ids=["resnet8", "resnet18", "resnet50"])
-def test_seeded_init_equals_flax(variant, kw, size):
-    """``init_flax_variables(module, seed)`` gives flax's
-    ``model.init(PRNGKey(seed))`` numbers (the JAX package's
-    ``init_resnet``), ResNet-50 at full width."""
-    _, want = init_resnet(variant, image_size=size, seed=5, **kw)
-    got = TR.init_flax_variables(TR.RESNETS[variant](**kw), seed=5)
-    fa = jax.tree_util.tree_flatten_with_path(want)[0]
-    fb = jax.tree_util.tree_flatten_with_path(got)[0]
-    assert [p for p, _ in fa] == [p for p, _ in fb]
-    same = total = 0
-    for (path, a), (_, b) in zip(fa, fb):
-        a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape and a.dtype == b.dtype == np.float32, path
-        ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
-        assert int(ulp.max()) <= INIT_ULP, path
-        same += int((a == b).sum())
-        total += a.size
-    assert same / total >= INIT_BITWISE
-
-
-def test_seeded_resnet50_features_equal_the_jax_package(tmp_path):
-    """No checkpoint covers ResNet-50: both zoos materialise the seeded
-    init, and both featurizers give the same pool features (bf16)."""
-    rng = np.random.default_rng(0)
-    imgs = rng.integers(0, 255, size=(2, 224, 224, 3), dtype=np.uint8)
-    kw = dict(model_name="ResNet50", cut_output_layers=1, batch_size=2)
-    want = _featurize("jax", {"image": imgs}, tmp_path, **kw)["f"]
-    got = _featurize("torch", {"image": imgs}, tmp_path, **kw)["f"]
-    assert got.shape == want.shape == (2, 2048)
-    assert _rel_l2(got, want) <= BF16_L2
