@@ -100,7 +100,17 @@ with and without early stopping, continued training, CSR input,
 to the same fit on one device byte for byte, best iteration included
 (CSR, whose one-device mapper fits the stored values alone: equal, or
 within 0.005 AUC with the reason recorded), each launching
-``plane_hist_fixed``; VW's V2 at world 2 within 1e-3 AUC of one device.
+``plane_hist_fixed``; VW's V2 at world 2 within 1e-3 AUC of one device;
+then, on the same two ranks, model evaluation and a compiled pipeline
+sharded over them: ``ImageFeaturizer`` ResNet-50 from phase ``featurizer``'s
+zoo (224 x 224, ``cut_output_layers=1``, batch 256, 512 uint8 images: 128
+a rank a batch, all-gathered), both ranks' features bytewise equal and
+within ``FEAT_BF16_L2`` of world 1 here (or bitwise); P3 (that featurizer
+-> a seeded logistic head, ``compile(exact=False)``, ``auto``) over both,
+its graphs at 256 images a rank, within ``FEAT_BF16_L2`` of world 1; and P1
+compiled in ``auto`` mode at 16,384 rows (each rank's graphs captured at
+its block of every bucket), bitwise world 1's compiled output; images/s
+and rows/s at worlds 1 and 2, the gathers' ms.
 Last, phase ``elastic``: the elastic gang through its entry points, a
 registry (``fleet.run_registry``) in this process and ``python -m
 mmlspark_tpu_torch.serving.fleet train --device cuda`` members on this card,
@@ -1849,6 +1859,16 @@ def _head_cost() -> dict:
     return out
 
 
+def p1_cols() -> dict:
+    """P1's rows: 16,384 from ``default_rng(7)``: x0..x15 f64 N(0,1), vec
+    (16,) f32, label in 0..3."""
+    rng = np.random.default_rng(7)
+    cols = {f"x{i}": rng.standard_normal(PIPE_ROWS) for i in range(16)}
+    cols["vec"] = rng.standard_normal((PIPE_ROWS, 16)).astype(np.float32)
+    cols["label"] = rng.integers(0, 4, PIPE_ROWS)
+    return cols
+
+
 def pipeline_p1() -> dict:
     """P1, bench.py's pipeline cell at its accelerator size: 16,384 rows
     from ``default_rng(7)`` (x0..x15 f64 N(0,1), vec (16,) f32, label in
@@ -1867,10 +1887,7 @@ def pipeline_p1() -> dict:
         raise AssertionError("cudnn.benchmark is on: staged and fused could pick different "
                              "algorithms")
     obs.reset()
-    rng = np.random.default_rng(7)
-    cols = {f"x{i}": rng.standard_normal(PIPE_ROWS) for i in range(16)}
-    cols["vec"] = rng.standard_normal((PIPE_ROWS, 16)).astype(np.float32)
-    cols["label"] = rng.integers(0, 4, PIPE_ROWS)
+    cols = p1_cols()
     df = DataFrame.from_dict(cols, num_partitions=PIPE_PARTS)
     t0 = time.perf_counter()
     model = Pipeline([
@@ -3636,12 +3653,13 @@ def vw_v2_block(rank: int, world: int) -> dict:
             "fit_s": fit_s, "rows_fit": per, "weights": w.tobytes()}
 
 
-def _dist_rank_work(rank: int, world: int) -> dict:
+def _dist_rank_work(rank: int, world: int, sharded: "dict | None" = None) -> dict:
     """What each rank of a group runs on its block of the rows: B4's
     builds, its fixed-scale entries against their plain version and their
     times, the trees/s cell's fits, the integer-column fit, the fits of
     ``DIST_FITS`` on the integer columns (continuing the integer fit's
-    model) and V2."""
+    model) and V2; with ``sharded`` (the zoo's and P1's saved model's
+    directories), ``sharded_eval`` over all the ranks on the same rows."""
     import torch.distributed as dist
 
     from mmlspark_tpu_torch.parallel import cluster_summary, make_mesh
@@ -3680,11 +3698,13 @@ def _dist_rank_work(rank: int, world: int) -> dict:
     out["new_fits"] = dist_new_fits(lo, hi, Booster.from_model_string(
         fits["integer_b64"]["model"]), base_gather)
     out["vw"] = vw_v2_block(rank, world)
+    if sharded is not None:
+        out["sharded"] = sharded_eval(sharded["repo"], sharded["p1_dir"])
     return out
 
 
 def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
-               card_per_rank: bool, work: str = "_dist_rank_work") -> None:
+               card_per_rank: bool, work: str = "_dist_rank_work", args: tuple = ()) -> None:
     """A spawned rank: joins the group (``file://`` rendezvous at ``rdv``)
     on card ``rank`` (``card_per_rank``) or all on card 0 (NCCL refuses two
     ranks on one card: gloo there) and writes its result for the parent."""
@@ -3697,7 +3717,7 @@ def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
     distributed.initialize(f"file://{rdv}", world, rank,
                            device=f"cuda:{rank if card_per_rank else 0}", backend=backend)
     try:
-        res = globals()[work](rank, world)
+        res = globals()[work](rank, world, *args)
         with open(f"{out_path}.{rank}", "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -3705,9 +3725,9 @@ def _dist_rank(rank: int, world: int, rdv: str, out_path: str, backend: str,
 
 
 def spawn_ranks(world: int, backend: str, card_per_rank: bool,
-                work: str = "_dist_rank_work") -> "tuple[list, float]":
-    """Spawns ``world`` ranks (``_dist_rank`` running ``work``, a function
-    of this module, on each) and waits for them: their
+                work: str = "_dist_rank_work", args: tuple = ()) -> "tuple[list, float]":
+    """Spawns ``world`` ranks (``_dist_rank`` running ``work(rank, world,
+    *args)``, a function of this module, on each) and waits for them: their
     results in rank order, and the seconds from spawn to the last exit. Its
     scratch directory under build/ is removed after."""
     import pickle
@@ -3719,7 +3739,8 @@ def spawn_ranks(world: int, backend: str, card_per_rank: bool,
     try:
         t0 = time.perf_counter()
         mp.spawn(_dist_rank, args=(world, os.path.join(tmp, "rdv"), os.path.join(tmp, "out"),
-                                   backend, card_per_rank, work), nprocs=world, join=True)
+                                   backend, card_per_rank, work, args), nprocs=world,
+                 join=True)
         spawn_s = time.perf_counter() - t0
         ranks = []
         for r in range(world):
@@ -3835,6 +3856,198 @@ def check_ranks(ranks: list, ref: dict) -> "tuple[list, dict]":
     return fails, rec
 
 
+SHARD_IMAGES, SHARD_SEED = 512, SEED + 30   # ResNet-50 over the ranks: 2 batches of 256
+
+
+def _sync_ranks() -> None:
+    """Every rank here before a timed call (a barrier in a group), the card
+    idle."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+    torch.cuda.synchronize()
+
+
+def sharded_eval(repo: str, p1_dir: str) -> dict:
+    """ResNet-50 through ``ImageFeaturizer`` at full width (224 x 224,
+    ``cut_output_layers=1``, batch 256) on ``SHARD_IMAGES`` seeded uint8
+    images, P3 (that featurizer -> a seeded 4-class logistic head)
+    compiled with ``exact=False`` in ``auto`` mode on the same images, and
+    P1's fitted model (saved at ``p1_dir``) compiled in ``auto`` mode on
+    P1's 16,384 rows in 4 partitions, in this process: in a rank of a
+    group each shards its rows over every rank and gathers, outside one
+    they run at world 1. Each is called twice, the second call timed;
+    returns the outputs, images/s and rows/s, the gathers' seconds
+    (``torch_model._gathered``, ``fuser._gather_blocks``), the segment's
+    decisions and, per graph, its bucket and the rows it was captured at;
+    in a group also one all-gather of a call's feature block alone, all
+    ranks lined up first (the transfer without the wait for the slower
+    rank that the call's own gather includes)."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch import PipelineModel
+    from mmlspark_tpu_torch.compiler import fuser
+    from mmlspark_tpu_torch.models import ImageFeaturizer, torch_model
+    from mmlspark_tpu_torch.models.linear import LogisticRegressionModel
+    from mmlspark_tpu_torch.parallel import collectives
+
+    gathers: dict = {"features": [], "p1": []}
+
+    def timed(mod, name, into):
+        real = getattr(mod, name)
+
+        def run(*a):
+            t0 = time.perf_counter()
+            out = real(*a)
+            into.append(time.perf_counter() - t0)
+            return out
+
+        setattr(mod, name, run)
+        return real
+
+    imgs = np.random.default_rng(SHARD_SEED).integers(
+        0, 255, size=(SHARD_IMAGES, FEAT_SIZE, FEAT_SIZE, 3), dtype=np.uint8)
+    df = DataFrame.from_dict({"image": imgs})
+    feat = ImageFeaturizer(input_col="image", output_col="features", batch_size=FEAT_BATCH,
+                           model_name="ResNet50", cut_output_layers=1, image_size=FEAT_SIZE,
+                           repo_dir=repo)
+    head = np.random.default_rng(SHARD_SEED + 1)
+    p3 = PipelineModel(stages=[feat, LogisticRegressionModel(features_col="features",
+                                                             num_classes=4).set(
+        weights=(head.normal(size=(2048, 4)) * 0.05).astype(np.float32),
+        bias=head.normal(size=4).astype(np.float32))]).compile(exact=False)
+    pdf = DataFrame.from_dict(p1_cols(), num_partitions=PIPE_PARTS)
+    comp = PipelineModel.load(p1_dir).compile()
+    real_g, real_b = (timed(torch_model, "_gathered", gathers["features"]),
+                      timed(fuser, "_gather_blocks", gathers["p1"]))
+    try:
+        feat.transform(df)  # placement (rank 0's weights broadcast), cuDNN's first calls
+        _sync_ranks()
+        gathers["features"].clear()
+        t0 = time.perf_counter()
+        features = feat.transform(df)["features"]
+        feat_s = time.perf_counter() - t0
+        p3.transform(df)["prediction"]  # the backbone's and head's graph capture
+        _sync_ranks()
+        t0 = time.perf_counter()
+        p3_out = p3.transform(df)
+        p3_out["prediction"]
+        p3_s = time.perf_counter() - t0
+        comp.transform(pdf)["prediction"]  # the graphs' captures
+        _sync_ranks()
+        gathers["p1"].clear()
+        t0 = time.perf_counter()
+        fused = comp.transform(pdf)
+        fused["prediction"]
+        p1_s = time.perf_counter() - t0
+    finally:
+        torch_model._gathered, fuser._gather_blocks = real_g, real_b
+    alone = None
+    if dist.is_initialized():
+        block = torch.zeros((SHARD_IMAGES // dist.get_world_size(), 2048))
+        _sync_ranks()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            collectives.all_gather(block, tiled=False)
+        alone = (time.perf_counter() - t0) / 10
+    seg, seg3 = comp.fused_segments[0], p3.fused_segments[0]
+    return {"features": features, "feat_s": feat_s, "images_per_s": SHARD_IMAGES / feat_s,
+            "feat_gather_s": gathers["features"], "gather_alone_s": alone,
+            "p3": {c: p3_out[c] for c in ("features", "raw_prediction", "probability")},
+            "p3_s": p3_s, "p3_stages": len(seg3.nodes),
+            "p3_decisions": sorted(set(seg3.sharding.decisions.values())),
+            "p3_graphs": _captured_rows(seg3, "image"),
+            "p1": {c: fused[c] for c in fused.columns},
+            "p1_s": p1_s, "rows_per_s": PIPE_ROWS / p1_s, "p1_gather_s": gathers["p1"],
+            "decisions": dict(seg.sharding.decisions),
+            "graphs": _captured_rows(seg, "vec")}
+
+
+def _captured_rows(seg, col: str) -> list:
+    """(bucket, rows of ``col`` the graph was captured at) for each graph
+    of a fused segment (rows None where a bucket holds no graph)."""
+    return sorted((k[0], None if g is None else int(g.ins.dev_views[col].shape[0]))
+                  for k, g in seg._graphs.items())
+
+
+def check_sharded(ranks: list, ref: dict) -> "tuple[list, dict]":
+    """The ranks' ``sharded_eval`` against world 1's (``ref``): features
+    of every rank bytewise equal, finite, (512, 2048), within FEAT_BF16_L2
+    of world 1 (relative L2; or bitwise); P3's features and logits bytewise
+    equal across the ranks and within FEAT_BF16_L2 of world 1, its two
+    stages in one batch-sharded segment whose graphs hold the rank's block
+    (256 images); P1's every column bitwise world
+    1's on every rank, every column batch-sharded, every graph of a bucket
+    the world divides captured at the rank's block of it. Returns (the
+    failures, the record: images/s and rows/s at worlds 1 and 2 (the
+    slower rank's time), the timed calls' gathers' ms (the slower rank's;
+    P1's: the median and the largest of a partition's) and one gather's
+    alone)."""
+    fails = []
+    world = len(ranks)
+    got = [r["sharded"] for r in ranks]
+    f0, want = got[0]["features"], ref["features"]
+    same = all(g["features"].tobytes() == f0.tobytes() for g in got)
+    if not same:
+        fails.append("sharded ResNet-50: the ranks' features differ")
+    if f0.shape != (SHARD_IMAGES, 2048) or not np.isfinite(f0).all():
+        fails.append(f"sharded ResNet-50: features {f0.shape} or not finite")
+    bitwise = f0.tobytes() == want.tobytes()
+    rel = 0.0 if bitwise else _rel_l2(f0, want)
+    if rel > FEAT_BF16_L2:
+        fails.append(f"sharded ResNet-50: rel L2 {rel} against world 1 > {FEAT_BF16_L2}")
+    p3_same = all(all(g["p3"][c].tobytes() == got[0]["p3"][c].tobytes() for c in g["p3"])
+                  for g in got)
+    p3_rel = max(_rel_l2(got[0]["p3"][c], ref["p3"][c]) for c in ("features", "raw_prediction"))
+    if not (p3_same and p3_rel <= FEAT_BF16_L2 and np.isfinite(got[0]["p3"]["features"]).all()):
+        fails.append(f"sharded P3: ranks equal {p3_same}, rel L2 {p3_rel} against world 1")
+    for r, g in enumerate(got):
+        bad = [(b, rows) for b, rows in g["p3_graphs"] if b % world or rows != b // world]
+        if g["p3_stages"] != 2 or g["p3_decisions"] != ["batch"] or bad or not g["p3_graphs"]:
+            fails.append(f"sharded P3: rank {r} fused {g['p3_stages']} stages, decided "
+                         f"{g['p3_decisions']}, graphs {g['p3_graphs']}")
+    p1_equal = all(list(g["p1"]) == list(ref["p1"]) and all(
+        g["p1"][c].dtype == ref["p1"][c].dtype
+        and np.array_equal(g["p1"][c], ref["p1"][c], equal_nan=True) for c in ref["p1"])
+        for g in got)
+    if not p1_equal:
+        fails.append("sharded P1: a rank's compiled output differs from world 1's")
+    for r, g in enumerate(got):
+        if set(g["decisions"].values()) != {"batch"}:
+            fails.append(f"sharded P1: rank {r} decided {g['decisions']}")
+        bad = [(b, rows) for b, rows in g["graphs"] if rows != (b // world if b % world == 0
+                                                                 else b)]
+        if bad or not g["graphs"]:
+            fails.append(f"sharded P1: rank {r}'s graphs (bucket, rows captured) {g['graphs']}")
+    feat_s, p1_s = max(g["feat_s"] for g in got), max(g["p1_s"] for g in got)
+    gather = [s for g in got for s in g["feat_gather_s"]]
+    p1_gather = [s for g in got for s in g["p1_gather_s"]]
+    alone = [g["gather_alone_s"] for g in got if g["gather_alone_s"] is not None]
+    batches = -(-SHARD_IMAGES // FEAT_BATCH)
+    rec = {"images": SHARD_IMAGES, "batch": FEAT_BATCH, "world": world,
+           "features_ranks_bytewise": same, "features_bitwise_world1": bitwise,
+           "features_rel_l2_world1": rel, "features_tol": FEAT_BF16_L2,
+           "images_per_s_world1": ref["images_per_s"], "images_per_s_world2": SHARD_IMAGES / feat_s,
+           "feat_gather_ms_call": max(gather) * 1e3 if gather else None,
+           "feat_gather_ms_batch": max(gather) * 1e3 / batches if gather else None,
+           "feat_gather_alone_ms_call": max(alone) * 1e3 if alone else None,
+           "p3_ranks_bytewise": p3_same, "p3_rel_l2_world1": p3_rel,
+           "p3_images_per_s_world1": SHARD_IMAGES / ref["p3_s"],
+           "p3_images_per_s_world2": SHARD_IMAGES / max(g["p3_s"] for g in got),
+           "p3_graphs_per_rank": {f"rank{r}": g["p3_graphs"] for r, g in enumerate(got)},
+           "p3_graphs_world1": ref["p3_graphs"],
+           "p1_rows": PIPE_ROWS, "p1_bitwise_world1": p1_equal,
+           "p1_rows_per_s_world1": ref["rows_per_s"], "p1_rows_per_s_world2": PIPE_ROWS / p1_s,
+           "p1_gather_ms_partition": (sorted(p1_gather)[len(p1_gather) // 2] * 1e3
+                                      if p1_gather else None),
+           "p1_gather_ms_partition_max": max(p1_gather) * 1e3 if p1_gather else None,
+           "p1_decisions": got[0]["decisions"],
+           "p1_graphs_per_rank": {f"rank{r}": g["graphs"] for r, g in enumerate(got)},
+           "p1_graphs_world1": ref["graphs"]}
+    return fails, rec
+
+
 def dist_one_device(init: "Booster") -> dict:
     """Every fit of ``DIST_FITS`` on one device on all the rows: model
     string, best iteration, trees kept, held-out AUC and seconds."""
@@ -3852,13 +4065,20 @@ def dist_one_device(init: "Booster") -> dict:
     return out
 
 
-def distributed_phase(x, y, x_test, y_test, vw_rec: dict) -> dict:
+def distributed_phase(x, y, x_test, y_test, vw_rec: dict, repo: str, p1_model) -> dict:
     """Phase ``distributed``: B4 at world 1 under NCCL here, then two gloo
     ranks on this card (spawned processes, 100,000 rows each) held by
     ``check_ranks`` against one-device fits here of the same depth
-    (DIST_MAIN_ROUNDS; ``DIST_FITS``'s own) and V2's fit of phase ``vw``."""
+    (DIST_MAIN_ROUNDS; ``DIST_FITS``'s own) and V2's fit of phase ``vw``,
+    and by ``check_sharded`` against ``sharded_eval`` here at world 1
+    (ResNet-50 from the zoo at ``repo``; P1's fitted ``p1_model``, saved
+    under build/ for the ranks)."""
     t0 = time.perf_counter()
     w1 = b4_world1()
+    p1_dir = os.path.join(ROOT, "build", "chip_smoke_p1_model")
+    shutil.rmtree(p1_dir, ignore_errors=True)
+    p1_model.save(p1_dir)
+    sharded_ref = sharded_eval(repo, p1_dir)
     kw = dict(num_iterations=DIST_MAIN_ROUNDS, num_leaves=63, min_data_in_leaf=20, seed=0,
               device="cuda")
     score = classifier_score(x_test, y_test)
@@ -3869,17 +4089,24 @@ def distributed_phase(x, y, x_test, y_test, vw_rec: dict) -> dict:
     one_int = LightGBMClassifier(**kw, max_bin=63).fit(
         DataFrame.from_dict({"features": xi, "label": yi})).get("model_string")
     new = dist_one_device(Booster.from_model_string(one_int))
-    ranks, spawn_s = spawn_ranks(DIST_WORLD, "gloo", card_per_rank=False)
+    try:
+        ranks, spawn_s = spawn_ranks(DIST_WORLD, "gloo", card_per_rank=False,
+                                     args=({"repo": repo, "p1_dir": p1_dir},))
+    finally:
+        shutil.rmtree(p1_dir, ignore_errors=True)
     fails, rec = check_ranks(ranks, {
         "backend": "gloo", "one_call": w1["one_call"], "integer": one_int,
         "auc": one_auc,
         "vw_auc": vw_rec["V2"]["auc"], "new": new})
+    sharded_fails, sharded = check_sharded(ranks, sharded_ref)
+    phase("distributed", part="sharded evaluation (world 2, gloo, one card)", **sharded)
+    fails += sharded_fails
     phase("distributed", part="world 2 (gloo, one card)", spawn_s=spawn_s, **rec,
           seconds=time.perf_counter() - t0)
     if fails:
         raise AssertionError("; ".join(fails))
     return {"world1": w1["times"], "world2": rec["b4"], "fits": rec["fits"],
-            "new_fits": rec["new_fits"]}
+            "new_fits": rec["new_fits"], "sharded": sharded}
 
 
 # -- phase elastic: the elastic gang (fleet registry + fleet train members) ------------
@@ -6740,8 +6967,9 @@ def main() -> None:
     vw_serve = vw_rec.pop("serve")
     serve_rec = serving(smi, repo, runs["lossguide"]["model_string"], vw_serve,
                         pipe_rec["p1_serve"], x_test)
+    dist_rec = distributed_phase(x, y, x_test, y_test, vw_rec, repo,
+                                 pipe_rec["p1_serve"]["model"])
     shutil.rmtree(repo, ignore_errors=True)
-    dist_rec = distributed_phase(x, y, x_test, y_test, vw_rec)
     elastic_rec = elastic_phase(smi)
     fleet_rec, kept = fleet_phase(smi, runs["lossguide"]["model_string"], vw_serve, x_test)
     try:

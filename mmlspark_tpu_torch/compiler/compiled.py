@@ -4,8 +4,10 @@ The PyTorch port of ``mmlspark_tpu.compiler.compiled``.
 ``PipelineModel.compile()`` returns this drop-in :class:`Transformer`: the
 planner derives the stage DAG, the fuser merges adjacent fusable stages
 into segments that run as one CUDA graph per bucket on the card, the
-partitioner records a spec per column (on one card: replicated), and the
-scheduler orders independent branches by critical path. The correctness
+partitioner assigns each column batch or replicated over the process's
+ranks (one rank, or a CPU mesh in ``auto`` mode: replicated), the fuser
+carries that out per bucket, and the scheduler orders independent branches
+by critical path. The correctness
 contract is **element-wise equality with staged execution** — every
 representative pipeline, including chunked scoring, where a
 CompiledPipeline is a plain Transformer applied to each chunk (the
@@ -30,6 +32,7 @@ from mmlspark_tpu_torch.compiler.scheduler import CostModel, ScheduledExecutor
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.params import ComplexParam, Param
 from mmlspark_tpu_torch.core.pipeline import Model
+from mmlspark_tpu_torch.parallel.mesh import process_mesh
 
 _M_PIPE_COMPILE = obs.histogram(
     "mmlspark_compiler_plan_seconds",
@@ -93,9 +96,13 @@ class CompiledPipeline(Model):
     # -- build ---------------------------------------------------------------
 
     def build(self, mesh: Any = None) -> "CompiledPipeline":
-        """Plan + fuse + partition + schedule (idempotent). ``mesh`` is a
-        description of the ranks to plan for (see ``partitioner``); None,
-        one card, plans every column replicated."""
+        """Plan + fuse + partition + schedule (idempotent). ``mesh``
+        defaults to the process mesh on each fused segment's device
+        (``parallel.process_mesh``: the default group's ranks, one without
+        an initialised group), unless ``partition_mode`` is ``replicated``;
+        the partitioner falls back to replicated on one rank, and on a CPU
+        mesh in ``auto`` mode. Over more than one rank ``transform`` is a
+        collective: every rank calls it with the same rows."""
         if self._executor is not None:
             return self
         t0 = time.perf_counter()
@@ -109,6 +116,10 @@ class CompiledPipeline(Model):
                 partition_mode=self.get("partition_mode"),
                 device=self.get("device"),
             )
+            if mesh is None and self.get("partition_mode") != "replicated":
+                for s in segments:
+                    if isinstance(s, FusedSegment):
+                        s.mesh = process_mesh(s.device_name)
             self._plan = plan
             self._segments = segments
             self._executor = ScheduledExecutor(

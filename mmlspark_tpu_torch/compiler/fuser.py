@@ -34,6 +34,22 @@ Load-bearing design points:
   outputs to, one packed device buffer each, mirrored by a pinned host
   buffer; a chunk is copied into the input one, the graph replays, and the
   outputs are copied out of the host one before the next replay.
+- **Rows over ranks.** Over a mesh of more than one rank (the process
+  group; ``CompiledPipeline.build`` takes it) a bucket the plan
+  batch-shards runs on every rank at its block of the bucket
+  (``ShardingPlan.in_specs``: batch columns cut to the rank's contiguous
+  block, replicated columns whole), its graph captured at that block's
+  shape (the key says so); the outputs of batch groups are all-gathered
+  in rank order, one gather a partition, before the host epilogue, so
+  every rank returns the whole output, as every JAX caller gets the global
+  array. A batch column that a cross-row kernel reads (or a
+  ``needs_replicated`` input) is all-gathered before that kernel, where
+  XLA puts its all-gather; a bucket with such a gather runs its kernels
+  eagerly (a CUDA graph cannot hold a gloo collective, which goes through
+  the host), and its key holds None. A bucket the world size does not
+  divide runs replicated: every rank computes it whole, as
+  ``in_shardings`` degrades it. Every rank must pass the same rows (one
+  all-gather of the partitions' row counts a call checks it).
 - **Capture beside serving.** A serving worker captures a new version's
   graphs (its warm-up) while another thread replays the old version's and
   waits on their results. Each capture runs in thread-local capture mode,
@@ -58,10 +74,12 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch import obs
-from mmlspark_tpu_torch.compiler.partitioner import ShardingPlan, plan_sharding
+from mmlspark_tpu_torch.compiler.partitioner import BATCH, ShardingPlan, plan_sharding
 from mmlspark_tpu_torch.core.dataframe import DataFrame, Partition
 from mmlspark_tpu_torch.core.device import CAPTURE_LOCK as _CAPTURE_LOCK, resolve_device
 from mmlspark_tpu_torch.core.profiling import device_phase
+from mmlspark_tpu_torch.parallel import collectives
+from mmlspark_tpu_torch.parallel.sharding import check_same_rows
 
 _M_COMPILE = obs.histogram(
     "mmlspark_compiler_compile_seconds",
@@ -201,6 +219,24 @@ class _Graph:
         self.graph, self.ins, self.outs = graph, ins, outs
 
 
+class _RankPlan:
+    """How this rank runs one bucket that the plan batch-shards: its block
+    of ``per`` rows of each ``blocks`` input column, per kernel the columns
+    all-gathered and the columns cut to the block before it (``steps``),
+    and the device outputs left as blocks, gathered after the chunks."""
+
+    def __init__(self, mesh: Any, per: int, blocks: frozenset, steps: tuple,
+                 out_blocks: frozenset):
+        self.mesh, self.per, self.blocks = mesh, per, blocks
+        self.steps, self.out_blocks = steps, out_blocks
+        # a collective inside the run: no CUDA graph can hold it over gloo
+        self.gathers = any(g for g, _ in steps)
+
+    def block(self, t: Any) -> Any:
+        lo = self.mesh.rank * self.per
+        return t[lo: lo + self.per]
+
+
 class FusedSegment(Segment):
     """A maximal run of adjacent fusable stages run as one program: one
     CUDA graph per bucket on the card, the same ops eagerly on the CPU."""
@@ -233,6 +269,7 @@ class FusedSegment(Segment):
         self._graphs: dict = {}
         self._pool: Any = None
         self._sharding: Optional[ShardingPlan] = None
+        self._rank_plans: dict = {}
 
     # -- planning ------------------------------------------------------------
 
@@ -263,11 +300,57 @@ class FusedSegment(Segment):
             out.extend(k.fn_outputs)
         return tuple(dict.fromkeys(out))
 
-    def _run(self, cols: dict) -> dict:
-        """The segment's ops on device tensors, kernel after kernel."""
+    def _rank_plan(self, cols: dict, b: int) -> Optional[_RankPlan]:
+        """This rank's plan for bucket ``b`` of the host columns ``cols``,
+        or None when the bucket runs whole on every rank (no mesh, or the
+        world size does not divide ``b``: ``in_specs`` replicates it).
+
+        A row-wise kernel of a batch group gets its reads as blocks (a
+        whole column, made by a cross-row kernel, is cut) but for its
+        ``needs_replicated`` ones; a cross-row kernel, or a row-wise kernel
+        of a replicated group, gets every read whole (a block is
+        all-gathered first). A kernel's outputs are blocks when one of its
+        reads is."""
+        plan = self.sharding
+        shapes = {c: np.broadcast_to(np.zeros((), a.dtype), (b,) + a.shape[1:])
+                  for c, a in cols.items()}
+        specs = plan.in_specs(shapes)
+        blocks = frozenset(c for c, spec in (specs or {}).items() if spec)
+        if not blocks:
+            return None
+        if not hasattr(plan.mesh, "rank"):
+            raise ValueError("a mesh description can be planned for, not run: build the "
+                             "pipeline on a parallel.Mesh (or with no mesh: the process's)")
+        rp = self._rank_plans.get((b, blocks))
+        if rp is None:
+            state = {c: c in blocks for c in cols}
+            steps = []
+            for k in self.kernels:
+                batch = any(plan.decisions.get(c) == BATCH
+                            for c in tuple(k.reads) + tuple(k.writes))
+                whole = set(k.needs_replicated) if k.row_wise and batch else set(k.reads)
+                steps.append((tuple(c for c in k.reads if c in whole and state.get(c)),
+                              tuple(c for c in k.reads if c not in whole and not state.get(c))))
+                out_block = any(c not in whole for c in k.reads)
+                state.update((c, out_block) for c in k.fn_outputs)
+            rp = self._rank_plans[(b, blocks)] = _RankPlan(
+                plan.mesh, b // plan.mesh.size, blocks, tuple(steps),
+                frozenset(c for c in self.device_outputs if state.get(c)))
+        return rp
+
+    def _run(self, cols: dict, rp: Optional[_RankPlan] = None) -> dict:
+        """The segment's ops on device tensors, kernel after kernel (with
+        ``rp``: each kernel's gathers and cuts first)."""
         env = dict(cols)
-        for k in self.kernels:
-            env.update(k.fn({c: env[c] for c in k.reads}))
+        for i, k in enumerate(self.kernels):
+            ins = {c: env[c] for c in k.reads}
+            if rp is not None:
+                gather, cut = rp.steps[i]
+                for c in gather:
+                    ins[c] = collectives.all_gather(ins[c], rp.mesh.group)
+                for c in cut:
+                    ins[c] = rp.block(ins[c])
+            env.update(k.fn(ins))
         return {c: env[c] for c in self.device_outputs}
 
     # -- execution -----------------------------------------------------------
@@ -297,6 +380,11 @@ class FusedSegment(Segment):
         return df
 
     def apply(self, df: DataFrame) -> DataFrame:
+        plan = self.sharding
+        if plan.mesh is not None and hasattr(plan.mesh, "rank"):
+            # rows sharded over ranks: every rank must hold the same rows
+            check_same_rows([_rows(p, self.reads) for p in df.partitions], plan.mesh,
+                            f"compiled segment {self.name}")
         # guard on the first non-empty partition; the whole call either
         # runs fused or falls back (partitions must agree on dtypes)
         probe = next((p for p in df.partitions if p), None)
@@ -324,14 +412,21 @@ class FusedSegment(Segment):
             cols[c] = arr
         b = _bucket(max(n, 1), cap=self.max_bucket) if self.row_wise else max(n, 1)
         key = (b,) + tuple((c, a.shape[1:], str(a.dtype)) for c, a in cols.items())
+        rp = self._rank_plan(cols, b)
+        # (rows of the padded chunk each column's buffer holds, its first row)
+        layout = {c: (b, 0) for c in cols}
+        if rp is not None:
+            key += (("block", rp.per),)
+            layout.update((c, (rp.per, rp.mesh.rank * rp.per)) for c in rp.blocks)
         chunks = [(s, min(n, s + b)) for s in range(0, max(n, 1), b)]
-        run = self._run_cuda if dev.type == "cuda" else self._run_cpu
+        run = (self._run_cuda if dev.type == "cuda" and not (rp and rp.gathers)
+               else self._run_eager)
         merged: dict = {}
         first = key not in self._graphs
         t0 = time.perf_counter()
         if first:
             with device_phase("compile", self.name, dev):
-                run(key, cols, b, chunks[:1], merged, dev)
+                run(key, cols, layout, chunks[:1], merged, dev, rp)
             mc = _M_COMPILE.labels(segment=self.name)
             if mc._on:
                 mc.observe(time.perf_counter() - t0)
@@ -341,7 +436,9 @@ class FusedSegment(Segment):
         rest = chunks[1:] if first else chunks
         if rest:
             with device_phase("execute", self.name, dev):
-                run(key, cols, b, rest, merged, dev)
+                run(key, cols, layout, rest, merged, dev, rp)
+        if rp is not None and rp.out_blocks:
+            _gather_blocks(merged, rp, chunks)
         q = dict(part)
         for c, parts in merged.items():
             merged[c] = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
@@ -357,25 +454,28 @@ class FusedSegment(Segment):
                 q[c] = v.astype(dt_) if dt_ is not None and v.dtype != dt_ else v
         return q
 
-    def _run_cpu(self, key: tuple, cols: dict, b: int, chunks: list, merged: dict,
-                 dev: torch.device) -> None:
+    def _run_eager(self, key: tuple, cols: dict, layout: dict, chunks: list, merged: dict,
+                   dev: torch.device, rp: Optional[_RankPlan]) -> None:
+        """The chunks through the kernels as they come: the CPU's path, and
+        the card's where a gather sits inside the run (the key holds None)."""
         self._graphs.setdefault(key, None)
         for s, e in chunks:
             # fresh buffers per chunk: an output may alias its input
-            views = {c: np.empty((b,) + a.shape[1:], a.dtype) for c, a in cols.items()}
-            _fill(views, cols, s, e)
+            views = {c: np.empty((layout[c][0],) + a.shape[1:], a.dtype)
+                     for c, a in cols.items()}
+            _fill(views, cols, s, e, layout)
             ins = {c: torch.from_numpy(v).to(dev) for c, v in views.items()}
-            for c, v in self._run(ins).items():
-                merged.setdefault(c, []).append(v.cpu().numpy()[: e - s])
+            for c, v in self._run(ins, rp).items():
+                merged.setdefault(c, []).append(_kept(v.cpu().numpy(), c, e - s, rp))
 
-    def _run_cuda(self, key: tuple, cols: dict, b: int, chunks: list, merged: dict,
-                  dev: torch.device) -> None:
+    def _run_cuda(self, key: tuple, cols: dict, layout: dict, chunks: list, merged: dict,
+                  dev: torch.device, rp: Optional[_RankPlan]) -> None:
         entry = self._graphs.get(key)
         for s, e in chunks:
             if entry is None:
-                entry = self._graphs[key] = self._capture(cols, b, s, e, dev)
+                entry = self._graphs[key] = self._capture(cols, layout, s, e, dev, rp)
             else:
-                _fill(entry.ins.host_views, cols, s, e)
+                _fill(entry.ins.host_views, cols, s, e, layout)
                 entry.ins.dev.copy_(entry.ins.host, non_blocking=True)
             entry.graph.replay()
             m = _M_REPLAYS.labels(segment=self.name)
@@ -385,22 +485,24 @@ class FusedSegment(Segment):
             torch.cuda.current_stream(dev).synchronize()
             for c, v in entry.outs.host_views.items():
                 # the next replay overwrites the buffer: copy the rows out
-                merged.setdefault(c, []).append(v[: e - s].copy())
+                merged.setdefault(c, []).append(_kept(v, c, e - s, rp).copy())
 
-    def _capture(self, cols: dict, b: int, s: int, e: int, dev: torch.device) -> _Graph:
-        """Capture the segment at bucket ``b`` with the chunk [s, e) in its
+    def _capture(self, cols: dict, layout: dict, s: int, e: int, dev: torch.device,
+                 rp: Optional[_RankPlan]) -> _Graph:
+        """Capture the segment at its buffers' shapes (``layout``: the
+        bucket, or the rank's block of it) with the chunk [s, e) in its
         static inputs: one eager run on a side stream first (library
         handles, lazily placed weights, allocator warm-up), then the
         capture into the segment's memory pool, which runs nothing."""
-        ins = _Packed([(c, (b,) + a.shape[1:], torch.from_numpy(a[:0]).dtype)
+        ins = _Packed([(c, (layout[c][0],) + a.shape[1:], torch.from_numpy(a[:0]).dtype)
                        for c, a in cols.items()], dev)
-        _fill(ins.host_views, cols, s, e)
+        _fill(ins.host_views, cols, s, e, layout)
         ins.dev.copy_(ins.host, non_blocking=True)
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            warm = self._run(ins.dev_views)
+            warm = self._run(ins.dev_views, rp)
         cur.wait_stream(side)
         outs = _Packed([(c, tuple(v.shape), v.dtype) for c, v in warm.items()], dev)
         del warm
@@ -409,7 +511,7 @@ class FusedSegment(Segment):
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                for c, v in self._run(ins.dev_views).items():
+                for c, v in self._run(ins.dev_views, rp).items():
                     outs.dev_views[c].copy_(v)
         return _Graph(graph, ins, outs)
 
@@ -421,18 +523,49 @@ class FusedSegment(Segment):
             self._pool = None
 
 
-def _fill(views: dict, cols: dict, s: int, e: int) -> None:
-    """Rows [s, e) of each column into its bucket-sized host view, the pad
-    rows repeating row s (a real row keeps padded lanes NaN/inf-free);
-    zeros when there are no rows."""
+def _fill(views: dict, cols: dict, s: int, e: int, layout: Optional[dict] = None) -> None:
+    """Rows [s, e) of each column, padded to the bucket by repeating row s
+    (a real row keeps padded lanes NaN/inf-free), into its host view;
+    zeros when there are no rows. ``layout[c][1]``: the view's first row
+    of the padded chunk (a rank's block), else 0."""
     for c, a in cols.items():
         v = views[c]
         m = e - s
         if m == 0:
             v[...] = 0
             continue
-        v[:m] = a[s:e]
-        v[m:] = a[s]
+        lo = layout[c][1] if layout else 0
+        real = max(0, min(m - lo, len(v)))
+        v[:real] = a[s + lo: s + lo + real]
+        v[real:] = a[s]
+
+
+def _rows(part: Partition, reads: tuple) -> int:
+    """A partition's row count, as ``_apply_partition`` counts it."""
+    return max((np.shape(part[c])[0] for c in reads if c in part and np.ndim(part[c])),
+               default=0)
+
+
+def _kept(v: np.ndarray, c: str, m: int, rp: Optional[_RankPlan]) -> np.ndarray:
+    """A chunk's output rows to keep: a block output's whole block (the
+    gather puts the blocks together), else the chunk's ``m`` true rows."""
+    return v if rp is not None and c in rp.out_blocks else v[:m]
+
+
+def _gather_blocks(merged: dict, rp: _RankPlan, chunks: list) -> None:
+    """Every rank's blocks of the block outputs of every chunk, in one
+    all-gather of their bytes; each chunk's blocks are put together in rank
+    order (its padded rows) and cut to its true rows, in place."""
+    keys = [(c, j) for c in merged if c in rp.out_blocks for j in range(len(chunks))]
+    parts = [np.ascontiguousarray(merged[c][j]) for c, j in keys]
+    flat = np.concatenate([p.reshape(-1).view(np.uint8) for p in parts])
+    got = collectives.all_gather(torch.from_numpy(flat), rp.mesh.group, tiled=False).numpy()
+    ends = np.cumsum([0] + [p.nbytes for p in parts])
+    for (c, j), p, lo, hi in zip(keys, parts, ends[:-1], ends[1:]):
+        whole = np.concatenate([got[r, lo:hi].view(p.dtype).reshape(p.shape)
+                                for r in range(len(got))])
+        s, e = chunks[j]
+        merged[c][j] = whole[: e - s]
 
 
 def _same_device(a: Optional[str], b: Optional[str]) -> bool:

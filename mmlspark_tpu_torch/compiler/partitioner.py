@@ -1,11 +1,13 @@
 """Partitioner: propagate batch/replicated specs through fused segments.
 
 The PyTorch port of ``mmlspark_tpu.compiler.partitioner``. The decision
-logic is the JAX package's; the plan stays data (a spec per column, and
-``in_specs`` per bucket). The JAX package hands it to
-``jax.jit(in_shardings=...)``; in the port its application to ranks comes
-with ``torch.distributed`` (ROADMAP.md, Queue A item 4). On one card there
-is no mesh, so every column plans replicated.
+logic is the JAX package's. The JAX package hands the plan to
+``jax.jit(in_shardings=...)``; in the port a mesh shard is a rank
+(``parallel/mesh.py``), and the fuser carries the plan out itself: per
+bucket, :meth:`ShardingPlan.in_specs` says which input columns each rank
+cuts to its block of rows, and the fuser all-gathers where XLA would (see
+``fuser.FusedSegment``). Without an initialised process group, or on a
+mesh of one rank, every column plans replicated.
 
 Automap (arXiv:2112.02958) observes that most sharding decisions in an ML
 program are *forced* by their neighbours — annotations propagate through
@@ -32,8 +34,11 @@ needs replicated. So:
    no mesh or one device, a CPU mesh in ``auto`` mode, or a bucket the
    mesh size does not divide.
 
-A mesh here is any object with a ``devices`` array whose elements name
-their platform (``platform``, or a ``torch.device``'s ``type``).
+A mesh here is the port's :class:`~mmlspark_tpu_torch.parallel.mesh.Mesh`
+(its ``size`` ranks; its rank's ``device.type`` names the platform) or a
+description of one: any object with a ``devices`` array whose elements name
+their platform (``platform``, or a ``torch.device``'s ``type``). A
+description can be planned for, not run.
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ class ShardingPlan:
         mesh) degrades to replicated for that bucket."""
         if self.mesh is None:
             return None
-        size = int(np.asarray(self.mesh.devices).size)
+        size = mesh_size_platform(self.mesh)[0]
         out = {}
         for name, arr in cols.items():
             if (
@@ -93,6 +98,21 @@ class ShardingPlan:
             else:
                 out[name] = ()
         return out
+
+
+def mesh_size_platform(mesh: Any) -> tuple:
+    """(devices, platform) of ``mesh``: a port ``Mesh``'s ranks and its
+    device's type, or a description's ``devices`` and the first one's
+    platform; (1, "") for no mesh."""
+    if mesh is None:
+        return 1, ""
+    if not hasattr(mesh, "devices"):
+        return int(mesh.size), mesh.device.type
+    devices = np.asarray(mesh.devices).reshape(-1)
+    if not len(devices):
+        return 0, ""
+    d0 = devices[0]
+    return len(devices), getattr(d0, "platform", None) or getattr(d0, "type", "")
 
 
 def plan_sharding(
@@ -131,13 +151,8 @@ def plan_sharding(
         for c in k.needs_replicated:
             repl_demand[c] = repl_demand.get(c, 0) + 1
 
-    devices = np.asarray(mesh.devices).reshape(-1) if mesh is not None else ()
-    mesh_size = len(devices) if mesh is not None else 1
+    mesh_size, platform = mesh_size_platform(mesh)
     divisible = bucket is None or (mesh_size > 0 and bucket % mesh_size == 0)
-    platform = ""
-    if mesh_size and mesh is not None:
-        d0 = devices[0]
-        platform = getattr(d0, "platform", None) or getattr(d0, "type", "")
     can_batch = (
         mesh is not None and mesh_size > 1 and divisible
         and mode != "replicated"

@@ -27,7 +27,9 @@ neither can be co-ready with anything.
 Safety: any reordering (or overlap) of independent branches is only sound
 when every declared-I/O stage preserves row count (see planner docstring);
 a plan carrying a row-dropping stage degrades to original stage order,
-fusion still applied.
+fusion still applied. So does a process of a group of more than one rank:
+its segments may hold collectives, which must meet in one order on every
+rank, one segment at a time.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Optional
 from mmlspark_tpu_torch import obs
 from mmlspark_tpu_torch.compiler.fuser import HostSegment
 from mmlspark_tpu_torch.core.dataframe import DataFrame
+from mmlspark_tpu_torch.parallel.mesh import group_rank_size
 
 _M_SCHED_REORDERS = obs.counter(
     "mmlspark_compiler_schedule_overlaps_total",
@@ -188,7 +191,12 @@ class ScheduledExecutor:
         return df
 
     def run(self, df: DataFrame) -> DataFrame:
-        order = self.order()
+        # over more than one rank the segments' collectives (sharded
+        # segments, TorchModel stages) must meet in one order on every
+        # rank, and measured costs differ by rank: the pipeline's order,
+        # one segment at a time
+        ranked = group_rank_size()[1] > 1
+        order = list(range(len(self.segments))) if ranked else self.order()
         done: set = set()
         i = 0
         while i < len(order):
@@ -197,7 +205,8 @@ class ScheduledExecutor:
             # gather the run of consecutively-scheduled segments that are
             # ALL ready now and all host-bound: those overlap
             batch = [si]
-            if self.parallel_hosts and isinstance(seg, HostSegment) and not seg.opaque:
+            if (self.parallel_hosts and not ranked and isinstance(seg, HostSegment)
+                    and not seg.opaque):
                 j = i + 1
                 while j < len(order):
                     nj = order[j]

@@ -15,6 +15,11 @@ the head past it never runs. The backbone computes in bf16, as the JAX
 package's does. The
 pipeline compiler fuses the stage only with ``compile(exact=False)``
 (``fusable_kernel``).
+
+Over the ranks of a process group the featurizer shards as ``TorchModel``
+does (every rank calls ``transform`` with the same rows and gets every
+row's features back); in a sharded fused segment its kernel runs on the
+rank's block of the bucket, and the segment, not ``TorchModel``, gathers.
 """
 
 from __future__ import annotations
@@ -200,7 +205,9 @@ class ImageFeaturizer(Model, HasInputCol, HasOutputCol, HasBatchSize):
         ``exact_capable=False``: convolution algorithms are picked by batch
         shape, so exact-mode compilation (the default) keeps this stage
         host-bound; ``compile(exact=False)`` fuses the backbone into the
-        segment at allclose-level equality."""
+        segment at allclose-level equality. Row-wise: in a segment sharded
+        over ranks ``fn`` gets the rank's block and runs the module on it
+        directly (no ``apply_batch``, so no second gather)."""
         from mmlspark_tpu_torch.compiler.kernels import StageKernel
 
         ic = self.get_or_fail("input_col")

@@ -20,6 +20,18 @@ every batch then runs there under ``torch.inference_mode()``:
 
 ``device`` None is the card, which raises without one; ``device="cpu"`` runs
 the same batches on the CPU.
+
+Over the ranks of the process's mesh (``parallel.process_mesh``: the
+default ``torch.distributed`` group), as XLAModel over its devices: the
+batch is ``batch_size`` rounded up to a multiple of the world size, each
+rank runs its contiguous block of every padded batch on its own device
+(the module or variables placed once a rank, rank 0's values broadcast to
+every rank, as ``replicate`` places them), and the outputs are
+all-gathered in rank order, so every rank returns the whole output. That
+makes ``apply_batch`` and ``transform`` collectives: every rank must call
+them with the same rows (a call exchanges the row counts first and raises
+if they differ). Without an initialised group, or in a group of one rank,
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ from mmlspark_tpu_torch.core.params import (
     Param,
 )
 from mmlspark_tpu_torch.core.pipeline import Model
+from mmlspark_tpu_torch.parallel import collectives
+from mmlspark_tpu_torch.parallel.mesh import Mesh, process_mesh
+from mmlspark_tpu_torch.parallel.sharding import check_same_rows, replicate
 
 
 def _to_device(tree: Any, dev: torch.device) -> Any:
@@ -68,7 +83,8 @@ class TorchModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         "name of the output to keep when the model returns a dict", type_=str
     )
     batch_size = Param(
-        "fixed minibatch size; the last batch is padded to it",
+        "fixed minibatch size; the last batch is padded to it (rounded up to a "
+        "multiple of the world size over ranks)",
         default=64,
         type_=int,
         validator=lambda v: v > 0,
@@ -95,18 +111,29 @@ class TorchModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
     # -- device-side plumbing ----------------------------------------------
 
     def _runner(self, dev: torch.device) -> Any:
-        """The model on ``dev`` as a function of one batch (made once)."""
+        """The model on ``dev`` as a function of one batch (made once a
+        rank; over more than one rank the module is a copy holding rank
+        0's weights, the variables rank 0's)."""
         src = self.get("module") if self.is_set("module") else self.get_or_fail("variables")
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        key = (id(src), dev)
+        mesh = process_mesh(dev)
+        key = (id(src), dev, mesh.size)
         if self._placed_key != key:
             if self.is_set("module"):
                 # a module elsewhere is copied, so the caller's stays put
                 on = {t.device for t in list(src.parameters()) + list(src.buffers())}
-                run = (src if on <= {dev} else copy.deepcopy(src).to(dev)).eval()
+                keep = on <= {dev} and mesh.size == 1
+                run = (src if keep else copy.deepcopy(src).to(dev)).eval()
+                if mesh.size > 1:
+                    held = list(run.parameters()) + list(run.buffers())
+                    with torch.no_grad():
+                        for t, v in zip(held, replicate(held, mesh)):
+                            t.copy_(v)
             else:
                 placed = _to_device(src, dev)
+                if mesh.size > 1:
+                    placed = replicate(placed, mesh)
                 fn = self.get_or_fail("apply_fn")
 
                 def run(x: torch.Tensor) -> Any:
@@ -114,6 +141,11 @@ class TorchModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
 
             self._placed, self._placed_key = run, key
         return self._placed
+
+    def _effective_batch(self, mesh: Mesh) -> int:
+        """``batch_size`` rounded up to a multiple of the world size."""
+        bs = self.get("batch_size")
+        return -(-bs // mesh.size) * mesh.size
 
     def _select(self, out: Any) -> torch.Tensor:
         if isinstance(out, dict):
@@ -124,21 +156,33 @@ class TorchModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
         return out
 
     def apply_batch(self, x: np.ndarray) -> np.ndarray:
-        """Evaluate host rows in fixed batches; returns host outputs in order."""
+        """Evaluate host rows in fixed batches; returns host outputs in order.
+
+        Over more than one rank a collective: every rank must pass the same
+        rows, gets its block of each batch computed on its device and the
+        whole output back (ValueError when the ranks' row counts differ)."""
         dev = resolve_device(self.get("device"))
+        mesh = process_mesh(dev)
         run = self._runner(dev)
         dt = self.get("input_dtype")
         x = np.asarray(x, dtype=dt) if dt else np.asarray(x)
-        n, bs = x.shape[0], self.get("batch_size")
+        n, bs = x.shape[0], self._effective_batch(mesh)
         host = torch.from_numpy(np.ascontiguousarray(x))
+        if mesh.size > 1:
+            check_same_rows([n, int(np.prod(x.shape[1:], dtype=np.int64))], mesh,
+                            "TorchModel.apply_batch")
+            host, bs = _rank_block(host, bs, mesh), bs // mesh.size
         outs: list = []
         with torch.inference_mode():
             if dev.type == "cpu":
-                for i in range(0, max(n, 1), bs):
+                for i in range(0, max(host.shape[0], 1), bs):
                     outs.append(_host(self._select(run(_padded(host[i: i + bs], bs)))))
             else:
                 self._apply_cuda(host, bs, dev, run, outs)
-        return np.concatenate(outs, axis=0)[:n]
+        y = np.concatenate(outs, axis=0)
+        if mesh.size > 1:
+            y = _gathered(y, bs, mesh)
+        return y[:n]
 
     def _apply_cuda(self, host: torch.Tensor, bs: int, dev: torch.device, run: Any,
                     outs: list) -> None:
@@ -176,9 +220,33 @@ class TorchModel(Model, HasInputCol, HasOutputCol, HasBatchSize):
             q[oc] = self.apply_batch(x)
             return q
 
-        # partitions run one after another: there is one device, and the
-        # overlap comes from the batches in flight inside apply_batch
+        # partitions run one after another: there is one device a rank (and
+        # over ranks each partition's gather must meet on every rank in
+        # order), and the overlap comes from the batches in flight inside
+        # apply_batch
         return df.map_partitions(fn, parallel=False)
+
+
+def _rank_block(host: torch.Tensor, bs: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous block of every batch of ``bs`` rows of the
+    rows zero-padded to whole batches, the blocks one after another."""
+    k = -(-max(host.shape[0], 1) // bs)
+    if host.shape[0] < k * bs:
+        host = torch.cat([host, host.new_zeros((k * bs - host.shape[0],) + tuple(host.shape[1:]))])
+    per = bs // mesh.size
+    return host.view((k, mesh.size, per) + tuple(host.shape[1:]))[:, mesh.rank].reshape(
+        (k * per,) + tuple(host.shape[1:]))
+
+
+def _gathered(y: np.ndarray, per: int, mesh: Mesh) -> np.ndarray:
+    """Every rank's block outputs ``y`` (batch after batch of ``per``
+    rows) all-gathered and put back in row order: batch by batch, the
+    ranks' blocks in rank order."""
+    got = collectives.all_gather(torch.from_numpy(np.ascontiguousarray(y)), mesh.group,
+                                 tiled=False).numpy()
+    k = y.shape[0] // per
+    got = got.reshape((mesh.size, k, per) + y.shape[1:]).swapaxes(0, 1)
+    return got.reshape((k * mesh.size * per,) + y.shape[1:])
 
 
 def _padded(rows: torch.Tensor, bs: int) -> torch.Tensor:

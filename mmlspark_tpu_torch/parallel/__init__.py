@@ -22,10 +22,12 @@ from mmlspark_tpu_torch.parallel.mesh import (
     get_mesh,
     local_device_count,
     make_mesh,
+    process_mesh,
     replicated,
     set_mesh,
 )
 from mmlspark_tpu_torch.parallel.sharding import (
+    check_same_rows,
     multihost_pad_target,
     pad_batch,
     replicate,
@@ -40,6 +42,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "get_mesh",
+    "process_mesh",
     "set_mesh",
     "device_count",
     "local_device_count",
@@ -51,6 +54,7 @@ __all__ = [
     "shard_batch_multihost",
     "multihost_pad_target",
     "replicate",
+    "check_same_rows",
     "collectives",
     "distributed",
     "elastic",

@@ -94,6 +94,21 @@ def make_mesh(shape: Optional[dict] = None, group: Any = None,
     return Mesh(group=group, rank=rank, size=size, device=dev)
 
 
+def process_mesh(device: "str | torch.device | None" = None) -> Mesh:
+    """The process's mesh with this rank on ``device``: the default group's
+    ranks (one rank when ``torch.distributed`` is not initialised), made
+    anew on every call, so it follows the group. The counterpart of the JAX
+    package's ``get_mesh()`` where ``XLAModel`` and ``CompiledPipeline.build``
+    call it, for callers that name their device: ``device`` None is the card
+    (``cuda`` without an index is the current card); ``"cpu"`` needs no card,
+    where :func:`get_mesh` raises."""
+    rank, size = group_rank_size()
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Mesh(group=None, rank=rank, size=size, device=dev)
+
+
 def get_mesh() -> Mesh:
     """The process-wide default mesh (created on first use, on the card)."""
     global _default_mesh

@@ -9,7 +9,7 @@ and maps rows per partition, cntk/CNTKModel.scala:411-413,515-520).
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,3 +94,21 @@ def replicate(tree: Any, mesh: Optional[Mesh] = None) -> Any:
         return collectives.broadcast(t, 0, mesh.group)
 
     return _tree_map(put, tree)
+
+
+def check_same_rows(counts: Sequence[int], mesh: Mesh, what: str) -> None:
+    """Raise ValueError unless every rank of ``mesh`` passes the same
+    ``counts`` (row counts, one per partition or batch): a call that shards
+    rows over the ranks and all-gathers the results is a collective, and
+    ranks holding other rows would get back a mix of them. One all-gather
+    of a fixed-size summary (how many counts, their sum, and a weighted
+    sum that tells their order apart); every rank sees every summary, so
+    every rank raises alike."""
+    c = [int(v) for v in counts]
+    summary = torch.tensor([len(c), sum(c), sum((i + 1) * v for i, v in enumerate(c))],
+                           dtype=torch.int64)
+    got = collectives.all_gather(summary, mesh.group, tiled=False)
+    if not bool((got == got[0]).all()):
+        raise ValueError(
+            f"{what} is a collective: every rank must pass the same rows, but the ranks' "
+            f"row counts differ (rows by rank: {got[:, 1].tolist()})")

@@ -1914,3 +1914,127 @@ def test_coo_als_on_the_card_is_bitwise_run_to_run(cuda_device, implicit):
     c = als_train_coo(u, i, r, 700, 300, device="cpu", **kw)
     ref = c[0] @ c[1].T
     assert np.abs(a[0] @ a[1].T - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+# -- model evaluation and compiled segments over ranks on one card ------------
+
+
+@pytest.fixture(scope="module")
+def sharded_card_case():
+    """The sharded-evaluation inputs (``tests/torch_port_ranks.py``) with
+    the port's seeded ResNet init and a P1 fitted here on the card, and
+    world 1's outputs on the card (TF32 off, as in the ranks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_port_ranks as R
+
+    from mmlspark_tpu_torch import DataFrame, Pipeline
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.models import resnet as TR
+    from mmlspark_tpu_torch.models.linear import LogisticRegression
+    from mmlspark_tpu_torch.stages import UDFTransformer
+
+    data = R.eval_data()
+    data["resnet"] = R.perturbed(TR.init_flax_variables(R.eval_resnet(), 0), 5)
+    p1 = Pipeline([
+        Featurize(input_cols=[f"x{i}" for i in range(16)] + ["vec"], output_col="features"),
+        UDFTransformer(input_col="features", output_col="features_s", vector_udf=R.tanh_half,
+                       jit_compatible=True, device="cuda"),
+        LogisticRegression(features_col="features_s", label_col="label", max_iter=15,
+                           device="cuda"),
+    ]).fit(DataFrame.from_dict(R.eval_cols(), num_partitions=2))
+    lr = p1.get("stages")[2]
+    data["p1"] = {"featurize": {"plans": p1.get("stages")[0].get("plans"),
+                                "output_col": "features"},
+                  "lr": {"features_col": "features_s", "num_classes": lr.get("num_classes"),
+                         "weights": np.asarray(lr.get("weights")),
+                         "bias": np.asarray(lr.get("bias"))}}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        world1 = R.sharded_eval_outputs(data, "cuda", "auto")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return R, data, world1
+
+
+def _np_close(got, want, rel):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert float(np.abs(got - want).max(initial=0.0)) <= rel * float(np.abs(want).max(initial=0.0))
+
+
+@pytest.mark.cuda
+def test_sharded_eval_on_two_gloo_ranks_equals_world_1(cuda_device, sharded_card_case, tmp_path):
+    """Two gloo ranks on the card, ``auto`` mode: TorchModel (the matrix
+    product within 1e-6 and the ResNet within 1e-4 of max |world 1|, f32,
+    TF32 off), P3 compiled (``exact=False``) and staged within 1e-4, P1
+    compiled and the search case bitwise world 1, every rank's bytes
+    equal; P1's graphs captured at each rank's block of the buckets the
+    world divides; the search case's buckets run eagerly (a gloo gather
+    inside); other rows on a rank raise on every rank."""
+    R, data, w1 = sharded_card_case
+    res = R.run(2, tmp_path, "sharded_eval_suite", data, "cuda", "auto", device="cuda:0")
+    for r in res:
+        for n in R.EVAL_SIZES:
+            _np_close(r["apply_fn"][n], w1["apply_fn"][n], 1e-6)
+            for c in w1["p1"][n]:
+                assert np.array_equal(r["p1"][n][c], w1["p1"][n][c], equal_nan=True), (n, c)
+                assert r["p1"][n][c].dtype == w1["p1"][n][c].dtype
+        _np_close(r["module"], w1["module"], 1e-4)
+        for key in ("p3_staged", "p3_compiled"):
+            for c in ("features", "raw_prediction", "probability"):
+                _np_close(r[key][c], w1[key][c], 1e-4)
+        for n, want in w1["search"].items():
+            for c in want:
+                assert np.array_equal(r["search"][n][c], want[c]), (n, c)
+        assert all(r["raised"].values())
+        assert r["apply_fn_frame"].tobytes() == res[0]["apply_fn_frame"].tobytes()
+        assert r["module"].tobytes() == res[0]["module"].tobytes()
+    assert set(res[0]["p1_decisions"].values()) == {"batch"}
+    for k in res[0]["p1_keys"]:
+        sharded = k[0] % 2 == 0
+        assert (k[-1] == ("block", k[0] // 2)) == sharded, k
+    assert all(res[0]["p1_graphs"].values())  # every P1 bucket holds a captured graph
+    assert res[0]["search_plan"]["steps"] and set(w1["search_plan"]["steps"]) == set()
+
+
+@pytest.mark.cuda
+def test_one_rank_group_takes_today_s_graphs(cuda_device, sharded_card_case, tmp_path):
+    """In a one-rank group (NCCL, world 1) P1 compiles to the graphs it
+    compiles to with no group at all (the same keys, every one captured)
+    with bitwise the same outputs, and TorchModel returns the same bytes."""
+    import torch.distributed as dist
+
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.models import TorchModel
+
+    R, data, w1 = sharded_card_case
+    cols = R.eval_cols()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rdv'}", world_size=1,
+                            rank=0)
+    try:
+        comp = R.eval_p1(data["p1"], "cuda").compile(max_bucket=R.EVAL_BUCKET)
+        for n in R.EVAL_SIZES:
+            out = comp.transform(DataFrame.from_dict({c: v[:n] for c, v in cols.items()}))
+            for c in w1["p1"][n]:
+                assert np.array_equal(out[c], w1["p1"][n][c], equal_nan=True), (n, c)
+        seg = comp.fused_segments[0]
+        assert sorted(seg._graphs, key=repr) == w1["p1_keys"]
+        assert all(g is not None for g in seg._graphs.values())
+        assert seg.sharding.mesh is None and seg.mesh.size == 1
+        tm = TorchModel(input_col="x", output_col="y", batch_size=R.EVAL_BATCH, output_node="y",
+                        device="cuda", apply_fn=R.eval_apply_fn,
+                        variables={"w": data["w"], "b": data["b"]})
+        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for n in R.EVAL_SIZES:
+                assert tm.apply_batch(data["x"][:n]).tobytes() == w1["apply_fn"][n].tobytes()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    finally:
+        dist.destroy_process_group()

@@ -199,24 +199,26 @@ def categorical_binary() -> tuple:
 # -- spawning ---------------------------------------------------------------
 
 
-def _entry(rank: int, world: int, rdv: str, out: str, suite: str) -> None:
+def _entry(rank: int, world: int, rdv: str, out: str, suite: str, device: str,
+           args: tuple) -> None:
     torch.set_num_threads(1)
     from mmlspark_tpu_torch.parallel import distributed
 
-    distributed.initialize(f"file://{rdv}", world, rank, device="cpu")
+    distributed.initialize(f"file://{rdv}", world, rank, device=device, backend="gloo")
     try:
-        res = globals()[suite](rank, world)
+        res = globals()[suite](rank, world, *args)
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(res, f)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def run(world: int, tmp_path, suite: str) -> list:
-    """Every rank's result of ``suite`` on ``world`` gloo ranks."""
+def run(world: int, tmp_path, suite: str, *args, device: str = "cpu") -> list:
+    """Every rank's result of ``suite(rank, world, *args)`` on ``world``
+    gloo ranks, each on ``device`` (several ranks share a card)."""
     rdv = os.path.join(str(tmp_path), f"rdv-{suite}-{world}")
     out = os.path.join(str(tmp_path), f"out-{suite}-{world}")
-    mp.spawn(_entry, args=(world, rdv, out, suite), nprocs=world, join=True)
+    mp.spawn(_entry, args=(world, rdv, out, suite, device, args), nprocs=world, join=True)
     res = []
     for r in range(world):
         with open(f"{out}.{r}", "rb") as f:
@@ -664,4 +666,210 @@ def ring_suite(rank: int, world: int) -> dict:
     with torch.no_grad():
         res = model(torch.from_numpy(x))
     out["vit"] = {k: _np(res[k]) for k in ("pool", "logits", "encoder")}
+    return out
+
+
+# -- sharded evaluation: TorchModel and compiled segments over the ranks -------
+
+EVAL_BATCH = 6          # batch_size: 6 rows at worlds 1 and 2, rounded up to 8 at world 4
+EVAL_ROWS = 130
+EVAL_SIZES = (0, 1, 2, 3, 5, 9, 17, 33, 65, 130)   # P1B_SIZES' row counts up to 130
+EVAL_BUCKET = 64        # max_bucket: 130 rows run as chunks of 64, 64 and 2
+EVAL_IMAGE, EVAL_IMAGES = 16, 7
+
+
+def eval_cols(n: int = EVAL_ROWS, seed: int = 41) -> dict:
+    """P1's columns (bench.py's pipeline cell) at ``n`` rows: x0..x15 f64,
+    vec (16,) f32, label in 0..3; Featurize makes 32 features of them."""
+    rng = np.random.default_rng(seed)
+    cols = {f"x{i}": rng.standard_normal(n) for i in range(16)}
+    cols["vec"] = rng.standard_normal((n, 16)).astype(np.float32)
+    cols["label"] = rng.integers(0, 4, n)
+    return cols
+
+
+def eval_data() -> dict:
+    """The TorchModel inputs: rows and an affine map's weights, uint8
+    images, and a logistic head over the small ResNet's 8 pooled features."""
+    rng = np.random.default_rng(43)
+    return {"x": rng.normal(size=(EVAL_ROWS, 5)).astype(np.float32),
+            "w": rng.normal(size=(5, 3)).astype(np.float32),
+            "b": rng.normal(size=(3,)).astype(np.float32),
+            "images": rng.integers(0, 256, size=(EVAL_IMAGES, EVAL_IMAGE, EVAL_IMAGE, 3),
+                                   dtype=np.uint8),
+            "head": {"weights": rng.normal(size=(8, 3)).astype(np.float32),
+                     "bias": rng.normal(size=(3,)).astype(np.float32)}}
+
+
+def perturbed(variables: dict, seed: int) -> dict:
+    """A flax-layout init with every leaf moved by a seeded numpy draw
+    (variances kept positive): a fresh init zeroes each block's last batch
+    norm, so its residual branch would output 0 and hide the convs."""
+    rng = np.random.default_rng(seed)
+
+    def move(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: move(x, k) for k, x in tree.items()}
+        a = np.asarray(tree, np.float32)
+        a = a + rng.normal(size=a.shape).astype(np.float32) * 0.1 * (np.abs(a).mean() + 0.1)
+        return np.abs(a) + 0.5 if key == "var" else a
+
+    return {k: move(variables[k]) for k in ("params", "batch_stats")}
+
+
+def eval_apply_fn(vs, x):
+    return {"y": torch.tanh(x @ vs["w"] + vs["b"]), "double": x * 2}
+
+
+def tanh_half(x):
+    return torch.tanh(x * 0.5)
+
+
+def eval_resnet(variables: "dict | None" = None):
+    """A two-stage ResNet of 4 filters (basic blocks, the 3x3 stem), f32,
+    carrying the flax-layout ``variables`` (None: bare)."""
+    from mmlspark_tpu_torch.models import resnet as TR
+
+    net = TR.ResNet([1, 1], TR.BasicBlock, num_classes=3, num_filters=4, dtype=torch.float32,
+                    small_inputs=True)
+    return net if variables is None else TR.load_flax_variables(net, variables)
+
+
+def eval_p1(params: dict, device: str = "cpu"):
+    """P1's fitted stages from ``params`` (the Featurize and
+    LogisticRegression models' set params, e.g. of the JAX package's fit),
+    the UDF and the head on ``device``."""
+    from mmlspark_tpu_torch import PipelineModel
+    from mmlspark_tpu_torch.featurize.featurize import FeaturizeModel
+    from mmlspark_tpu_torch.models.linear import LogisticRegressionModel
+    from mmlspark_tpu_torch.stages import UDFTransformer
+
+    return PipelineModel(stages=[
+        FeaturizeModel.from_jax_params(params["featurize"]),
+        UDFTransformer(input_col="features", output_col="features_s", vector_udf=tanh_half,
+                       jit_compatible=True, device=device),
+        LogisticRegressionModel.from_jax_params(params["lr"], device=device)])
+
+
+class KernelStage:
+    """A stage that is one fusable kernel (its staged transform runs the
+    kernel's function on each whole partition)."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def fusable_kernel(self):
+        return self.kernel
+
+    def transform(self, df):
+        k = self.kernel
+
+        def fn(p):
+            out = k.fn({c: torch.from_numpy(np.asarray(p[c])) for c in k.reads})
+            return {**p, **{c: v.numpy() for c, v in out.items()}}
+
+        return df.map_partitions(fn, parallel=False)
+
+
+def search_stages() -> list:
+    """The partitioner's search case run: three row-wise kernels on x and a
+    cross-row one (x minus its column means); the search picks batch for
+    x, so the cross-row kernel reads x all-gathered."""
+    from mmlspark_tpu_torch.compiler import StageKernel
+
+    row = [KernelStage(StageKernel(reads=("x",), writes=(f"y{i}",),
+                                   fn=lambda c, i=i: {f"y{i}": c["x"] * (i + 2.0)}))
+           for i in range(3)]
+    cross = KernelStage(StageKernel(
+        reads=("x",), writes=("z",), row_wise=False,
+        fn=lambda c: {"z": c["x"] - c["x"].mean(0, keepdim=True)}))
+    return row + [cross]
+
+
+def _frames(out) -> dict:
+    return {c: np.asarray(out[c]) for c in out.columns}
+
+
+def sharded_eval_outputs(data: dict, device: str = "cpu", mode: str = "batch") -> dict:
+    """Everything the sharded-evaluation tests compare, computed in this
+    process (a rank of a group, or world 1 outside one) on ``device``:
+    TorchModel with an ``apply_fn`` and with a module, the small
+    ImageFeaturizer staged and compiled into P3 (``exact=False``), P1
+    compiled at ``EVAL_SIZES`` rows and in three partitions, the search
+    case (each compiled in ``partition_mode=mode``), and the graphs, plans
+    and keys the segments kept."""
+    from mmlspark_tpu_torch import DataFrame, PipelineModel
+    from mmlspark_tpu_torch.compiler import CompiledPipeline
+    from mmlspark_tpu_torch.models import ImageFeaturizer, TorchModel
+    from mmlspark_tpu_torch.models.linear import LogisticRegressionModel
+
+    x, out = data["x"], {}
+    tm = TorchModel(input_col="x", output_col="y", batch_size=EVAL_BATCH, output_node="y",
+                    device=device, apply_fn=eval_apply_fn,
+                    variables={"w": data["w"], "b": data["b"]})
+    out["apply_fn"] = {n: tm.apply_batch(x[:n]) for n in EVAL_SIZES}
+    out["apply_fn_frame"] = tm.transform(DataFrame.from_dict({"x": x}, num_partitions=3))["y"]
+    net = eval_resnet(data["resnet"])
+    tmod = TorchModel(input_col="img", output_col="f", batch_size=EVAL_BATCH, output_node="pool",
+                      device=device, module=net)
+    out["module"] = tmod.apply_batch(data["images"].astype(np.float32))
+
+    def featurizer():
+        return ImageFeaturizer(input_col="image", output_col="features", module=net,
+                               image_size=EVAL_IMAGE, batch_size=EVAL_BATCH, device=device)
+
+    p3 = PipelineModel(stages=[featurizer(), LogisticRegressionModel(
+        features_col="features", num_classes=3, device=device).set(**data["head"])])
+    images = DataFrame.from_dict({"image": data["images"]}, num_partitions=2)
+    out["p3_staged"] = _frames(p3.transform(images))
+    comp3 = p3.compile(exact=False, partition_mode=mode)
+    out["p3_compiled"] = _frames(comp3.transform(images))
+    out["p3_segments"] = [len(s.nodes) for s in comp3.fused_segments]
+
+    cols = eval_cols()
+    comp = eval_p1(data["p1"], device).compile(partition_mode=mode, max_bucket=EVAL_BUCKET)
+    out["p1"] = {n: _frames(comp.transform(DataFrame.from_dict(
+        {c: v[:n] for c, v in cols.items()}))) for n in EVAL_SIZES}
+    out["p1_frame"] = _frames(comp.transform(DataFrame.from_dict(cols, num_partitions=3)))
+    seg = comp.fused_segments[0]
+    out["p1_keys"] = sorted(seg._graphs, key=repr)
+    out["p1_graphs"] = {repr(k): g is not None for k, g in seg._graphs.items()}
+    out["p1_decisions"] = dict(seg.sharding.decisions)
+
+    search = CompiledPipeline(search_stages(), partition_mode=mode, device=device)
+    out["search"] = {n: _frames(search.transform(DataFrame.from_dict({"x": x[:n]})))
+                     for n in (8, 12, 13)}
+    sseg = search.fused_segments[0]
+    out["search_plan"] = {"decisions": dict(sseg.sharding.decisions),
+                          "searched": sseg.sharding.searched,
+                          "steps": {k: (rp.per, rp.steps, sorted(rp.out_blocks))
+                                    for k, rp in sseg._rank_plans.items()}}
+    return out
+
+
+def sharded_eval_suite(rank: int, world: int, data: dict, device: str = "cpu",
+                       mode: str = "batch") -> dict:
+    """``sharded_eval_outputs`` on this rank, and the row-count check:
+    TorchModel and a compiled segment each called with other rows on each
+    rank must raise on every rank. On a card TF32 is off, as in the test
+    process that holds the ranks to world 1."""
+    from mmlspark_tpu_torch import DataFrame
+    from mmlspark_tpu_torch.models import TorchModel
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = sharded_eval_outputs(data, device, mode)
+    tm = TorchModel(input_col="x", output_col="y", batch_size=EVAL_BATCH, output_node="y",
+                    device=device, apply_fn=eval_apply_fn,
+                    variables={"w": data["w"], "b": data["b"]})
+    comp = eval_p1(data["p1"], device).compile(partition_mode=mode, max_bucket=EVAL_BUCKET)
+    raised = {}
+    for name, call in (("torch_model", lambda: tm.apply_batch(data["x"][: 5 + rank])),
+                       ("compiled", lambda: comp.transform(DataFrame.from_dict(
+                           {c: v[: 16 + rank] for c, v in eval_cols().items()})))):
+        try:
+            call()
+            raised[name] = None
+        except ValueError as e:
+            raised[name] = str(e)
+    out["raised"] = raised
     return out
